@@ -1,0 +1,583 @@
+"""Dataplane engine: the six-stage tick on torch tensors.
+
+Port of ``src/repro/core/engine.py`` (serial ``run_window`` only).  A window
+runs ``n_ticks`` calls of ``_tick``, each the reference's tick in its
+*sequential* form — ``grant_body``, ``srv_body`` and ``eg_body`` loops — with
+every shaping mode (NONE / HW / SW with stall mask and host-delay LCG) and
+every arbiter (RR / WRR / PRIORITY / WFQ):
+
+    1. token-bucket timers      -> Hopper token-bucket kernel (refill)
+    2. arrivals -> flow queues
+    3. per-tick link budgets
+    4. shaper + arbiter grants  -> Hopper token-bucket kernel (admission,
+                                   once per grant iteration)
+    5. accelerator service
+    6. egress link + completions
+
+The reference asserts that its one-shot fast paths equal these loops
+bitwise, so ``SimConfig.grant_fast`` / ``stage_fast`` are accepted and the
+loops run regardless.  Shaping mode and arbiter are plain Python values
+here (the port has no batched engine yet), so a tick computes only the
+branch its mode selects; ``where`` over both branches gives the same bits.
+
+The carry is a dict of tensors on one device (a ``TBState`` under ``"tb"``)
+with the reference's keys, shapes and dtypes, and it is **updated in
+place**: hand the returned carry forward, never reuse one passed in (the
+reference donates it for the same reason).  The tick issues no host sync:
+no ``.item()``, no Python branch on a tensor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import token_bucket as tb
+from repro_torch.core.accelerator import (GRID_TAB_MAX, AccelTable, fma32,
+                                          grid_blend, grid_position_table)
+from repro_torch.core.flow import FlowSet, Path
+from repro_torch.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ,
+                                           ARB_WRR, LinkSpec)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.token_bucket.ops import token_bucket_step
+
+SHAPING_NONE = 0
+SHAPING_HW = 1
+SHAPING_SW = 2
+
+INF_I32 = np.int32(2**31 - 1)
+_LCG_A = 1103515245
+_LCG_C = 12345
+_BIG = float(np.float32(3e38))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    n_ticks: int
+    tick_cycles: int = 8
+    clock_hz: float = 250e6
+    qlen: int = 256            # per-flow queue slots
+    aq_len: int = 256          # per-accelerator queue slots
+    aq_byte_cap: int = 1 << 20  # shared accel input buffer (bytes)
+    eq_len: int = 2048         # per-direction egress queue slots
+    comp_cap: int = 1 << 15    # completion record ring capacity
+    k_arr: int = 4             # max arrivals drained per flow per tick
+    k_grant: int = 4           # max arbiter grants per tick
+    k_srv: int = 2             # service starts per accelerator per tick
+    k_eg: int = 4              # egress pops per direction per tick
+    lmax: int = 16             # max accelerator lanes
+    shaping: int = SHAPING_HW
+    arbiter: int = ARB_RR
+    # software-shaping pathology model
+    sw_host_delay_cycles: int = 500      # ~2 us base host processing delay
+    sw_jitter_cycles: int = 2500         # up to +10 us heavy-tail jitter
+    # the reference's one-shot fast paths; accepted for config parity, the
+    # port always runs the sequential loops they are proven equal to
+    grant_fast: bool = True
+    stage_fast: bool = True
+
+    @property
+    def seconds(self) -> float:
+        return self.n_ticks * self.tick_cycles / self.clock_hz
+
+
+#: SimConfig fields the reference passes to its engine as traced values
+#: (runtime mode words rather than compile-time structure)
+TRACED_CFG_FIELDS = ("shaping", "arbiter", "sw_host_delay_cycles",
+                     "sw_jitter_cycles")
+
+
+# ---------------------------------------------------------------------------
+# Carry construction
+# ---------------------------------------------------------------------------
+
+
+def _own_tb(tb_state: tb.TBState, device) -> tb.TBState:
+    """Engine-owned copies of the TBState leaves on ``device`` (the carry is
+    updated in place, so it must not alias the caller's registers)."""
+    return tb.TBState(*(
+        x.to(device=device, dtype=torch.int32, copy=True)
+        if isinstance(x, torch.Tensor)
+        else torch.as_tensor(np.array(x, np.int32), device=device)
+        for x in tb_state))
+
+
+def init_carry(flows: FlowSet, accels: AccelTable, cfg: SimConfig,
+               tb_state: tb.TBState, *, device=None) -> dict[str, Any]:
+    dev = resolve_device(device)
+    N, A = flows.n, accels.n
+    lanes_busy = np.zeros((A, cfg.lmax), np.float32)
+    for a in range(A):
+        lanes_busy[a, accels.parallelism[a]:] = np.float32(3e38)  # disabled
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return dict(
+        q_sz=z(N, cfg.qlen), q_at=z(N, cfg.qlen), q_head=z(N), q_cnt=z(N),
+        arr_ptr=z(N),
+        tb=_own_tb(tb_state, dev), sw_pend=z(N),
+        rr_ptr=z(), vft=z(N, dtype=torch.float32),
+        lres=z(2, dtype=torch.float32),
+        res_res=z(0, dtype=torch.float32),   # no extra resource axes
+        credits_used=z(),
+        aq_sz=z(A, cfg.aq_len), aq_fl=z(A, cfg.aq_len),
+        aq_at=z(A, cfg.aq_len), aq_head=z(A), aq_cnt=z(A), aq_bytes=z(A),
+        lanes=torch.as_tensor(lanes_busy, device=dev),
+        eq_sz=z(3, cfg.eq_len), eq_isz=z(3, cfg.eq_len),
+        eq_fl=z(3, cfg.eq_len), eq_at=z(3, cfg.eq_len),
+        eq_rd=z(3, cfg.eq_len), eq_head=z(3), eq_cnt=z(3),
+        c_adm_msgs=z(N), c_adm_b_lo=z(N), c_adm_b_hi=z(N),
+        c_done_msgs=z(N), c_done_b_lo=z(N), c_done_b_hi=z(N), c_drops=z(N),
+        c_lat_sum=z(N, dtype=torch.float32),
+        # completion record ring (one scratch slot at index comp_cap)
+        comp_fl=z(cfg.comp_cap + 1), comp_lat=z(cfg.comp_cap + 1),
+        comp_t=z(cfg.comp_cap + 1), comp_sz=z(cfg.comp_cap + 1),
+        comp_n=z(),
+        rng=torch.tensor(0x1234567, dtype=torch.int32, device=dev),
+    )
+
+
+def reconfigure_carry(carry: dict, tb_state: tb.TBState) -> dict:
+    """Live reconfiguration: write only the parameter "registers"
+    (Refill_Rate / Bkt_Size / Interval / mode); in-flight tokens and timers
+    are hardware state and keep running."""
+    carry = dict(carry)
+    old = carry["tb"]
+    new = _own_tb(tb_state, old.tokens.device)
+    carry["tb"] = old._replace(
+        refill_rate=new.refill_rate, bkt_size=new.bkt_size,
+        interval=new.interval, mode=new.mode,
+        tokens=torch.minimum(old.tokens, new.bkt_size))
+    return carry
+
+
+def carry_from_numpy(carry_np: dict, device=None) -> dict:
+    """The port's carry from a host copy of the reference engine's carry
+    (``jax.device_get`` of it: numpy leaves, a ``TBState`` under "tb")."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in carry_np.items():
+        if k == "tb":
+            out[k] = tb.TBState(*(torch.as_tensor(np.array(x)).to(dev)
+                                  for x in v))
+        else:
+            out[k] = torch.as_tensor(np.array(v)).to(dev)
+    return out
+
+
+def carry_to_numpy(carry: dict) -> dict:
+    """Host copy of a carry (numpy leaves; "tb" as a tuple of arrays)."""
+    def host(x):
+        return x.to("cpu", copy=True).numpy()
+    return {k: (tuple(host(x) for x in v) if k == "tb" else host(v))
+            for k, v in carry.items()}
+
+
+# ---------------------------------------------------------------------------
+# Per-window arguments
+# ---------------------------------------------------------------------------
+
+
+def _accel_mask(tab: AccelTable) -> np.ndarray:
+    """Per-accelerator validity mask (active = has at least one lane);
+    active accelerators must form a prefix of the table."""
+    m = np.asarray(tab.parallelism) > 0
+    if np.any(~m[:-1] & m[1:]):
+        raise ValueError(
+            "active accelerators (parallelism > 0) must form a prefix of "
+            f"the AccelTable (got parallelism={list(tab.parallelism)})")
+    return m
+
+
+def _flow_args(flows: FlowSet) -> dict[str, np.ndarray]:
+    """Per-flow routing/weight tables (every lane is an active flow: the
+    port has no padded batch, so no validity mask)."""
+    return dict(
+        fl_accel=np.asarray(flows.accel_id, np.int32),
+        fl_in_dir=np.asarray(flows.ingress_dir, np.int32),
+        fl_eg_dir=np.asarray(flows.egress_dir, np.int32),
+        # inline-NIC-RX delivers the full payload to the host no matter what
+        # the accelerator emits; other paths transfer the accel's output.
+        fl_eg_full=np.asarray(flows.path == int(Path.INLINE_NIC_RX), bool),
+        fl_prio=np.asarray(flows.priority, np.float32),
+        fl_w=np.asarray(np.maximum(flows.weight, 1e-3), np.float32),
+    )
+
+
+def _window_stall(stall_mask, cfg: SimConfig, t0_ticks) -> np.ndarray:
+    """Window-relative ``[n_ticks]`` stall mask."""
+    if stall_mask is None:
+        return np.zeros(cfg.n_ticks, bool)
+    stall_mask = np.asarray(stall_mask, bool)
+    if stall_mask.shape[-1] == cfg.n_ticks:
+        return stall_mask
+    t0 = int(t0_ticks)
+    if stall_mask.shape[-1] < t0 + cfg.n_ticks:
+        raise ValueError(
+            f"stall mask covers {stall_mask.shape[-1]} ticks < "
+            f"t0+n_ticks={t0 + cfg.n_ticks}")
+    return stall_mask[..., t0:t0 + cfg.n_ticks]
+
+
+def _check_modes(cfg: SimConfig) -> None:
+    if cfg.arbiter not in (ARB_RR, ARB_WRR, ARB_PRIORITY, ARB_WFQ):
+        raise ValueError(cfg.arbiter)
+    if cfg.shaping not in (SHAPING_NONE, SHAPING_HW, SHAPING_SW):
+        raise ValueError(cfg.shaping)
+
+
+def _as_i32(x, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+
+def _pack_args(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+               cfg: SimConfig, arr_t, arr_sz, stall_mask, t0_ticks,
+               dev) -> dict[str, Any]:
+    _check_modes(cfg)
+    if getattr(link, "resources", ()):
+        raise NotImplementedError(
+            "repro_torch: the shaped resource vector (LinkSpec.resources) "
+            "is not ported yet")
+    h2d_bpc, d2h_bpc = link.bytes_per_cycle()
+    fa = _flow_args(flows)
+    ac_mask = _accel_mask(accels)
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+    N = flows.n
+    args = dict(
+        arr_t=_as_i32(arr_t, dev), arr_sz=_as_i32(arr_sz, dev),
+        svc_tab=t(accels.service_cycles, torch.float32),
+        eg_tab=t(accels.egress_bytes, torch.float32),
+        ac_mask=[bool(m) for m in ac_mask],
+        bpc=t(np.asarray([h2d_bpc, d2h_bpc], np.float32), torch.float32),
+        # per egress direction (dir 2 is off-fabric and never divides)
+        bpc3=t(np.asarray([h2d_bpc, d2h_bpc, d2h_bpc], np.float32),
+               torch.float32),
+        ovh=float(np.float32(link.msg_overhead_bytes)),
+        credits=int(link.credits),
+        stall=t(_window_stall(stall_mask, cfg, t0_ticks), torch.bool),
+        fl_accel=t(fa["fl_accel"], torch.long),
+        fl_in_dir=t(fa["fl_in_dir"], torch.int32),
+        fl_in01=t(np.minimum(fa["fl_in_dir"], 1), torch.long),
+        fl_in_off=t(fa["fl_in_dir"] == 2, torch.bool),
+        fl_eg_dir=t(fa["fl_eg_dir"], torch.long),
+        fl_eg_full=t(fa["fl_eg_full"], torch.bool),
+        fl_prio=t(fa["fl_prio"], torch.float32),
+        fl_w=t(fa["fl_w"], torch.float32),
+        # constants reused every tick (no per-tick allocation from Python)
+        iota_n=torch.arange(N, dtype=torch.int32, device=dev),
+        iota_l=torch.arange(N, dtype=torch.long, device=dev),
+        jj_arr=torch.arange(cfg.k_arr, dtype=torch.int32, device=dev),
+        ar2=torch.arange(2, dtype=torch.long, device=dev),
+        dirs=torch.arange(3, dtype=torch.long, device=dev),
+        ar3p1=torch.arange(1, 4, dtype=torch.int32, device=dev),
+        e_zero=torch.zeros(1, dtype=torch.int32, device=dev),
+        e_tick=torch.full((1,), cfg.tick_cycles, dtype=torch.int32,
+                          device=dev),
+        no_want=torch.zeros(N, dtype=torch.bool, device=dev),
+        bud_off=torch.full((1,), _BIG, dtype=torch.float32, device=dev),
+        grid=grid_position_table(dev),
+    )
+    return args
+
+
+# ---------------------------------------------------------------------------
+# The tick
+# ---------------------------------------------------------------------------
+
+
+def _lcg(rng: torch.Tensor) -> torch.Tensor:
+    return tb.wrap_i32(rng.long() * _LCG_A + _LCG_C)
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _arb_key(arb: int, rr_key, fl_prio, vft):
+    """Arbiter key (lower = served first) from the cyclic RR key; the
+    compiled reference fuses each product into its add."""
+    if arb == ARB_PRIORITY:
+        return fma32(-fl_prio, 1e6, rr_key)
+    if arb in (ARB_WRR, ARB_WFQ):
+        return fma32(_f32(1e-6), rr_key, vft)
+    return rr_key
+
+
+def _host_delay(u, sw_jit, sw_delay):
+    """``sw_delay + u ** 4 * sw_jit`` as the compiled reference computes it:
+    ``(u * u) * (u * u)``, the jitter's multiply fused into the add."""
+    u2 = u * u
+    return fma32(u2 * u2, sw_jit, sw_delay)
+
+
+# Single elements are read and written through [1]-shaped index tensors
+# with gather / scatter_ on flat views: indexing with a 0-dim tensor would
+# read it back to the host, and advanced indexing / index_put_ cost several
+# launches (sorting, bounds asserts) per element on the GPU.
+
+
+def _put(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor, ok, v):
+    """x[row, col] = v where ``ok`` (else unchanged), for [1] indices."""
+    flat = row * x.shape[1] + col
+    old = x.view(-1).gather(0, flat)
+    x.view(-1).scatter_(0, flat, torch.where(ok, v, old))
+
+
+def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
+    """One simulated tick, in place on the carry ``c``."""
+    fl_accel, fl_in_dir = args["fl_accel"], args["fl_in_dir"]
+    fl_eg_dir, fl_eg_full = args["fl_eg_dir"], args["fl_eg_full"]
+    svc_tab, eg_tab = args["svc_tab"], args["eg_tab"]
+    ac_mask = args["ac_mask"]
+    ovh, credits = args["ovh"], args["credits"]
+    iota_n, iota_l = args["iota_n"], args["iota_l"]
+    N = iota_n.shape[0]
+    A = svc_tab.shape[0]
+    sw = cfg.shaping == SHAPING_SW
+    shaped = cfg.shaping != SHAPING_NONE
+    arb = cfg.arbiter
+
+    now = t * cfg.tick_cycles
+    now_end = now + cfg.tick_cycles
+    is_stall = args["stall"][t - t0] if sw else None
+
+    # -- 1. token-bucket timers (Hopper kernel, refill only) ----------------
+    # host descheduled (software shaping): refills deferred, catch up on
+    # wakeup; hardware shaping and unshaped systems tick every cycle
+    if sw:
+        pend = c["sw_pend"] + cfg.tick_cycles
+        elapsed = torch.where(is_stall, 0, pend)
+        c["sw_pend"] = torch.where(is_stall, pend, 0)
+    else:
+        elapsed = args["e_tick"]
+        c["sw_pend"].zero_()
+    st = c["tb"]
+    c["tb"], _ = token_bucket_step(st, elapsed, out=(st.tokens, st.cyc))
+
+    # -- 2. arrivals -> per-flow queues (single gather) ---------------------
+    arr_t, arr_sz = args["arr_t"], args["arr_sz"]
+    M = arr_t.shape[1]
+    jj = args["jj_arr"]
+    pos = c["arr_ptr"][:, None] + jj[None, :]
+    gidx = torch.clamp(pos, max=M - 1).long()
+    nxt_t = arr_t.gather(1, gidx)
+    nxt_s = arr_sz.gather(1, gidx)
+    due = (nxt_t < now_end) & (pos < M)
+    n_due = due.sum(1, dtype=torch.int32)
+    n_take = torch.minimum(n_due, torch.clamp(cfg.qlen - c["q_cnt"], min=0))
+    take = due & (jj[None, :] < n_take[:, None])
+    slot = ((c["q_head"][:, None] + c["q_cnt"][:, None] + jj[None, :])
+            % cfg.qlen).long()
+    for k, v in (("q_sz", nxt_s), ("q_at", nxt_t)):
+        c[k].scatter_(1, slot, torch.where(take, v, c[k].gather(1, slot)))
+    c["q_cnt"] += n_take
+    c["arr_ptr"] += n_due
+    c["c_drops"] += n_due - n_take
+
+    # -- 3. per-tick link budgets ------------------------------------------
+    budget = args["bpc"] * float(cfg.tick_cycles) + c["lres"]  # [2] bytes
+
+    # -- 4. shaper + arbiter grants (sequential argmin loop) ----------------
+    if arb == ARB_WRR:
+        vft_unit = 1.0 / args["fl_w"]
+    gbps = c["tb"].mode == tb.MODE_GBPS     # registers are fixed in a tick
+    for _ in range(cfg.k_grant):
+        head = c["q_head"].long()[:, None]
+        head_sz = c["q_sz"].gather(1, head)[:, 0]
+        head_at = c["q_at"].gather(1, head)[:, 0]
+        st = c["tb"]
+        cost = torch.where(gbps, head_sz, 1)
+        elig = ((c["q_cnt"] > 0)
+                & (c["aq_cnt"].gather(0, fl_accel) < cfg.aq_len)
+                & (c["aq_bytes"].gather(0, fl_accel) + head_sz
+                   <= cfg.aq_byte_cap)
+                & (c["credits_used"] < credits))
+        if shaped:
+            elig &= st.tokens >= cost
+        # a message may start whenever the link has *any* budget left; it
+        # then drives the budget negative (its serialization time)
+        bud_f = torch.where(args["fl_in_off"], _BIG,
+                            budget.gather(0, args["fl_in01"]))
+        elig &= bud_f > 0.0
+        if sw:
+            elig &= ~is_stall
+        # arbiter key (lower = served first): lanes in cyclic order after
+        # the last grant, under priority or virtual finish time for the
+        # other arbiters
+        key = _arb_key(arb, torch.remainder(iota_n - c["rr_ptr"] - 1,
+                                            N).float(),
+                       args["fl_prio"], c["vft"])
+        key = torch.where(elig, key, _BIG)
+        g = torch.argmin(key, dim=0, keepdim=True)          # [1]
+        ok = elig.gather(0, g)
+        sz = head_sz.gather(0, g)
+        at = head_at.gather(0, g)
+        onehot = (iota_l == g) & ok
+        onehot_i, ok_i, g_i = (x.to(torch.int32) for x in (onehot, ok, g))
+        szf = sz.float()
+        # consume tokens (Hopper kernel, admission; transparent unshaped)
+        c["tb"], _ = token_bucket_step(
+            st, args["e_zero"], cost, onehot if shaped else args["no_want"],
+            out=(st.tokens, st.cyc))
+        # pop flow queue
+        c["q_head"] = (c["q_head"] + onehot_i) % cfg.qlen
+        c["q_cnt"] -= onehot_i
+        # link budget + credits (per-message fabric overhead included)
+        spend = torch.where((fl_in_dir.gather(0, g) != 2) & ok, szf + ovh,
+                            0.0)
+        budget = budget - torch.where(
+            args["ar2"] == args["fl_in01"].gather(0, g), spend, 0.0)
+        c["credits_used"] += ok_i.view(())
+        # accel queue push
+        a = fl_accel.gather(0, g)
+        slot = ((c["aq_head"].gather(0, a) + c["aq_cnt"].gather(0, a))
+                % cfg.aq_len).long()
+        _put(c["aq_sz"], a, slot, ok, sz)
+        _put(c["aq_fl"], a, slot, ok, g_i)
+        _put(c["aq_at"], a, slot, ok, at)
+        c["aq_cnt"].scatter_add_(0, a, ok_i)
+        c["aq_bytes"].scatter_add_(0, a, torch.where(ok, sz, 0))
+        # arbiter state (WRR message-granular, WFQ byte-granular)
+        c["rr_ptr"] = torch.where(ok, g_i, c["rr_ptr"]).view(())
+        vft_inc = vft_unit if arb == ARB_WRR else szf / args["fl_w"]
+        c["vft"] = c["vft"] + torch.where(onehot, vft_inc, 0.0)
+        # counters
+        c["c_adm_msgs"] += onehot_i
+        lo = c["c_adm_b_lo"] + torch.where(onehot, sz, 0)
+        c["c_adm_b_hi"] += lo >> 20
+        c["c_adm_b_lo"] = lo & 0xFFFFF
+
+    # -- 5. accelerator service (pass-major: iteration i serves i % A) ------
+    f_now, f_end = _f32(now), _f32(now_end)
+    grid_i0, grid_frac = args["grid"]
+    for i in range(A * cfg.k_srv):
+        a = i % A
+        sa = slice(a, a + 1)
+        lanes_a = c["lanes"][a]
+        lane = torch.argmin(lanes_a, dim=0, keepdim=True)
+        lv = lanes_a.gather(0, lane)
+        # a lane that frees during this tick may chain back-to-back
+        ok = (lv < f_end) & (c["aq_cnt"][sa] > 0)
+        if not ac_mask[a]:
+            ok = ok & False
+        h = c["aq_head"][sa].long()
+        sz = c["aq_sz"][a].gather(0, h)
+        fl = c["aq_fl"][a].gather(0, h).long()
+        at = c["aq_at"][a].gather(0, h)
+        szf = sz.float()
+        gi = torch.clamp(sz, 0, GRID_TAB_MAX).long()
+        i0, frac = grid_i0.gather(0, gi), grid_frac.gather(0, gi)
+        svc = grid_blend(svc_tab, a, i0, frac)
+        esz = torch.where(fl_eg_full.gather(0, fl), szf,
+                          grid_blend(eg_tab, a, i0, frac))
+        end = torch.clamp(lv, min=f_now) + svc
+        lanes_a.scatter_(0, lane, torch.where(ok, end, lv))
+        oki = ok.to(torch.int32)
+        c["aq_head"][sa] = (c["aq_head"][sa] + oki) % cfg.aq_len
+        c["aq_cnt"][sa] -= oki
+        c["aq_bytes"][sa] -= torch.where(ok, sz, 0)
+        if sw:
+            # host-processing delay: the LCG advances once per active-
+            # accelerator iteration, busy or idle
+            r = _lcg(c["rng"])
+            if ac_mask[a]:
+                c["rng"] = r
+            u = torch.remainder(r.long().abs(), 65536).float() / 65536.0
+            hostd = _host_delay(u, args["sw_jit"], args["sw_delay"])
+            ready = (end + hostd).to(torch.int32)
+        else:
+            ready = end.to(torch.int32)
+        # egress queue push
+        d = fl_eg_dir.gather(0, fl)
+        cnt_d = c["eq_cnt"].gather(0, d)
+        slot = ((c["eq_head"].gather(0, d) + cnt_d) % cfg.eq_len).long()
+        okq = ok & (cnt_d < cfg.eq_len)
+        _put(c["eq_sz"], d, slot, okq,
+             torch.clamp(esz.to(torch.int32), min=1))
+        _put(c["eq_isz"], d, slot, okq, sz)
+        _put(c["eq_fl"], d, slot, okq, fl.to(torch.int32))
+        _put(c["eq_at"], d, slot, okq, at)
+        _put(c["eq_rd"], d, slot, okq, ready)
+        c["eq_cnt"].scatter_add_(0, d, okq.to(torch.int32))
+
+    # -- 6. egress link + completions (sequential pops) ---------------------
+    dirs = args["dirs"]
+    for _ in range(cfg.k_eg):
+        h = c["eq_head"].long()[:, None]
+        sz, isz, fl, at, rd = (c[k].gather(1, h)[:, 0] for k in
+                               ("eq_sz", "eq_isz", "eq_fl", "eq_at", "eq_rd"))
+        bud3 = torch.cat([budget, args["bud_off"]])
+        pop = (c["eq_cnt"] > 0) & (rd < now_end) & (bud3 > 0.0)
+        popi = pop.to(torch.int32)
+        c["eq_head"] = (c["eq_head"] + popi) % cfg.eq_len
+        c["eq_cnt"] -= popi
+        budget = budget - torch.where(pop[:2], sz[:2].float() + ovh, 0.0)
+        n_pop = popi.sum(dtype=torch.int32)
+        c["credits_used"] -= n_pop
+        # completion = transfer start + own serialization delay
+        ser = torch.where(dirs < 2, sz.float() / args["bpc3"], 0.0)
+        comp_time = torch.clamp(rd, min=now) + ser.to(torch.int32)
+        lat = comp_time - at
+        # completion ring; non-pops all land in the scratch slot comp_cap,
+        # which ends up holding the last non-pop's values (as an in-order
+        # scatter leaves it), written identically by every duplicate
+        base = c["comp_n"]
+        offs = torch.cumsum(popi, 0, dtype=torch.int32) - popi
+        idx = torch.where(pop, (base + offs) % cfg.comp_cap,
+                          cfg.comp_cap).long()
+        last = ((~pop).to(torch.int32) * args["ar3p1"]).argmax(
+            dim=0, keepdim=True)
+        for k, v in (("comp_fl", fl), ("comp_lat", lat),
+                     ("comp_t", comp_time), ("comp_sz", isz)):
+            c[k].scatter_(0, idx, torch.where(pop, v, v.gather(0, last)))
+        c["comp_n"] = base + n_pop
+        # per-flow counters; integer adds commute, the float latency sum
+        # is added direction by direction, in the reference's order
+        fll = fl.long()
+        c["c_done_msgs"].scatter_add_(0, fll, popi)
+        lo = c["c_done_b_lo"].scatter_add(0, fll, torch.where(pop, isz, 0))
+        c["c_done_b_hi"] += lo >> 20
+        c["c_done_b_lo"] = lo & 0xFFFFF
+        latf = torch.where(pop, lat.float(), 0.0)
+        for d in range(3):
+            c["c_lat_sum"].scatter_add_(0, fll[d:d + 1], latf[d:d + 1])
+
+    # positive leftover budget is lost (a link cannot save idle time);
+    # negative budget (serialization debt) carries
+    c["lres"] = torch.clamp(budget, max=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+def run_window(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+               cfg: SimConfig, tb_state: tb.TBState, arr_t, arr_sz,
+               stall_mask=None, *, t0_ticks: int = 0,
+               carry: dict | None = None, device=None) -> dict:
+    """Run one window of ``cfg.n_ticks`` ticks; returns the carry.
+
+    ``carry=None`` starts a fresh dataplane with ``tb_state`` as its bucket
+    state; a carry from an earlier window resumes it with ``tb_state``'s
+    registers written (tokens clamp to the new bucket size).  The carry is
+    updated in place — hand the returned one forward."""
+    dev = resolve_device(device)
+    args = _pack_args(flows, accels, link, cfg, arr_t, arr_sz, stall_mask,
+                      t0_ticks, dev)
+    if cfg.shaping == SHAPING_SW:
+        args["sw_delay"] = _f32(cfg.sw_host_delay_cycles)
+        args["sw_jit"] = _f32(cfg.sw_jitter_cycles)
+    if carry is None:
+        carry = init_carry(flows, accels, cfg, tb_state, device=dev)
+    else:
+        carry = reconfigure_carry(carry, tb_state)
+    t0 = int(t0_ticks)
+    for t in range(t0, t0 + cfg.n_ticks):
+        _tick(cfg, args, carry, t, t0)
+    return carry

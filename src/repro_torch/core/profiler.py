@@ -1,0 +1,302 @@
+"""Offline profiling -> Capacity(t, X, N) tables (Arcus §3.3, §4.3).
+
+"We propose to perform offline profiling to learn Capacity(t, X, N), i.e.,
+the available capacity of an accelerator X at a given time t shared by N
+VMs, w.r.t. traffic patterns T, path mode combinations P, and system
+settings S."
+
+A *context* is (accelerator, [(path, msg-size bucket, load bucket)] per
+flow).  For each context the profiler runs a short, unshaped, full-load
+dataplane simulation and records the aggregate achievable capacity and the
+per-flow split.  Entries carry a 1-bit SLO-Friendly / SLO-Violating tag,
+evaluated against a concrete SLO vector at query time.
+
+Port of ``src/repro/core/profiler.py``: contexts are profiled one
+``simulate`` at a time on the table's device; the batched
+``profile_contexts`` / ``sweep`` / ``profile_contexts_multi`` wait for the
+port's batched engine.  Tables written by the reference load with
+``from_json`` (same schema, same keys).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+
+from repro_torch.core import baselines, token_bucket as tb
+from repro_torch.core.accelerator import AccelTable, AcceleratorSpec
+from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
+                                   TrafficPattern)
+from repro_torch.core.interconnect import ARB_RR, RES_LINK, LinkSpec
+from repro_torch.core.sim import (SHAPING_NONE, SimConfig, gen_arrivals,
+                                  simulate)
+from repro_torch.device import resolve_device
+
+
+def msg_bucket(msg_bytes: int) -> int:
+    """Log2 bucket of the message size (64B..1MB)."""
+    return int(np.clip(np.round(np.log2(max(msg_bytes, 1))), 6, 20))
+
+
+def canonical_order(flows: list[tuple[Path, int, float]]) -> list[int]:
+    """Indices sorting a context into canonical (path, msg bucket, load
+    decile) order — the single source of truth for how
+    ``CapacityEntry.per_flow_gbps`` (and any positional SLO vector fed to
+    ``slo_tag``) is ordered.  Context tuples may carry a 4th element (a
+    per-tenant resource-demand hint); it does not participate in the sort
+    key, so hinted and unhinted contexts order identically."""
+    return sorted(range(len(flows)),
+                  key=lambda i: (int(flows[i][0]), msg_bucket(flows[i][1]),
+                                 int(round(flows[i][2] * 10))))
+
+
+def canonical_context(flows: list[tuple[Path, int, float]]
+                      ) -> list[tuple[Path, int, float]]:
+    """Context flows in canonical order (see ``canonical_order``)."""
+    return [flows[i] for i in canonical_order(flows)]
+
+
+def context_key(accel_name: str,
+                flows: list[tuple[Path, int, float]]) -> str:
+    """Canonical context: accel + sorted (path, msg bucket, load decile).
+
+    A non-empty resource-demand hint (optional 4th tuple element) is
+    appended to that flow's key part — a hinted tenant profiles under its
+    own context.  Hint-free tuples produce keys bitwise-identical to the
+    pre-vector format, so committed baselines keep hitting."""
+    parts = []
+    for t in canonical_context(flows):
+        s = (f"{int(t[0])}.{msg_bucket(t[1])}.{int(round(t[2] * 10))}")
+        if len(t) > 3 and t[3]:
+            s += "~" + ",".join(f"{nm}:{ic:g}:{ec:g}"
+                                for nm, ic, ec in t[3])
+        parts.append(s)
+    return accel_name + "|" + ";".join(parts)
+
+
+@dataclasses.dataclass(init=False)
+class CapacityEntry:
+    """Profiled capacity of one context, as a resource vector.
+
+    Axis 0 is always the link: ``capacity[0]`` is the measured aggregate
+    ingress goodput and ``per_flow[0]`` the measured per-flow split under
+    fair arbitration.  Each extra axis r >= 1 mirrors one
+    ``LinkSpec.resources`` entry of the reference (``capacity[r]`` its
+    shaped capacity, ``per_flow[r][i]`` the flow's demand coefficient);
+    the port profiles the link axis only, and reads extra axes from
+    tables the reference wrote.  Scalar positional arguments (the
+    pre-vector schema) are promoted to R=1 vectors."""
+
+    capacity: list          # [R] Gbps per axis (axis 0 measured)
+    per_flow: list          # [R][n]: measured split / demand coefficients
+    fairness: float         # Jain's index of the link split
+    ctx: str
+    res_names: list         # [R] axis names (axis 0 = "link")
+
+    def __init__(self, capacity, per_flow=None, fairness: float = 0.0,
+                 ctx: str = "", res_names=None):
+        if not isinstance(capacity, (list, tuple, np.ndarray)):
+            capacity = [capacity]              # scalar -> R=1 degenerate
+        per_flow = [] if per_flow is None else per_flow
+        if not (len(per_flow) and isinstance(per_flow[0],
+                                             (list, tuple, np.ndarray))):
+            per_flow = [per_flow]              # flat split -> R=1
+        self.capacity = [float(c) for c in capacity]
+        self.per_flow = [[float(g) for g in row] for row in per_flow]
+        self.fairness = float(fairness)
+        self.ctx = ctx
+        if res_names is None:
+            res_names = [RES_LINK] + [f"res{r}"
+                                      for r in range(1, len(self.capacity))]
+        self.res_names = list(res_names)
+
+    def slo_tag(self, slo_gbps: list[float], margin: float = 0.02) -> bool:
+        """True = SLO-Friendly: requested SLOs fit the profiled capacity and
+        no single SLO exceeds what contention lets one flow reach.
+
+        The per-flow ceiling is ``n * per_flow_gbps[i]``: a flow whose
+        contended fair split is g can at best inherit the other n-1 flows'
+        arbiter rounds when shaping throttles them, i.e. ~n x g — a
+        small-message flow cannot be promised a large-message flow's rate
+        no matter how the others are shaped (Fig. 7 heterogeneity).
+        ``slo_gbps`` aligns positionally with ``per_flow_gbps`` (canonical
+        context order) when the lengths match; aggregate-style queries
+        (fewer SLOs than profiled flows) are checked against the best
+        single-flow ceiling.
+
+        Defined as ``slo_margin >= 0`` — one copy of the constraint
+        logic; the normalization there preserves every inequality's sign
+        exactly, so decisions are identical to checking the raw
+        inequalities."""
+        return self.slo_margin(slo_gbps, margin) >= 0
+
+    def _axis_demand(self, r: int, slo_gbps: list[float]) -> float:
+        """Gbps the SLO vector puts on extra axis r (coefficient-weighted;
+        aggregate-style queries use the worst coefficient)."""
+        coefs = self.per_flow[r]
+        if coefs and len(slo_gbps) == len(coefs):
+            return sum(s * c for s, c in zip(slo_gbps, coefs))
+        worst = max(coefs, default=1.0)
+        return sum(s * worst for s in slo_gbps)
+
+    def residual_gbps(self, slo_gbps: list[float],
+                      margin: float = 0.02) -> float:
+        """Profiled capacity left once the context's SLO vector is honored
+        (negative = oversubscribed), minimized over every resource axis.
+        The quantity best-fit placement packs on: the server whose
+        post-admission residual is smallest-but-nonnegative is the
+        tightest fit.  R=1 entries reduce to the link-axis residual."""
+        res = self.capacity[0] * (1 - margin) - sum(slo_gbps)
+        for r in range(1, len(self.capacity)):
+            res = min(res, self.capacity[r] * (1 - margin)
+                      - self._axis_demand(r, slo_gbps))
+        return res
+
+    def slo_margins(self, slo_gbps: list[float], margin: float = 0.02
+                    ) -> list[float]:
+        """Per-axis normalized headroom, aligned with ``res_names``.
+
+        Axis 0 is the pre-vector ``slo_margin``: min of
+        (limit - demand) / limit over the aggregate link capacity and the
+        per-flow contention ceilings.  Each extra axis r compares the
+        coefficient-weighted SLO demand against the axis' shaped
+        capacity."""
+        cap = self.capacity[0] * (1 - margin)
+        m = (cap - sum(slo_gbps)) / max(cap, 1e-12)
+        n = len(self.per_flow[0])
+        ceil = [n * g * (1 - margin) for g in self.per_flow[0]]
+        if n and len(slo_gbps) == n:
+            pairs = zip(slo_gbps, ceil)
+        else:
+            best = max(ceil, default=cap)
+            pairs = ((s, best) for s in slo_gbps)
+        for s, c in pairs:
+            m = min(m, (c - s) / max(c, 1e-12))
+        out = [m]
+        for r in range(1, len(self.capacity)):
+            lim = self.capacity[r] * (1 - margin)
+            out.append((lim - self._axis_demand(r, slo_gbps))
+                       / max(lim, 1e-12))
+        return out
+
+    def slo_margin(self, slo_gbps: list[float], margin: float = 0.02
+                   ) -> float:
+        """Worst-case headroom across ALL resource axes: the min of
+        ``slo_margins``.  Sign-consistent with ``slo_tag`` (>= 0 iff
+        SLO-Friendly); the magnitude is what SLO-aware placement maximizes.
+        R=1 entries reproduce the pre-vector value bitwise (the min over a
+        single axis is that axis)."""
+        ms = self.slo_margins(slo_gbps, margin)
+        m = ms[0]
+        for v in ms[1:]:
+            m = min(m, v)
+        return m
+
+
+def _context_specs(flows: list[tuple[Path, int, float]]) -> list[FlowSpec]:
+    out = []
+    for i, t in enumerate(canonical_context(flows)):
+        p, m, l = t[0], t[1], t[2]
+        hint = tuple(tuple(h) for h in t[3]) if len(t) > 3 else ()
+        out.append(FlowSpec(i, i, p, 0,
+                            TrafficPattern(msg_bytes=m, load=max(l, 0.99),
+                                           process="poisson"),
+                            SLO.gbps(1e9), weight=1.0, res_demand=hint))
+    return out
+
+
+class ProfileTable:
+    """The ProfileTable of Sec. 4.3 — pointer per context to profiled
+    Capacity results."""
+
+    def __init__(self, link: LinkSpec | None = None,
+                 *, n_ticks: int = 60_000, tick_cycles: int = 8,
+                 clock_hz: float | None = None, device=None):
+        self.device = resolve_device(device)
+        self.entries: dict[str, CapacityEntry] = {}
+        self.link = link or LinkSpec()
+        self.n_ticks = n_ticks
+        self.tick_cycles = tick_cycles
+        # profiling runs on the table's link clock unless explicitly
+        # overridden — dataplane rates, accelerator service cycles and the
+        # profiled window seconds then all derive from ONE clock, as in
+        # run_managed; an explicit clock_hz wins
+        self.clock_hz = float(clock_hz if clock_hz is not None
+                              else self.link.clock_hz)
+
+    def _cfg(self) -> SimConfig:
+        return SimConfig(n_ticks=self.n_ticks, tick_cycles=self.tick_cycles,
+                         clock_hz=self.clock_hz,
+                         shaping=SHAPING_NONE, arbiter=ARB_RR)
+
+    def _entry_from_result(self, key: str, res, n: int) -> CapacityEntry:
+        """The link-axis entry (the engine rejects extra resource axes)."""
+        per = [res.mean_ingress_gbps(i, None) for i in range(n)]
+        x = np.asarray(per)
+        fair = float((x.sum() ** 2) / (len(x) * (x ** 2).sum() + 1e-12))
+        entry = CapacityEntry([float(x.sum())], [per], fair, key, [RES_LINK])
+        self.entries[key] = entry
+        return entry
+
+    # -- profiling ------------------------------------------------------
+    def profile_context(self, accel: AcceleratorSpec,
+                        flows: list[tuple[Path, int, float]],
+                        *, seed: int = 0) -> CapacityEntry:
+        key = context_key(accel.name, flows)
+        if key in self.entries:
+            return self.entries[key]
+        specs = _context_specs(flows)
+        fset = FlowSet.build(specs)
+        atab = AccelTable.build([accel], self.clock_hz)
+        cfg = self._cfg()
+        ref = {i: accel.peak_gbps for i in range(len(specs))}
+        arr_t, arr_sz = gen_arrivals(fset, cfg, seed=seed, load_ref_gbps=ref)
+        tbs = baselines.make_tb_state(baselines.HOST_NO_TS,
+                                      [tb.TBParams(1, 1, 1)] * len(specs))
+        res = simulate(fset, atab, self.link, cfg, tbs, arr_t, arr_sz,
+                       device=self.device)
+        return self._entry_from_result(key, res, len(specs))
+
+    # -- queries --------------------------------------------------------
+    def lookup(self, accel_name: str,
+               flows: list[tuple[Path, int, float]]) -> CapacityEntry | None:
+        return self.entries.get(context_key(accel_name, flows))
+
+    def capacity(self, accel: AcceleratorSpec,
+                 flows: list[tuple[Path, int, float]]) -> CapacityEntry:
+        """Lookup; profile on miss (the paper sweeps offline — on-miss
+        profiling keeps the repo usable without a pre-baked table)."""
+        hit = self.lookup(accel.name, flows)
+        return hit if hit is not None else self.profile_context(accel, flows)
+
+    # -- persistence ----------------------------------------------------
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({k: dataclasses.asdict(v)
+                       for k, v in self.entries.items()}, f, indent=1)
+
+    @classmethod
+    def from_json(cls, path: str, link: LinkSpec | None = None, *,
+                  device=None) -> "ProfileTable":
+        """Load a persisted table.  Both schemas are accepted: the current
+        vector form (``capacity`` / ``per_flow`` / ``res_names``) and the
+        pre-vector scalar form (``capacity_gbps`` / ``per_flow_gbps``) —
+        scalar entries load as R=1 degenerate vectors whose ``capacity[0]``
+        / ``per_flow[0]`` are bit-for-bit the persisted floats."""
+        t = cls(link, device=device)
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                if "capacity_gbps" in v:       # legacy scalar schema
+                    t.entries[k] = CapacityEntry(
+                        v["capacity_gbps"], v["per_flow_gbps"],
+                        v.get("fairness", 0.0), v.get("ctx", ""))
+                else:
+                    t.entries[k] = CapacityEntry(
+                        v["capacity"], v["per_flow"],
+                        v.get("fairness", 0.0), v.get("ctx", ""),
+                        v.get("res_names"))
+        return t
+
+    #: alias — the control-plane callers name the operation "load"
+    load_json = from_json

@@ -1,0 +1,209 @@
+"""Port parity: ``repro_torch.core.engine.run_window`` against
+``repro.core.engine.run_window`` on the same numpy traces — every carry
+leaf (counters, completion ring, queues, lanes, bucket state, LCG) bitwise,
+across shaping modes, arbiters, accelerators and resumed windows."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (assert_bitwise, assert_carry_equal, port_cfg,
+                           port_flows)
+from repro.core import baselines as jb, engine as je, token_bucket as jtb
+from repro.core.accelerator import CATALOG, AccelTable
+from repro.core.flow import SLO, FlowSet, FlowSpec, Path, TrafficPattern
+from repro.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ, ARB_WRR,
+                                     LinkSpec, mem_bw)
+from repro.core.sim import (SHAPING_HW, SHAPING_NONE, SHAPING_SW, SimConfig,
+                            gen_arrivals, gen_stall_mask)
+from repro_torch.core import accelerator as tacc, engine as te
+from repro_torch.core import interconnect as tic, token_bucket as ttb
+
+N_TICKS = 250
+
+CASES = {
+    # Arcus: hardware shaping, round robin (the managed run)
+    "hw_rr": dict(shaping=SHAPING_HW, arbiter=ARB_RR),
+    # profiling: unshaped, RR, Host_noTS registers (int32 wraparound)
+    "none_rr_profiling": dict(shaping=SHAPING_NONE, arbiter=ARB_RR,
+                              n_flows=3, system=jb.HOST_NO_TS, load=0.99),
+    "none_wrr": dict(shaping=SHAPING_NONE, arbiter=ARB_WRR),
+    "none_priority": dict(shaping=SHAPING_NONE, arbiter=ARB_PRIORITY),
+    "none_wfq": dict(shaping=SHAPING_NONE, arbiter=ARB_WFQ, n_flows=3),
+    # software shaping: stall mask, deferred refills, host-delay LCG (a
+    # short host delay, so messages complete within the test's ticks)
+    "sw_stall": dict(shaping=SHAPING_SW, arbiter=ARB_RR,
+                     cfg=dict(sw_host_delay_cycles=100,
+                              sw_jitter_cycles=800)),
+    # bimodal message sizes (64 B / 4 KiB)
+    "hw_bimodal": dict(shaping=SHAPING_HW, arbiter=ARB_RR, msg=64,
+                       msg2=4096, p2=0.2),
+    # two accelerators, one with fixed-size egress
+    "hw_two_accels": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
+                          accels=("synthetic50", "sha3_512")),
+    # a completion ring small enough to wrap
+    "hw_ring_wrap": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
+                         cfg=dict(comp_cap=64)),
+}
+
+
+def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
+              msg2=0, p2=0.0, accels=("ipsec32",), cfg=None, n_ticks=N_TICKS,
+              seed=3):
+    specs = [FlowSpec(i, i, Path.INLINE_NIC_RX if i % 2 else Path.FUNCTION_CALL,
+                      i % len(accels),
+                      TrafficPattern(msg, load=load, process="poisson",
+                                     msg_bytes2=msg2, p2=p2),
+                      SLO.gbps(8.0 * (i + 1)), priority=i, weight=1.0 + i)
+             for i in range(n_flows)]
+    flows = FlowSet.build(specs)
+    sim_cfg = SimConfig(n_ticks=n_ticks, shaping=shaping, arbiter=arbiter,
+                        **(cfg or {}))
+    arr = gen_arrivals(flows, sim_cfg, seed=seed,
+                       load_ref_gbps={i: 40.0 for i in range(n_flows)})
+    plans = [jtb.params_for_gbps(8.0 * (i + 1)) for i in range(n_flows)]
+    system = system or {SHAPING_NONE: jb.HOST_NO_TS, SHAPING_HW: jb.ARCUS,
+                        SHAPING_SW: jb.HOST_TS_REFLEX}[shaping]
+    tbs = jb.make_tb_state(system, plans)
+    stall = None
+    if shaping == SHAPING_SW:
+        # host-descheduling bursts of 6..31 ticks, a few per window
+        stall = gen_stall_mask(sim_cfg, seed=1, stall_rate_hz=500_000.0,
+                               stall_us=(0.2, 1.0))
+        assert stall.any()
+    jtab = AccelTable.build([CATALOG[a] for a in accels])
+    ttab = tacc.AccelTable.build([tacc.CATALOG[a] for a in accels])
+    return flows, jtab, ttab, sim_cfg, tbs, arr, stall
+
+
+def _port_tb(tbs):
+    return ttb.TBState(*(np.asarray(x) for x in tbs))
+
+
+def _run_both(flows, jtab, ttab, cfg, tbs, arr, stall, *, t0=0,
+              carries=(None, None)):
+    c_ref = je.run_window(flows, jtab, LinkSpec(), cfg, tbs, *arr, stall,
+                          t0_ticks=t0, carry=carries[0])
+    c_port = te.run_window(port_flows(flows), ttab, tic.LinkSpec(),
+                           port_cfg(cfg), _port_tb(tbs), *arr, stall,
+                           t0_ticks=t0, carry=carries[1], device="cpu")
+    return c_ref, c_port
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_run_window_matches_reference(case):
+    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(**CASES[case])
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall)
+    host = jax.device_get(c_ref)
+    assert int(host["comp_n"]) > 0 and host["c_adm_msgs"].sum() > 0
+    assert_carry_equal(host, te.carry_to_numpy(c_port))
+
+
+def _two_windows(case):
+    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(
+        **CASES[case], n_ticks=2 * 150)
+    return flows, jtab, ttab, dataclasses.replace(cfg, n_ticks=150), tbs, \
+        arr, stall
+
+
+def test_register_write_on_resume_matches_reference():
+    """Window 2 resumes the carry with new registers (a live MMIO write:
+    tokens clamp to the new bucket, timers keep running)."""
+    flows, jtab, ttab, cfg, tbs, arr, stall = _two_windows("hw_rr")
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall)
+    tbs2 = jtb.pack([jtb.params_for_gbps(3.0), jtb.params_for_gbps(30.0)])
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs2, arr, stall,
+                              t0=150, carries=(c_ref, c_port))
+    assert_carry_equal(jax.device_get(c_ref), te.carry_to_numpy(c_port))
+
+
+@pytest.mark.parametrize("case", ["hw_rr", "sw_stall"])
+def test_resume_jax_carry_in_port(case):
+    """A carry the JAX engine produced (fetched with jax.device_get)
+    resumes in the port and continues bit for bit."""
+    flows, jtab, ttab, cfg, tbs, arr, stall = _two_windows(case)
+    c1 = je.run_window(flows, jtab, LinkSpec(), cfg, tbs, *arr, stall)
+    c1_host = jax.device_get(c1)
+    c_port = te.carry_from_numpy(c1_host, device="cpu")
+    assert_carry_equal(c1_host, te.carry_to_numpy(c_port))
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall,
+                              t0=150, carries=(c1, c_port))
+    assert_carry_equal(jax.device_get(c_ref), te.carry_to_numpy(c_port))
+
+
+def test_resource_vector_not_ported_yet():
+    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(
+        **CASES["hw_rr"], n_ticks=10)
+    link = tic.LinkSpec(resources=(tic.mem_bw(100.0),))
+    assert mem_bw(100.0).name == link.resources[0].name
+    with pytest.raises(NotImplementedError):
+        te.run_window(port_flows(flows), ttab, link, port_cfg(cfg),
+                      _port_tb(tbs), *arr, device="cpu")
+
+
+def test_entry_points_default_to_cuda():
+    """Without an explicit device the port runs on the card; with no card
+    it raises instead of carrying on on the host."""
+    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(
+        **CASES["hw_rr"], n_ticks=10)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        te.run_window(port_flows(flows), ttab, tic.LinkSpec(),
+                      port_cfg(cfg), _port_tb(tbs), *arr)
+
+
+@pytest.mark.parametrize("case", ["hw_rr", "sw_stall"])
+def test_tick_issues_no_host_sync(case):
+    """No op of the tick reads a tensor back to the host (``item`` is what
+    indexing with a 0-dim tensor or a Python branch on one would call)."""
+    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(**CASES[case])
+    cfg = dataclasses.replace(cfg, n_ticks=15)     # the profiler is slow
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        te.run_window(port_flows(flows), ttab, tic.LinkSpec(),
+                      port_cfg(cfg), _port_tb(tbs), *arr, stall,
+                      device="cpu")
+    names = {e.name for e in prof.events()}
+    assert "aten::item" not in names and \
+        "aten::_local_scalar_dense" not in names
+
+
+def test_host_delay_matches_compiled_reference():
+    """Every value the LCG can draw (u = k / 65536) goes through the
+    reference's host-delay expression under jit and through the port's,
+    bitwise; the unfused float32 form differs on some of them."""
+    u = np.arange(65536, dtype=np.float32) / np.float32(65536.0)
+    f = jax.jit(lambda u, d, j: d + (u ** 4) * j)
+    for delay, jit_ in ((500, 2500), (100, 800), (0, 1), (12345, 99999)):
+        want = np.asarray(f(u, jnp.float32(delay), jnp.float32(jit_)))
+        got = te._host_delay(torch.as_tensor(u), te._f32(jit_),
+                             te._f32(delay)).numpy()
+        assert_bitwise(want, got, f"host delay {delay}+{jit_}")
+    u2 = u * u
+    unfused = np.float32(500) + (u2 * u2) * np.float32(2500)
+    assert (unfused != f(u, jnp.float32(500), jnp.float32(2500))).any()
+
+
+@pytest.mark.parametrize("arb", [ARB_RR, ARB_WRR, ARB_WFQ, ARB_PRIORITY])
+def test_arbiter_key_matches_compiled_reference(arb):
+    """The reference's arbiter-key expression under jit against the port's,
+    bitwise, over virtual finish times of every magnitude the engine
+    accumulates; the unfused float32 form differs on some of them."""
+    rng = np.random.default_rng(arb)
+    n = 200_000
+    rr_key = rng.integers(0, 16, n).astype(np.float32)
+    vft = (rng.random(n) * 10.0 ** rng.integers(-4, 7, n)).astype(np.float32)
+    prio = rng.integers(0, 8, n).astype(np.float32)
+    f = jax.jit(lambda arb, p, rk, v: jnp.where(
+        arb == ARB_RR, rk, jnp.where(arb == ARB_PRIORITY, -p * 1e6 + rk,
+                                     v + 1e-6 * rk)))
+    want = np.asarray(f(jnp.int32(arb), prio, rr_key, vft))
+    got = te._arb_key(arb, torch.as_tensor(rr_key), torch.as_tensor(prio),
+                      torch.as_tensor(vft)).numpy()
+    assert_bitwise(want, got, f"arbiter {arb}")
+    if arb in (ARB_WRR, ARB_WFQ):
+        assert (vft + np.float32(1e-6) * rr_key != want).any()
