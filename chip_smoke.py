@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version on the card, drives the main path (the quickstart
-server: ``ArcusRuntime`` admission + ``run_managed``, Algorithm 1) through
-the kernels, and checks a CUDA window bitwise against the same window on
-the CPU.  Each phase prints one JSON line; any failure raises and the
-script exits non-zero.  The last three lines are the kernel table, the
-card's ``nvidia-smi`` name and power limit, and the ``ok`` line.
+Builds the port's CUDA kernels from this checkout (one ``nvcc`` each, all
+at once), holds each against its plain PyTorch version on the card, and
+drives the port's two paths through the kernels:
+
+  * the dataplane (the quickstart server: ``ArcusRuntime`` admission +
+    ``run_managed``, Algorithm 1), with a CUDA window checked bitwise
+    against the same window on the CPU;
+  * serving (``ServingEngine`` + ``ArcusScheduler``) of gemma3-12b at full
+    width and depth with random weights: the launcher's request mix, a
+    long-prompt mix that crosses the 1024-token window, and, at one period
+    of depth (6 layers), both mixes through the kernels against the same
+    mixes through the plain versions.
+
+Each phase prints one JSON line; any failure raises and the script exits
+non-zero.  The last three lines are the kernel table, the card's
+``nvidia-smi`` name and power limit, and the ``ok`` line.
 
 Imports torch and the port only.  Without a CUDA device, or run from a
 directory that holds nothing else of the repository, it fails without
@@ -27,9 +36,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # main-path cuts (the quickstart runs ProfileTable(n_ticks=60_000) and
-# run_managed(total_ticks=120_000, window_ticks=30_000))
-PROFILE_TICKS = 4_000
-TOTAL_TICKS = 8_000
+# run_managed(total_ticks=120_000, window_ticks=30_000)); cut further than
+# in the first slice (4_000 and 8_000 / 2_000) to leave time for serving
+PROFILE_TICKS = 2_000
+TOTAL_TICKS = 6_000
 WINDOW_TICKS = 2_000
 PARITY_TICKS = 2_000
 PROFILE_WINDOW = 100
@@ -39,10 +49,27 @@ PROFILE_WINDOW = 100
 # float32 rate of the cores outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# attention products: bf16 operands at the tensor cores' dense bf16 peak,
+# float32 operands at the float32 rate outside the tensor cores
+PEAK_FLOPS = {"bfloat16": 989.4e12, "float32": 67e12}
+
+# serving: gemma3-12b at full width (48 layers, d_model 3840, vocab 262144)
+SERVE_ARCH = "gemma3-12b"
+SERVE_SEED = 0
+LONG_PROMPT, LONG_NEW, LONG_REQUESTS = 1536, 32, 4
+PARITY_LAYERS = 6          # one period: 5 local layers and 1 global
+# kernel vs plain logits in bf16: about one bf16 ulp of their scale
+LOGIT_RTOL, LOGIT_ATOL = 1e-2, 0.0625
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the start."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -59,6 +86,14 @@ def cuda_time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def auto_time_ms(fn, budget_s: float = 0.2, max_iters: int = 200) -> float:
+    """``cuda_time_ms`` with as many calls as fit in about ``budget_s``."""
+    once = cuda_time_ms(fn, 3)
+    return cuda_time_ms(fn, max(3, min(max_iters,
+                                       int(budget_s * 1e3 / max(once,
+                                                                1e-3)))))
 
 
 def tb_inputs(n: int, seed: int, dev):
@@ -143,6 +178,197 @@ def phase_kernel(dev) -> dict:
     emit("kernel", name="token_bucket", bitwise=True, max_abs_err=worst,
          times={str(k): v for k, v in times.items()})
     return dict(max_abs_err=worst, times=times)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+
+def attn_bound(n_bytes: float, flops: float, dtype_name: str
+               ) -> tuple[float, str]:
+    """Least time in ms: bytes at HBM rate against the products' flops at
+    the peak rate of their operands' type; and which of the two bounds."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# B, H, KvH, D, S, window, q dtype, cache dtype, lengths: the cases of
+# tests/test_kernels.py:43-51 (lengths drawn there), then gemma3-12b's
+# decode: a float32 cache under bf16 activations, at the serve mix's cache
+# (S = 256, lengths 13..80), the long mix's local and global caches
+# (S = 1024 full; S = 2048, lengths 1536..1568)
+DA_CASES = [
+    (2, 16, 8, 128, 1024, 0, "float32", "float32", None),
+    (1, 8, 1, 64, 512, 0, "float32", "float32", None),
+    (3, 12, 2, 80, 777, 0, "float32", "float32", None),
+    (2, 16, 8, 128, 2048, 256, "bfloat16", "bfloat16", None),
+    (1, 40, 8, 128, 4096, 1024, "float32", "float32", None),
+    (2, 16, 16, 96, 300, 0, "bfloat16", "bfloat16", None),
+    (1, 24, 2, 128, 640, 128, "float32", "float32", None),
+    (8, 16, 8, 256, 256, 0, "bfloat16", "float32", (13, 81)),
+    (8, 16, 8, 256, 1024, 0, "bfloat16", "float32", (1024, 1025)),
+    (8, 16, 8, 256, 2048, 0, "bfloat16", "float32", (1536, 1569)),
+]
+DA_MAIN = 7                 # the serve mix's shape: the table's row
+
+
+def phase_kernel_decode_attention(dev) -> dict:
+    """CUDA decode attention vs its plain version on the card (2e-5 for
+    float32, 2e-2 where bf16 is involved, as the JAX tests), then times of
+    the kernel, the plain version and SDPA at gemma3-12b's shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops
+    rows = []
+    for i, (B, H, KvH, D, S, w, qn, cn, lrange) in enumerate(DA_CASES):
+        qdt, cdt = getattr(torch, qn), getattr(torch, cn)
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        q = torch.randn((B, H, D), generator=g, device=dev).to(qdt)
+        k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
+        v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
+        rng = np.random.default_rng(i)
+        lo, hi = lrange or (max(1, S // 4), S + 1)
+        ln = torch.as_tensor(rng.integers(lo, hi, B).astype(np.int32),
+                             device=dev)
+        got = ops.decode_attention(q, k, v, ln, window=w)
+        want = ops.decode_attention_plain(q, k, v, ln, window=w)
+        torch.cuda.synchronize()
+        tol = 2e-2 if "bfloat16" in (qn, cn) else 2e-5
+        err = _max_err(got, want)
+        row = dict(shape=[B, H, KvH, D, S], window=w, q=qn, cache=cn,
+                   max_abs_err=err, tol=tol)
+        if not err < tol:
+            emit("kernel_decode_attention", failed=row)
+            raise AssertionError(f"decode_attention kernel != plain: {row}")
+        if lrange is not None:
+            lo_pos = (ln - w).clamp_min(0) if w else torch.zeros_like(ln)
+            valid = (torch.minimum(ln, torch.tensor(S, device=dev))
+                     - lo_pos).sum().item()
+            n_bytes = (2 * valid * KvH * D * k.element_size()
+                       + 2 * q.numel() * q.element_size() + 4 * B)
+            flops = 4 * valid * H * D
+            row["bound_ms"], row["bound_by"] = attn_bound(n_bytes, flops,
+                                                          "float32")
+            idx = torch.arange(S, device=dev)
+            mask = ((idx[None, :] < ln[:, None])
+                    & (idx[None, :] >= ln[:, None] - (w or S + 1)))
+            mask = mask[:, None, None, :]
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q.to(cdt)[:, :, None], kt, vt, attn_mask=mask,
+                    enable_gqa=True)
+            lib_err = _max_err(lib()[:, :, 0], want)
+            if not lib_err < tol:
+                raise AssertionError(f"SDPA yardstick != plain: {lib_err}")
+            row["ms"] = auto_time_ms(
+                lambda: ops.decode_attention(q, k, v, ln, window=w))
+            row["plain_ms"] = auto_time_ms(
+                lambda: ops.decode_attention_plain(q, k, v, ln, window=w))
+            row["library_ms"] = auto_time_ms(lib)
+            row["lengths"] = ln.tolist()
+        rows.append(row)
+    emit("kernel_decode_attention", cases=rows,
+         worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
+    return dict(rows=rows, main=rows[DA_MAIN],
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+# B, S, H, KvH, D, window, chunk, dtype: the cases of
+# tests/test_flash_prefill_kernel.py:10-17, then gemma3-12b's prefill in
+# bf16: the serve mix's prompts (12 and 64 tokens) and the long mix's
+# (1536), each through a local layer (window 1024) and a global one
+FP_CASES = [
+    (2, 128, 4, 2, 64, 0, 0, "float32"),
+    (1, 256, 8, 8, 128, 0, 0, "float32"),
+    (1, 200, 4, 1, 80, 0, 0, "float32"),
+    (2, 256, 4, 2, 64, 64, 0, "float32"),
+    (1, 256, 4, 2, 64, 0, 64, "float32"),
+    (1, 256, 8, 4, 128, 128, 0, "bfloat16"),
+    (1, 12, 16, 8, 256, 1024, 0, "bfloat16"),
+    (1, 64, 16, 8, 256, 1024, 0, "bfloat16"),
+    (1, 64, 16, 8, 256, 0, 0, "bfloat16"),
+    (1, 1536, 16, 8, 256, 1024, 0, "bfloat16"),
+    (1, 1536, 16, 8, 256, 0, 0, "bfloat16"),
+]
+FP_FIRST_TIMED = 6
+FP_MAIN = 7                 # the serve mix's background prompt: the table's
+
+
+def _prefill_mask(S: int, w: int, ck: int, dev):
+    import torch
+    qi = torch.arange(S, device=dev)[:, None]
+    ki = torch.arange(S, device=dev)[None, :]
+    mask = qi >= ki
+    if w:
+        mask &= qi - ki < w
+    if ck:
+        mask &= (qi // ck) == (ki // ck)
+    return mask
+
+
+def phase_kernel_flash_prefill(dev) -> dict:
+    """CUDA flash prefill vs its plain version on the card (2e-5 for
+    float32, 2e-2 for bf16), then times of the kernel, the plain version
+    and SDPA at gemma3-12b's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops
+    rows = []
+    for i, (B, S, H, KvH, D, w, ck, dn) in enumerate(FP_CASES):
+        dt = getattr(torch, dn)
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+        k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
+        v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
+        got = ops.flash_prefill(q, k, v, window=w, chunk_size=ck)
+        want = ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dn == "bfloat16" else 2e-5
+        err = _max_err(got, want)
+        row = dict(shape=[B, S, H, KvH, D], window=w, chunk=ck, dtype=dn,
+                   max_abs_err=err, tol=tol)
+        if not err < tol:
+            emit("kernel_flash_prefill", failed=row)
+            raise AssertionError(f"flash_prefill kernel != plain: {row}")
+        if i >= FP_FIRST_TIMED:
+            mask = _prefill_mask(S, w, ck, dev)
+            pairs = int(mask.sum())
+            # q, k, v read once and the output (q's size) written once
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            flops = 4 * B * H * D * pairs
+            row["reachable_pairs"] = pairs
+            row["bound_ms"], row["bound_by"] = attn_bound(n_bytes, flops, dn)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib_err = _max_err(lib().transpose(1, 2), want)
+            if not lib_err < tol:
+                raise AssertionError(f"SDPA yardstick != plain: {lib_err}")
+            row["ms"] = auto_time_ms(
+                lambda: ops.flash_prefill(q, k, v, window=w, chunk_size=ck))
+            row["plain_ms"] = auto_time_ms(
+                lambda: ops.flash_prefill_plain(q, k, v, window=w,
+                                                chunk_size=ck))
+            row["library_ms"] = auto_time_ms(lib)
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+    emit("kernel_flash_prefill", cases=rows,
+         worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
+    return dict(rows=rows, main=rows[FP_MAIN],
+                max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
 def phase_interp(dev) -> None:
@@ -325,6 +551,310 @@ def phase_profile(dev) -> None:
         raise AssertionError(f"host waits grow with ticks: {grown}")
 
 
+# ---------------------------------------------------------------------------
+# serving: gemma3-12b at full width
+# ---------------------------------------------------------------------------
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.token_bucket import ops as tb
+    return dict(token_bucket=tb.LAUNCHES, decode_attention=da.LAUNCHES,
+                flash_prefill=fp.LAUNCHES)
+
+
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.token_bucket import ops as tb
+    tb.LAUNCHES = da.LAUNCHES = fp.LAUNCHES = 0
+
+
+def _instrument(engine, keep_logits: bool = False) -> dict:
+    """Count and time (synchronised wall clock) the engine's prefill and
+    decode calls, check their logits are finite, and optionally keep a
+    copy of every call's logits."""
+    import torch
+    rec = dict(prefills=0, decodes=0, prefill_s=0.0, decode_s=0.0,
+               finite=True, logits=[])
+    pre, dec = engine._prefill, engine._decode
+
+    def timed(kind, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        logits = out[0] if kind == "prefill" else out
+        rec["finite"] &= bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        rec[kind + "_s"] += time.perf_counter() - t0
+        rec[kind + "s"] += 1
+        if keep_logits:
+            rec["logits"].append((kind, logits.clone()))
+        return out
+    engine._prefill = lambda *a: timed("prefill", pre, *a)
+    engine._decode = lambda *a: timed("decode", dec, *a)
+    return rec
+
+
+def _scheduler(model, dev, *, max_batch, max_len, mix, plain=False,
+               keep_logits=False):
+    """An ArcusScheduler (token-bucket kernel on) over a fresh engine, with
+    ``mix`` submitted: ``"serve"`` is ``launch/serve.py``'s mix (two
+    reserved tenants of 1200 and 800 tokens/s, an opportunistic background
+    tenant), ``"long"`` is LONG_REQUESTS prompts of LONG_PROMPT tokens for
+    one opportunistic tenant.  The clock is the full config's cost model on
+    one H100 (``HardwareSpec()``), whatever the depth run, as the launcher
+    clocks its reduced model by the full config."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.costmodel import HardwareSpec, StepCostModel
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ArcusScheduler
+    engine = ServingEngine(model.cfg, model, max_batch=max_batch,
+                           max_len=max_len, device=dev,
+                           plain_attention=plain)
+    rec = _instrument(engine, keep_logits)
+    cost = StepCostModel(get_config(SERVE_ARCH), HardwareSpec())
+    if mix == "serve":
+        sched = ArcusScheduler(engine, S.make_tenants([1200.0, 800.0], True),
+                               cost, use_kernel=True)
+        n = S.submit_mix(sched, model.cfg.vocab, 2, 3.0, True)
+    else:
+        sched = ArcusScheduler(engine, S.make_tenants([], True), cost,
+                               use_kernel=True)
+        rng = np.random.default_rng(1)
+        for n in range(LONG_REQUESTS):
+            sched.submit(Request(n, 0, list(rng.integers(
+                0, model.cfg.vocab, LONG_PROMPT)), LONG_NEW))
+        n = LONG_REQUESTS
+    rounds = [0]
+    step = sched.step
+
+    def counted_step():
+        rounds[0] += 1
+        return step()
+    sched.step = counted_step
+    return sched, rec, rounds, n
+
+
+def _run_path(name, model, dev, **kw) -> dict:
+    """Drive one serving path with the launch counts set to 0 just before
+    and read just after; check every request finished, the logits were
+    finite and each kernel launched once for each layer of each call."""
+    import numpy as np
+    import torch
+    sched, rec, rounds, n_req = _scheduler(model, dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run(3.0, max_rounds=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    L = model.cfg.n_layers
+    expect = dict(token_bucket=rec["prefills"] + rounds[0],
+                  decode_attention=rec["decodes"] * L,
+                  flash_prefill=rec["prefills"] * L)
+    finished = sum(st.finished for st in sched.stats.values())
+    stats = {str(t): dict(served_tokens=st.served_tokens,
+                          finished=st.finished,
+                          p99_ttft_ms=(float(np.percentile(st.ttft, 99)) * 1e3
+                                       if st.ttft else None))
+             for t, st in sorted(sched.stats.items())}
+    out = dict(layers=L, requests=n_req, finished=finished,
+               rounds=rounds[0], virtual_s=sched.now_s,
+               prefills=rec["prefills"], decode_steps=rec["decodes"],
+               wall_s=wall,
+               ms_per_prefill=rec["prefill_s"] / max(rec["prefills"], 1)
+               * 1e3,
+               ms_per_decode_step=rec["decode_s"] / max(rec["decodes"], 1)
+               * 1e3,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, launches_expected=expect,
+               longest_sequence=int(sched.engine.lengths.max()),
+               tenants=stats)
+    plain = kw.get("plain", False)
+    if plain:
+        expect.update(decode_attention=0, flash_prefill=0)
+    if not rec["finite"]:
+        raise AssertionError(f"{name}: non-finite logits")
+    if finished != n_req:
+        raise AssertionError(f"{name}: {finished} of {n_req} requests "
+                             "finished")
+    if launches != expect or not all(
+            v > 0 for k, v in launches.items() if expect[k]):
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    out["sched"], out["rec"] = sched, rec
+    return out
+
+
+def _public(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("sched", "rec")}
+
+
+#: kernel-name patterns of each kind in a profile (cuBLAS's Hopper GEMMs
+#: are named nvjet_*)
+KERNEL_KINDS = {
+    "decode_attention": ("decode_split", "decode_combine"),
+    "flash_prefill": ("flash_prefill",),
+    "token_bucket": ("tb_step",),
+    "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK"),
+    "elementwise": ("elementwise", "vectorized", "unrolled"),
+    "reduce": ("reduce",),
+    "copy": ("copy", "Memcpy", "Memset", "scatter", "gather", "index"),
+}
+
+
+def _profile(fn, calls: int) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn``: wall and device busy
+    ms a call, the device's idle share, device ms a call by kind of kernel
+    and the costliest kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    busy = kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3 / calls
+            busy += ms
+            kernels += 1
+            kind = next((k for k, pats in KERNEL_KINDS.items()
+                         if any(p in e.name for p in pats)), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return dict(calls=calls, wall_ms=wall / calls * 1e3,
+                device_busy_ms=busy, device_idle_share=max(
+                    0.0, 1.0 - busy / (wall / calls * 1e3)),
+                device_kernels=kernels / calls, device_ms_by_kind=by_kind,
+                top_kernels_ms=top)
+
+
+def _profile_serving(model, dev) -> dict:
+    """Where a decode step and a prefill spend their time: 4 decode steps
+    of a full batch (8 requests with 64-token prompts, max_len 256), and
+    the prefill of one 1536-token prompt (max_len 2048)."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(2)
+    engine = ServingEngine(model.cfg, model, max_batch=8, max_len=256,
+                           device=dev)
+    for i in range(8):
+        engine.admit(Request(i, 0, list(rng.integers(0, model.cfg.vocab,
+                                                     64)), 64))
+    engine.step()
+    decode = _profile(engine.step, 4)
+    del engine
+    engine = ServingEngine(model.cfg, model, max_batch=1, max_len=2048,
+                           device=dev)
+    prompt = list(rng.integers(0, model.cfg.vocab, LONG_PROMPT))
+
+    def prefill():
+        engine.active[:] = False
+        engine.admit(Request(0, 0, prompt, 2))
+    prefill()
+    return dict(decode_step=decode, prefill_1536=_profile(prefill, 2))
+
+
+def phase_serve(dev) -> tuple:
+    """gemma3-12b at full width and depth, random weights drawn on the card:
+    the launcher's mix through ArcusScheduler(use_kernel=True)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import module, transformer as T
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = T.init_model(SERVE_SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) / 2**30
+    run = _run_path("serve", model, dev, max_batch=8, max_len=256,
+                    mix="serve")
+    prof = _profile_serving(model, dev)
+    emit("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab,
+         params=module.param_count(model), weights_gib=weights_gib,
+         init_s=init_s, max_batch=8, max_len=256, **_public(run),
+         profile=prof)
+    return model, run, prof
+
+
+def phase_serve_long(dev, model) -> dict:
+    """The same model over prompts longer than the 1024-token window: the
+    prefill keeps the last 1024 positions in the local caches and decode
+    wraps their rolling slots."""
+    run = _run_path("serve_long", model, dev, max_batch=LONG_REQUESTS,
+                    max_len=2048, mix="long")
+    if run["longest_sequence"] <= model.cfg.window:
+        raise AssertionError(f"serve_long stayed inside the window: "
+                             f"{run['longest_sequence']}")
+    emit("serve_long", prompt=LONG_PROMPT, new_tokens=LONG_NEW,
+         window=model.cfg.window, max_batch=LONG_REQUESTS, max_len=2048,
+         **_public(run))
+    return run
+
+
+def phase_serve_parity(dev, model) -> None:
+    """At full width and one period of depth, both mixes through the kernels
+    and through their plain versions: logits within one bf16 ulp of their
+    scale at every prefill and decode, the same tokens, equal stats."""
+    import dataclasses
+    import torch
+    cut = model.first_layers(PARITY_LAYERS)
+    report = {}
+    for mix, max_batch, max_len in (("serve", 8, 256),
+                                    ("long", LONG_REQUESTS, 2048)):
+        runs = [_run_path(f"serve_parity/{mix}", cut, dev,
+                          max_batch=max_batch, max_len=max_len, mix=mix,
+                          plain=plain, keep_logits=True)
+                for plain in (False, True)]
+        (k, p) = runs
+        kl, pl = k["rec"]["logits"], p["rec"]["logits"]
+        if [a for a, _ in kl] != [b for b, _ in pl]:
+            raise AssertionError(f"serve_parity/{mix}: call sequences differ")
+        worst = 0.0
+        for i, ((kind, a), (_, b)) in enumerate(zip(kl, pl)):
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            worst = max(worst, float(diff.max()))
+            bad = diff > LOGIT_ATOL + LOGIT_RTOL * b.abs()
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"serve_parity/{mix}: {kind} call {i}: "
+                    f"{int(bad.sum())} logits differ, max {float(diff.max())}")
+        ks, ps = k["sched"], p["sched"]
+        toks = [r.generated for r in ks.all_reqs.values()] == \
+            [r.generated for r in ps.all_reqs.values()]
+        stats = all(dataclasses.asdict(ks.stats[t]) ==
+                    dataclasses.asdict(ps.stats[t]) for t in ks.stats)
+        if not (toks and stats and ks.now_s == ps.now_s):
+            raise AssertionError(f"serve_parity/{mix}: tokens equal {toks}, "
+                                 f"stats equal {stats}")
+        report[mix] = dict(calls=len(kl), max_abs_logit_diff=worst,
+                           tokens_equal=toks, stats_equal=stats,
+                           kernel_launches=k["launches"],
+                           plain_launches=p["launches"])
+        del runs, k, p, kl, pl
+        torch.cuda.empty_cache()
+    emit("serve_parity", layers=PARITY_LAYERS, d_model=cut.cfg.d_model,
+         logit_rtol=LOGIT_RTOL, logit_atol=LOGIT_ATOL, mixes=report)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -335,7 +865,10 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, SRC)
-    from repro_torch.kernels.token_bucket import ops
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.token_bucket import ops as tb_ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -345,23 +878,60 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
-    build_s = ops.build()
-    emit("build", kernels=["token_bucket"], seconds=build_s)
+    t0 = time.perf_counter()
+    seconds = _build.build_many([
+        ("token_bucket", tb_ops._SRC), (da_ops.NAME, da_ops.SOURCE),
+        (fp_ops.NAME, fp_ops.SOURCE)])
+    emit("build", kernels=list(seconds), seconds=seconds,
+         wall_s=time.perf_counter() - t0,
+         ptxas={k: [ln.strip() for ln in v.splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k, v in _build.PTXAS_INFO.items()})
     k = phase_kernel(dev)
+    da = phase_kernel_decode_attention(dev)
+    fp = phase_kernel_flash_prefill(dev)
     phase_interp(dev)
     main = phase_main_path(dev)
     phase_parity(dev)
     phase_profile(dev)
+    model, serve, _ = phase_serve(dev)
+    long = phase_serve_long(dev, model)
+    phase_serve_parity(dev, model)
     n_main = 2
     t = k["times"][n_main]
-    print(json.dumps({"kernels": [{
+    by_path = {name: {"main_path": main["launches"] if name == "token_bucket"
+                      else 0,
+                      "serve": serve["launches"][name],
+                      "serve_long": long["launches"][name]}
+               for name in serve["launches"]}
+    rows = [{
         "name": "token_bucket", "route": "cuda",
         "source": "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu",
         "replaces": "src/repro/kernels/token_bucket/kernel.py:41",
         "launches": main["launches"], "max_abs_err": k["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "shape": f"[{n_main}] flows (admission call)"}]}), flush=True)
+        "shape": f"[{n_main}] flows (admission call)",
+        "launches_by_path": by_path["token_bucket"]}]
+    for name, res, src, rep, shape in (
+            ("decode_attention", da,
+             "src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:30",
+             "q [8,16,256] bf16, k/v [8,256,8,256] f32, lengths 13..80"),
+            ("flash_prefill", fp,
+             "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+             "src/repro/kernels/flash_prefill/kernel.py:24",
+             "q [1,64,16,256], k/v [1,64,8,256] bf16, window 1024")):
+        m = res["main"]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": serve["launches"][name],
+            "max_abs_err": res["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "shape": shape, "launches_by_path": by_path[name]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,17 @@ import tempfile
 import time
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 
 #: seconds each library took to build in this process (0.0 = cache hit)
 BUILD_SECONDS: dict[str, float] = {}
+#: ptxas's report (registers, shared memory, spills) of each kernel built
+#: in this process
+PTXAS_INFO: dict[str, str] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -41,27 +45,55 @@ def nvcc_path() -> str:
                        "from source on the machine with the card")
 
 
-def build(name: str, source: pathlib.Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per content hash) and load it."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _lib_path(name: str, source: pathlib.Path) -> pathlib.Path:
     src = pathlib.Path(source).read_bytes()
-    flags = ARCH_FLAGS + NVCC_FLAGS
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    flags = " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_many(kernels: list[tuple[str, pathlib.Path]]) -> dict[str, float]:
+    """Compile every ``(name, source)`` pair not built yet, one ``nvcc``
+    process each, all started together, then load them.  Returns the
+    seconds each library took (0.0 = cache hit)."""
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    procs = []
+    for name, source in kernels:
+        if name in _LOADED:
+            continue
+        lib_path = _lib_path(name, source)
+        if lib_path.exists():
+            procs.append((name, source, lib_path, None, None))
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *flags, "-o", tmp, str(source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)     # atomic: a concurrent loader never
-                                      # sees a half-written library
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = lib
-    return lib
+        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(source)]
+        procs.append((name, source, lib_path, tmp,
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, source, lib_path, tmp, proc in procs:
+        if proc is not None:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed for {source}:\n{err}")
+                continue
+            os.replace(tmp, lib_path)     # atomic: a concurrent loader never
+                                          # sees a half-written library
+            PTXAS_INFO[name] = err
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+        else:
+            BUILD_SECONDS[name] = 0.0
+        _LOADED[name] = ctypes.CDLL(str(lib_path))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: BUILD_SECONDS[name] for name, _ in kernels}
+
+
+def build(name: str, source: pathlib.Path) -> ctypes.CDLL:
+    """Compile ``source`` (once per content hash) and load it."""
+    if name not in _LOADED:
+        build_many([(name, source)])
+    return _LOADED[name]

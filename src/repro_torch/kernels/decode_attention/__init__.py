@@ -1,0 +1,1 @@
+"""GQA decode-attention kernel (Hopper CUDA port of the Pallas TPU kernel)."""

@@ -1,0 +1,85 @@
+"""Carry the JAX package's weights and serving cache across into the port.
+
+Torch cannot reproduce ``jax.random`` bits, so a parity test initialises
+the reference model (``repro.models.transformer.init_model``), hands its
+parameter tree across as numpy arrays (``jax.tree.map(np.asarray, ...)``)
+and loads it here.  The reference stacks period position ``j``'s
+parameters over the repetitions (``blocks/pos{j}`` with a leading [reps]
+axis) and keeps the remainder layers in ``tail``; layer
+``li = r * period + j`` of the port is ``blocks/pos{j}[r]``.  The serving
+cache is stacked the same way.  This module imports no JAX: it reads
+nested dicts and lists of numpy arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ArchConfig
+
+
+def _layer_trees(tree: dict, cfg: ArchConfig) -> list:
+    """The per-layer subtrees of a stacked ``{"blocks", "tail"}`` tree."""
+    period, reps = cfg.period, cfg.n_layers // cfg.period
+    out = []
+    for li in range(cfg.n_layers):
+        r, j = divmod(li, period)
+        if r < reps:
+            out.append(_index(tree["blocks"][f"pos{j}"], r))
+        else:
+            out.append(tree["tail"][li - reps * period])
+    return out
+
+
+def _index(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def _load(param: torch.nn.Parameter, value) -> None:
+    value = np.asarray(value)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {value.shape} does not fit "
+                         f"{tuple(param.shape)}")
+    param.data.copy_(torch.as_tensor(value.astype(np.float32)))
+
+
+def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
+                    ) -> T.Transformer:
+    """A ``Transformer`` holding the reference's parameters (nested dicts
+    of numpy arrays, as ``init_model`` builds them).  Each weight is stored
+    in the port's storage dtype (``cfg.dtype`` for the projections, float32
+    for norm scales and the embedding)."""
+    model = T.Transformer(cfg, device=device)
+    _load(model.embed, params_np["embed"])
+    for blk, p in zip(model.blocks, _layer_trees(params_np, cfg)):
+        _load(blk.ln1.scale, p["ln1"]["scale"])
+        for name, value in p["mixer"].items():
+            _load(getattr(blk.mixer, name), value)
+        if blk.has_ffn:
+            _load(blk.ln2.scale, p["ln2"]["scale"])
+            _load(blk.ffn.wi, p["ffn"]["wi"])
+            _load(blk.ffn.wo, p["ffn"]["wo"])
+        if cfg.norm == "layernorm":
+            _load(blk.ln1.bias, p["ln1"]["bias"])
+            if blk.has_ffn:
+                _load(blk.ln2.bias, p["ln2"]["bias"])
+    _load(model.final_norm.scale, params_np["final_norm"]["scale"])
+    if cfg.norm == "layernorm":
+        _load(model.final_norm.bias, params_np["final_norm"]["bias"])
+    if not cfg.tie_embeddings:
+        _load(model.lm_head, params_np["lm_head"])
+    model.tie()
+    return model
+
+
+def cache_from_jax(cache_np: dict, cfg: ArchConfig, device=None) -> T.Cache:
+    """The port's per-layer (k, v) cache from the reference's stacked
+    serving cache (``init_cache`` / ``prefill`` / ``decode_step``), in the
+    reference cache's dtype."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return [tuple(torch.as_tensor(np.array(c[n])).to(dev)
+                  for n in ("k", "v"))
+            for c in _layer_trees(cache_np, cfg)]

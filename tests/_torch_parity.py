@@ -68,3 +68,37 @@ def assert_results_equal(r_ref, r_port) -> None:
         np.testing.assert_array_equal(getattr(r_ref, k), getattr(r_port, k),
                                       err_msg=k)
     assert r_ref.seconds == r_port.seconds
+
+
+# --- models and serving -----------------------------------------------------
+
+
+def port_arch(cfg):
+    """The port's ArchConfig equal to a reference ArchConfig."""
+    from repro_torch.models.config import ArchConfig
+    return ArchConfig(**dataclasses.asdict(cfg))
+
+
+def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None):
+    """The reference's ``init_model(seed, cfg)`` parameters and the port's
+    CPU model holding the same values.  ``bias_seed`` replaces the zero QKV
+    biases by random ones (so a test sees them act)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer as JT
+    from repro_torch.models import convert
+    params, _ = JT.init_model(seed, cfg)
+    if bias_seed is not None:
+        rng = np.random.default_rng(bias_seed)
+
+        def with_bias(mixer):
+            for name in ("bq", "bk", "bv"):
+                mixer[name] = jnp.asarray(
+                    0.1 * rng.standard_normal(mixer[name].shape), jnp.float32)
+        for bp in params["blocks"].values():
+            with_bias(bp["mixer"])
+        for bp in params["tail"]:
+            with_bias(bp["mixer"])
+    model = convert.params_from_jax(jax.tree.map(np.asarray, params),
+                                    port_arch(cfg), device="cpu")
+    return params, model
