@@ -2,8 +2,8 @@
 
 Port of ``src/repro/configs/registry.py``; the ten configs beside it are
 copies of the reference's.  The port's model runs the dense attention kinds
-only (``global``, ``local``, ``chunk``) and raises ``NotImplementedError``
-for the rest (see ``repro_torch.models.transformer``).
+(``global``, ``local``, ``chunk``) and the Mamba2 ``ssd`` kind, and raises
+``NotImplementedError`` for the rest (see ``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

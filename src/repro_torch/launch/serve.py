@@ -5,11 +5,13 @@ request mix.  Like the reference it serves the reduced variant of the
 selected arch (real token generation through the continuous-batching
 engine), virtual-clocked by the FULL config's roofline cost model, with
 per-tenant SLOs enforced by the Arcus token buckets.  It runs on the CUDA
-card (the port's default device; the attention and token-bucket kernels
-are built at first use).
+card (the port's default device; the attention, SSD-scan and token-bucket
+kernels are built at first use).  The archs it serves are those the port's
+model runs: the dense attention models and mamba2-780m.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
         --tenants 1200,800 --duration 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
 
 The cost model's target is ``--chips`` cards of the port's default
 ``HardwareSpec`` (H100 SXM data-sheet peaks).

@@ -51,7 +51,10 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
     """A ``Transformer`` holding the reference's parameters (nested dicts
     of numpy arrays, as ``init_model`` builds them).  Each weight is stored
     in the port's storage dtype (``cfg.dtype`` for the projections, float32
-    for norm scales and the embedding)."""
+    for norm scales, the embedding and the Mamba2 conv, decay and skip
+    parameters).  Every mixer parameter (attention or Mamba2) loads by its
+    reference name; a block without an MLP (``d_ff`` 0) has no ``ln2`` or
+    ``ffn``."""
     model = T.Transformer(cfg, device=device)
     _load(model.embed, params_np["embed"])
     for blk, p in zip(model.blocks, _layer_trees(params_np, cfg)):
@@ -76,10 +79,23 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
 
 
 def cache_from_jax(cache_np: dict, cfg: ArchConfig, device=None) -> T.Cache:
-    """The port's per-layer (k, v) cache from the reference's stacked
-    serving cache (``init_cache`` / ``prefill`` / ``decode_step``), in the
-    reference cache's dtype."""
+    """The port's per-layer cache from the reference's stacked serving
+    cache (``init_cache`` / ``prefill`` / ``decode_step``), in the reference
+    cache's dtypes: (k, v) of an attention layer, (conv, state) of an
+    ``ssd`` layer."""
     dev = torch.device("cpu") if device is None else torch.device(device)
-    return [tuple(torch.as_tensor(np.array(c[n])).to(dev)
-                  for n in ("k", "v"))
-            for c in _layer_trees(cache_np, cfg)]
+    return [tuple(_tensor(c[n]).to(dev)
+                  for n in (("conv", "state") if kind == "ssd"
+                            else ("k", "v")))
+            for kind, c in zip(cfg.layer_kinds(),
+                               _layer_trees(cache_np, cfg))]
+
+
+def _tensor(value) -> torch.Tensor:
+    """A copy of a numpy array as a tensor of its dtype; numpy's bfloat16
+    (``ml_dtypes``, which a bf16 prefill's conv state is) goes through
+    float32, exactly."""
+    value = np.array(value)
+    if value.dtype.name == "bfloat16":
+        return torch.as_tensor(value.astype(np.float32)).to(torch.bfloat16)
+    return torch.as_tensor(value)

@@ -1,18 +1,23 @@
-"""Shared neural layers of the port: norms, RoPE, GQA attention, MLP.
+"""Shared neural layers of the port: norms, RoPE, GQA attention, MLP and
+the Mamba2 SSD block.
 
 Port of ``src/repro/models/layers.py`` for the dense attention kinds
-(``global``, ``local``, ``chunk``).  Each layer is an ``nn.Module`` whose
-parameters keep the reference's layouts (``wq`` [E, H, Dh], ``wo``
-[H * Dh, E], ``wi`` [E, g, F] ...), so weights load one for one.  Storage
-dtypes follow what the reference computes with: the projection weights are
-cast to ``cfg.dtype`` at every use there, so they are stored in it; norm
-scales stay float32.
+(``global``, ``local``, ``chunk``) and the ``ssd`` kind.  Each layer is an
+``nn.Module`` whose parameters keep the reference's names and layouts
+(``wq`` [E, H, Dh], ``wo`` [H * Dh, E], ``wi`` [E, g, F], ``in_proj``
+[E, 2 Din + 2 G N + H] ...), so weights load one for one.  Storage dtypes
+follow what the reference computes with: the projection weights are cast
+to ``cfg.dtype`` at every use there, so they are stored in it; norm scales
+and the Mamba2 conv taps, decay and skip parameters stay float32.
 
 Full-sequence attention (prefill) goes through the flash-prefill kernel on
 CUDA and its plain version on the CPU (``repro_torch.kernels.flash_prefill``),
 where the reference computes the same masks inline in jnp
-(``layers.flash_attention``).  The reference's ``actsharding`` hooks are the
-identity on one device and have no counterpart here.
+(``layers.flash_attention``).  The Mamba2 prefill goes through the SSD-scan
+kernel on CUDA (``repro_torch.kernels.ssd_scan``), where the reference
+calls its sequential oracle ``ssd_ref.ssd_scan``.  The reference's
+``actsharding`` hooks are the identity on one device and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.models import module as init
 from repro_torch.models.config import ArchConfig
 
@@ -209,3 +215,137 @@ class MLP(nn.Module):
         else:
             h = act(h[..., 0, :], self.cfg.act)
         return h @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD block (arXiv:2405.21060)
+# ---------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it: x * (1 / (1 + exp(-x))), each
+    step in x's dtype (in bf16 every step rounds to bf16; ``torch.sigmoid``
+    rounds once, and differs on many bf16 inputs)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)`` = max(x, 0) +
+    log1p(exp(-|x|)), with no threshold (unlike ``F.softplus``)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv of the reference's ``_causal_conv1d``: x
+    [B, S, W]; w [K, W]; b [W]; optional state [B, K-1, W] (the previous
+    K-1 inputs).  The taps are summed in the reference's order,
+    ``sum(xp[:, i:i+S] * w[i]) + b``, in the promoted type of x and w (a
+    float32 sum for bf16 x under float32 taps), then cast to x's dtype; no
+    ``F.conv1d``, whose float32 form runs in TF32 on the card.  Returns
+    (out [B, S, W], new state = the last K-1 inputs, before any
+    activation)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = x.new_zeros((x.shape[0], K - 1, x.shape[2])) if state is None \
+        else state.to(x.dtype)
+    xp = torch.cat([pad, x], 1)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    return (out + b).to(x.dtype), xp[:, -(K - 1):]
+
+
+def mamba2_split(cfg: ArchConfig):
+    """(Din, H, G, N) of the reference's ``mamba2_split``."""
+    Din = cfg.d_inner_mult * cfg.d_model
+    return Din, Din // cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+
+
+class Mamba2(nn.Module):
+    """The reference's ``mamba2_block`` with its parameters (``init_mamba2``):
+    in-projection to (z, x B C, dt), causal conv, SiLU, the SSD scan, the
+    skip term, a gated RMSNorm and the out-projection.  ``prefill`` runs the
+    scan through the SSD-scan kernel; ``decode`` steps the recurrence once
+    in plain torch, as the reference's ``ssd_decode_step`` is plain jnp.
+    Both write the (conv, state) cache in place."""
+
+    def __init__(self, cfg: ArchConfig, mk: Maker):
+        super().__init__()
+        E = cfg.d_model
+        Din, H, G, N = mamba2_split(cfg)
+        dt = torch_dtype(cfg.dtype)
+        self.cfg = cfg
+        self.in_proj = mk.dense(E, 2 * Din + 2 * G * N + H, dtype=dt)
+        self.conv_w = mk.zeros((cfg.conv_kernel, Din + 2 * G * N))
+        self.conv_b = mk.zeros((Din + 2 * G * N,))
+        self.a_log = mk.zeros((H,))
+        self.dt_bias = mk.zeros((H,))
+        self.d_skip = mk.ones((H,))
+        self.norm_scale = mk.ones((Din,))
+        self.out_proj = mk.dense(Din, E, dtype=dt)
+
+    def _conv_weights(self, dt: torch.dtype):
+        """``conv_w.astype(dt) + _conv_id_wide``: bf16-rounded taps plus an
+        exact 1.0 at the last tap, in float32 (bf16 + float32 promotes); the
+        bias cast to ``dt``."""
+        w = self.conv_w.to(dt).to(torch.float32, copy=True)
+        w[-1] += 1.0
+        return w, self.conv_b.to(dt)
+
+    def _mix(self, x, conv_state, ssd_state, *, plain: bool = False):
+        """The block on x [B, S, E]; the decode form when S == 1 and a state
+        is given (``plain`` runs the scan's plain version on a CUDA tensor
+        too).  Returns (out, new conv state, new SSD state)."""
+        dt_ = x.dtype
+        Bsz, S, _ = x.shape
+        Din, H, G, N = mamba2_split(self.cfg)
+        P = self.cfg.ssm_head_dim
+        zxbcdt = x @ self.in_proj
+        z, xbc, dt = torch.split(zxbcdt, [Din, Din + 2 * G * N, H], -1)
+        w, b = self._conv_weights(dt_)
+        xbc, new_conv = causal_conv1d(xbc, w, b, conv_state)
+        xbc = silu(xbc)
+        xs, Bc, Cc = torch.split(xbc, [Din, G * N, G * N], -1)
+        xs = xs.reshape(Bsz, S, H, P)
+        Bc = Bc.reshape(Bsz, S, G, N)
+        Cc = Cc.reshape(Bsz, S, G, N)
+        dt = softplus(dt.float() + self.dt_bias)              # [B, S, H]
+        a = torch.exp(-dt * torch.exp(self.a_log))
+        x_in = xs * dt[..., None].to(dt_)
+        if S == 1 and ssd_state is not None:
+            new_ssd, y = ssd_ref.ssd_decode_step(
+                ssd_state, x_in[:, 0].float(), a[:, 0], Bc[:, 0].float(),
+                Cc[:, 0].float())
+            y = y[:, None]
+        else:
+            scan = ssd_ops.ssd_scan_plain if plain else ssd_ops.ssd_scan
+            y, new_ssd = scan(x_in.contiguous(), a.contiguous(),
+                              Bc.contiguous(), Cc.contiguous())
+        skip = (xs * self.d_skip[:, None].to(dt_)).reshape(Bsz, S, Din)
+        # the reference adds y and the skip term in bf16 and converts the
+        # sum to float32 for the norm; compiled, XLA drops that bf16 round
+        # trip (excess precision allowed), so the sum enters unrounded
+        yf = y.reshape(Bsz, S, Din).to(dt_).float() + skip.float()
+        # gated RMSNorm (float32, eps 1e-6, scale not 1 + scale), then out
+        yf = yf * silu(z.float())
+        yf = yf * torch.rsqrt((yf ** 2).mean(-1, keepdim=True) + 1e-6)
+        y = (yf * self.norm_scale).to(dt_)
+        return y @ self.out_proj, new_conv, new_ssd
+
+    def prefill(self, x, cache, *, plain: bool = False):
+        """Whole prompt x [B, S, E] from a zero state; writes the prompt's
+        last K-1 conv inputs and the final SSD state into ``cache`` =
+        (conv [B, K-1, C], state [B, H, P, N])."""
+        conv, state = cache
+        out, new_conv, new_ssd = self._mix(x, None, None, plain=plain)
+        conv.copy_(new_conv)
+        state.copy_(new_ssd)
+        return out
+
+    def decode(self, x, cache):
+        """One token x [B, 1, E] against ``cache``, updated in place."""
+        conv, state = cache
+        out, new_conv, new_ssd = self._mix(x, conv, state)
+        conv.copy_(new_conv)
+        state.copy_(new_ssd)
+        return out

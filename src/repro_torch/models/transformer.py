@@ -1,24 +1,27 @@
 """Decoder-only transformer of the port: init, serving cache, prefill and
 decode.
 
-Port of ``src/repro/models/transformer.py`` for the dense attention kinds.
-The reference stacks each period position's parameters across repetitions
-and scans over them; here every layer is its own ``Block`` module, layer
-``li = rep * period + j`` of kind ``cfg.layer_kinds()[li]``, and the model
-loops over them in Python.  The cache is a list with one (k, v) pair of
-[B, W, KvH, Dh] tensors per layer, updated in place (the reference returns
-new arrays with the same values).
+Port of ``src/repro/models/transformer.py`` for the dense attention kinds
+and the Mamba2 ``ssd`` kind.  The reference stacks each period position's
+parameters across repetitions and scans over them; here every layer is its
+own ``Block`` module, layer ``li = rep * period + j`` of kind
+``cfg.layer_kinds()[li]``, and the model loops over them in Python.  The
+cache is a list with one pair of tensors per layer, updated in place (the
+reference returns new arrays with the same values): (k, v) of
+[B, W, KvH, Dh] for an attention layer, (conv [B, K-1, Din + 2 G N],
+state [B, H, P, N] float32) for an ``ssd`` layer.
 
 Decode attention goes through the decode-attention kernel on CUDA
 (``repro_torch.kernels.decode_attention``), where the reference calls the
 kernel's oracle ``da_ref.decode_attention`` inline
 (``_decode_self_attention``); prefill attention goes through the
-flash-prefill kernel (``layers.Attention.block``).  ``plain=True`` runs both
-plain versions on a CUDA tensor too, for parity checks only.
+flash-prefill kernel (``layers.Attention.block``) and the Mamba2 prefill
+through the SSD-scan kernel (``layers.Mamba2.prefill``).  ``plain=True``
+runs the plain versions on a CUDA tensor too, for parity checks only.
 
-Out of this slice, and refused with ``NotImplementedError``: the ``rglru``,
-``ssd`` and ``cross`` layer kinds, encoder layers, MoE layers, frontends,
-and the full-sequence ``forward`` (training and scoring).
+Out of this slice, and refused with ``NotImplementedError``: the ``rglru``
+and ``cross`` layer kinds, encoder layers, MoE layers, frontends, and the
+full-sequence ``forward`` (training and scoring).
 """
 from __future__ import annotations
 
@@ -34,18 +37,19 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 ATTN_KINDS = ("global", "local", "chunk")
+KINDS = ATTN_KINDS + ("ssd",)
 
-Cache = list   # one (k, v) pair of [B, W, KvH, Dh] tensors per layer
+Cache = list   # one (k, v) or (conv, state) pair of tensors per layer
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     cfg.validate()
-    other = sorted(set(cfg.layer_pattern) - set(ATTN_KINDS))
+    other = sorted(set(cfg.layer_pattern) - set(KINDS))
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported (the port runs "
-            f"{list(ATTN_KINDS)} only)")
+            f"{list(KINDS)} only)")
     if cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: encoder layers are not "
                                   "ported")
@@ -57,13 +61,15 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention of ``kind``, then the MLP."""
+    """One pre-norm layer: attention of ``kind`` or the Mamba2 mixer
+    (``ssd``), then the MLP where ``cfg.d_ff > 0``."""
 
     def __init__(self, cfg: ArchConfig, kind: str, mk: L.Maker):
         super().__init__()
         self.kind = kind
         self.ln1 = L.Norm(cfg, mk)
-        self.mixer = L.Attention(cfg, mk)
+        self.mixer = L.Mamba2(cfg, mk) if kind == "ssd" \
+            else L.Attention(cfg, mk)
         self.has_ffn = cfg.d_ff > 0
         if self.has_ffn:
             self.ln2 = L.Norm(cfg, mk)
@@ -75,7 +81,11 @@ class Block(nn.Module):
         return x
 
     def prefill(self, x, tables, cache_kv, *, plain: bool = False):
-        """Full sequence at positions 0..S-1; writes the (rolling) cache."""
+        """Full sequence at positions 0..S-1; writes the (rolling) cache,
+        or the ``ssd`` layer's (conv, state)."""
+        if self.kind == "ssd":
+            return self._ffn(x + self.mixer.prefill(self.ln1(x), cache_kv,
+                                                    plain=plain))
         y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
                                    plain=plain)
         _build_attn_cache(self.kind, k, v, cache_kv)
@@ -84,7 +94,10 @@ class Block(nn.Module):
     def decode(self, x, tables, cache_kv, slot, valid, *,
                plain: bool = False):
         """One token per sequence: writes its K/V at ``slot`` [B] (int64)
-        and attends the first ``valid`` [B] (int32) cache rows."""
+        and attends the first ``valid`` [B] (int32) cache rows; an ``ssd``
+        layer steps its (conv, state) instead."""
+        if self.kind == "ssd":
+            return self._ffn(x + self.mixer.decode(self.ln1(x), cache_kv))
         q, k, v = self.mixer.qkv(self.ln1(x))
         q = L.apply_rope(q, tables)
         k = L.apply_rope(k, tables)
@@ -193,6 +206,9 @@ class Transformer(nn.Module):
         return x @ self.lm_head
 
     def _tables(self, positions: torch.Tensor):
+        """RoPE tables for the attention layers; None without any."""
+        if not any(b.kind in ATTN_KINDS for b in self.blocks):
+            return None
         return L.rope_tables(positions, self.cfg.head_dim_,
                              theta=self.cfg.rope_theta,
                              fraction=self.cfg.rope_fraction)
@@ -208,13 +224,23 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Transformer:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> Cache:
-    """Zeroed per-layer (k, v) [batch, W, KvH, Dh]; W is ``max_len`` for a
-    global layer and ``min(window, max_len)`` for a local or chunk one."""
+    """Zeroed per-layer (k, v) [batch, W, KvH, Dh] in ``dtype``, W being
+    ``max_len`` for a global layer and ``min(window, max_len)`` for a local
+    or chunk one; for an ``ssd`` layer (conv [batch, K-1, Din + 2 G N] in
+    ``dtype``, state [batch, H, P, N] float32), as the reference."""
     check_supported(cfg)
     dev = resolve_device(device)
     KvH, Dh = cfg.n_kv_heads, cfg.head_dim_
     cache = []
     for kind in cfg.layer_kinds():
+        if kind == "ssd":
+            Din, H, G, N = L.mamba2_split(cfg)
+            cache.append((
+                torch.zeros((batch, cfg.conv_kernel - 1, Din + 2 * G * N),
+                            dtype=dtype, device=dev),
+                torch.zeros((batch, H, cfg.ssm_head_dim, N),
+                            dtype=torch.float32, device=dev)))
+            continue
         W = cache_window(cfg, kind, max_len)
         cache.append(tuple(torch.zeros((batch, W, KvH, Dh), dtype=dtype,
                                        device=dev) for _ in range(2)))
@@ -246,26 +272,24 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     logits [B, V].  The valid rows a layer attends are ``lengths + 1``
     (global), ``min(lengths + 1, W)`` (local, rolling) or
     ``lengths % window + 1`` (chunk), always with window 0, as the
-    reference's ``_decode_self_attention``."""
+    reference's ``_decode_self_attention``.  An ``ssd`` layer steps its
+    recurrence (``layers.Mamba2.decode``)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     tables = model._tables(lengths[:, None])
     ln = lengths.to(torch.int64)
-    slots, valid = {}, {}
-    for blk, (ck, _) in zip(model.blocks, cache):
-        W = ck.shape[1]
-        if W not in slots:
-            slots[W] = ln % W
-        if (blk.kind, W) not in valid:
+    where: dict = {}     # (kind, W) -> (slot, valid) of an attention layer
+    for blk, kv in zip(model.blocks, cache):
+        key = (blk.kind, kv[0].shape[1])
+        if blk.kind in ATTN_KINDS and key not in where:
+            W = key[1]
             if blk.kind == "chunk":
                 n = ln % cfg.window + 1
             elif blk.kind == "local":
                 n = torch.clamp(ln + 1, max=W)
             else:
                 n = ln + 1
-            valid[blk.kind, W] = n.to(torch.int32)
-    for blk, kv in zip(model.blocks, cache):
-        W = kv[0].shape[1]
-        x = blk.decode(x, tables, kv, slots[W], valid[blk.kind, W],
-                       plain=plain)
+            where[key] = (ln % W, n.to(torch.int32))
+        slot, valid = where.get(key, (None, None))
+        x = blk.decode(x, tables, kv, slot, valid, plain=plain)
     return model.unembed(x)[:, 0]

@@ -12,8 +12,8 @@ reference prefills into a fresh zeroed B=1 cache and copies the whole of it
 into the slot), and ``step`` decodes all ``max_batch`` slots, inactive ones
 with token 0 and their stale length, as the reference does.  The cache is
 updated in place.  The engine runs on the card unless ``device="cpu"`` is
-passed; ``plain_attention=True`` runs the attention kernels' plain versions
-on the card too, for parity checks only.
+passed; ``plain_kernels=True`` runs the model kernels' plain versions
+(attention and the SSD scan) on the card too, for parity checks only.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class ServingEngine:
     cache_dtype: Any = torch.float32
     device: Any = None
     greedy: bool = True
-    plain_attention: bool = False
+    plain_kernels: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -50,7 +50,7 @@ class ServingEngine:
         self.lengths = np.zeros(self.max_batch, np.int32)
         self.active = np.zeros(self.max_batch, bool)
         self.requests: dict[int, Request] = {}
-        plain = self.plain_attention
+        plain = self.plain_kernels
         self._decode = lambda tok, ln, cache: T.decode_step(
             self.params, tok, ln, cache, plain=plain)
         self._prefill = lambda tok, cache: T.prefill(
@@ -65,10 +65,10 @@ class ServingEngine:
         slot = self.free_slots()[0]
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
-        one = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.cache]
-        for k, v in one:
-            k.zero_()
-            v.zero_()
+        one = [tuple(t[slot:slot + 1] for t in layer) for layer in self.cache]
+        for layer in one:
+            for t in layer:
+                t.zero_()
         logits, _ = self._prefill(tokens, one)
         tok = int(torch.argmax(logits[0]))
         self.lengths[slot] = len(req.prompt)

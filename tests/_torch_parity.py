@@ -79,26 +79,140 @@ def port_arch(cfg):
     return ArchConfig(**dataclasses.asdict(cfg))
 
 
-def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None):
+#: the Mamba2 parameters that init_mamba2 sets to zeros or ones, with the
+#: scale and centre of the noise ``jax_and_port_model(ssd_seed=...)`` puts
+#: on them, so that the conv taps, the decay, the skip and the norm scale act
+SSD_NOISE = {"conv_w": (0.3, 0.0), "conv_b": (0.1, 0.0), "a_log": (0.5, 0.0),
+             "dt_bias": (0.5, 0.0), "d_skip": (0.2, 1.0),
+             "norm_scale": (0.2, 1.0)}
+
+
+def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
+                       ssd_seed=None):
     """The reference's ``init_model(seed, cfg)`` parameters and the port's
     CPU model holding the same values.  ``bias_seed`` replaces the zero QKV
-    biases by random ones (so a test sees them act)."""
+    biases by random ones, and ``ssd_seed`` puts seeded noise
+    (``SSD_NOISE``) on the Mamba2 parameters initialised to zeros or ones,
+    in the numpy tree both packages load (so a test sees them act)."""
     import jax
     import jax.numpy as jnp
     from repro.models import transformer as JT
     from repro_torch.models import convert
     params, _ = JT.init_model(seed, cfg)
+    params = jax.tree.map(np.asarray, params)
+    mixers = [bp["mixer"] for bp in params["blocks"].values()] + \
+        [bp["mixer"] for bp in params["tail"]]
     if bias_seed is not None:
         rng = np.random.default_rng(bias_seed)
-
-        def with_bias(mixer):
+        for mixer in mixers:
             for name in ("bq", "bk", "bv"):
-                mixer[name] = jnp.asarray(
-                    0.1 * rng.standard_normal(mixer[name].shape), jnp.float32)
-        for bp in params["blocks"].values():
-            with_bias(bp["mixer"])
-        for bp in params["tail"]:
-            with_bias(bp["mixer"])
-    model = convert.params_from_jax(jax.tree.map(np.asarray, params),
-                                    port_arch(cfg), device="cpu")
-    return params, model
+                mixer[name] = (0.1 * rng.standard_normal(
+                    mixer[name].shape)).astype(np.float32)
+    if ssd_seed is not None:
+        rng = np.random.default_rng(ssd_seed)
+        for mixer in mixers:
+            for name, (scale, centre) in SSD_NOISE.items():
+                mixer[name] = (centre + scale * rng.standard_normal(
+                    mixer[name].shape)).astype(np.float32)
+    model = convert.params_from_jax(params, port_arch(cfg), device="cpu")
+    return jax.tree.map(jnp.asarray, params), model
+
+
+# --- serving runs -------------------------------------------------------------
+
+#: the reference's default HardwareSpec numbers, given to both cost models
+V5E = dict(flops=197e12, hbm=819e9)
+
+
+def serving_mix(vocab: int):
+    """(tenant, prompt, new tokens, arrival) of a small mix: background
+    80-token prompts (longer than the reduced window of 64, so prefill
+    truncates the local caches and decode wraps their slots) and reserved
+    12-token prompts arriving over time."""
+    rng = np.random.default_rng(0)
+    reqs = [(2, rng.integers(0, vocab, 80).tolist(), 16, 0.0)
+            for _ in range(4)]
+    reqs += [(tid, rng.integers(0, vocab, 12).tolist(), 6, k * 0.02)
+             for k in range(4) for tid in range(2)]
+    return reqs
+
+
+def run_serving(pkg: str, cfg, model, mix, shaped: bool, use_kernel: bool,
+                arch: str, max_rounds: int = 400):
+    """Serve ``mix`` through one package's ``ServingEngine`` (max_batch 4,
+    max_len 128, float32 cache) under its Arcus or FCFS scheduler, clocked
+    by ``arch``'s full-config cost model on the reference's hardware
+    numbers (8 chips), for 0.6 s or ``max_rounds`` rounds (an idle round
+    advances 0.1 ms).  ``pkg`` is ``"jax"`` (``model`` = the parameter
+    tree) or ``"torch"`` (``model`` = the port's CPU model).  Returns
+    (scheduler, requests, the logits of every prefill and decode call)."""
+    if pkg == "jax":
+        from repro.configs.registry import get_config
+        from repro.core.flow import SLO
+        from repro.serving import costmodel
+        from repro.serving.engine import ServingEngine
+        from repro.serving.request import Request, Tenant
+        from repro.serving.scheduler import ArcusScheduler, FCFSScheduler
+        eng = ServingEngine(cfg, model, max_batch=4, max_len=128)
+    else:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.core.flow import SLO
+        from repro_torch.serving import costmodel
+        from repro_torch.serving.engine import ServingEngine
+        from repro_torch.serving.request import Request, Tenant
+        from repro_torch.serving.scheduler import (ArcusScheduler,
+                                                   FCFSScheduler)
+        eng = ServingEngine(model.cfg, model, max_batch=4, max_len=128,
+                            device="cpu")
+    logits = []
+    dec, pre = eng._decode, eng._prefill
+
+    def rec_dec(*a):
+        out = dec(*a)
+        logits.append(("decode", np.asarray(out[0] if pkg == "jax"
+                                            else out.float())))
+        return out
+
+    def rec_pre(*a):
+        out = pre(*a)
+        logits.append(("prefill", np.asarray(out[0] if pkg == "jax"
+                                             else out[0].float())))
+        return out
+    eng._decode, eng._prefill = rec_dec, rec_pre
+    tenants = [Tenant(0, SLO.iops(1200.0)), Tenant(1, SLO.iops(800.0)),
+               Tenant(2, SLO.iops(1e9), "opportunistic")]
+    cost = costmodel.StepCostModel(get_config(arch),
+                                   costmodel.HardwareSpec(chips=8, **V5E))
+    cls = ArcusScheduler if shaped else FCFSScheduler
+    sched = cls(eng, tenants, cost, use_kernel=use_kernel)
+    reqs = [Request(i, t, p, n, arrive_s=a) for i, (t, p, n, a)
+            in enumerate(mix)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run(0.6, max_rounds=max_rounds)
+    return sched, reqs, logits
+
+
+def launcher_report(argv: list) -> tuple:
+    """What the reference's launcher prints and what the port's launcher
+    reports, both with ``argv`` and the reference's hardware numbers."""
+    import contextlib
+    import io
+    import sys
+    from repro.launch import serve as j_serve
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.serving import costmodel
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = ["serve", *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            j_serve.main()
+    finally:
+        sys.argv = saved
+    args = t_serve.parser().parse_args(argv)
+    sched, tenants, cfg = t_serve.serve(
+        args, device="cpu", hw=costmodel.HardwareSpec(chips=args.chips,
+                                                      **V5E))
+    return buf.getvalue().rstrip("\n"), t_serve.report(sched, tenants, cfg,
+                                                        args)

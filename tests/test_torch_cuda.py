@@ -1,7 +1,8 @@
-"""On-card tests of the port: the Hopper token-bucket, decode-attention and
-flash-prefill kernels against their plain versions, a CUDA dataplane window
-against the same window on the CPU, and the serving engine through the
-kernels against the same engine through the plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card
+"""On-card tests of the port: the Hopper token-bucket, decode-attention,
+flash-prefill and SSD-scan kernels against their plain versions, a CUDA
+dataplane window against the same window on the CPU, and the serving engine
+(gemma3 and mamba2) through the kernels against the same engine through the
+plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card
 run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -20,6 +21,7 @@ from repro_torch.core.interconnect import LinkSpec
 from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.token_bucket import ops
 
 pytestmark = pytest.mark.cuda
@@ -165,32 +167,130 @@ def test_attention_kernels_reject_bad_inputs(dev):
         fp_ops.flash_prefill(q[:, None], k, k.half())
 
 
+def _engine_logits(cfg, model, dev, plain: bool) -> torch.Tensor:
+    """Three prompts admitted, then 10 decode steps; after each step the
+    logits of one more decode of a copy of the cache."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (80, 12, 40)]
+    eng = ServingEngine(cfg, model, max_batch=4, max_len=128, device=dev,
+                        plain_kernels=plain)
+    logits = []
+    for i, p in enumerate(prompts):
+        eng.admit(Request(i, 0, p, 12))
+    for _ in range(10):
+        eng.step()
+        logits.append(eng._decode(
+            torch.zeros((4, 1), dtype=torch.long, device=dev),
+            torch.as_tensor(eng.lengths, device=dev),
+            [tuple(t.clone() for t in kv) for kv in eng.cache]))
+    return torch.stack(logits).float()
+
+
 def test_serving_engine_kernels_match_plain(dev):
     """Reduced gemma3 in bf16 on the card: logits of every prefill and
     decode through the kernels within one bf16 ulp of their scale of the
     same engine through the plain versions."""
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
     cfg = get_reduced_config("gemma3-12b", dtype="bfloat16")
     model = T.init_model(0, cfg, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (80, 12, 40)]
-    out = []
-    for plain in (False, True):
-        eng = ServingEngine(cfg, model, max_batch=4, max_len=128,
-                            device=dev, plain_attention=plain)
-        logits = []
-        for i, p in enumerate(prompts):
-            eng.admit(Request(i, 0, p, 12))
-        for _ in range(10):
-            eng.step()
-            logits.append(eng._decode(
-                torch.zeros((4, 1), dtype=torch.long, device=dev),
-                torch.as_tensor(eng.lengths, device=dev),
-                [tuple(t.clone() for t in kv) for kv in eng.cache]))
-        out.append(torch.stack(logits).float())
+    out = [_engine_logits(cfg, model, dev, plain) for plain in (False, True)]
     diff = (out[0] - out[1]).abs()
     assert bool((diff <= 0.0625 + 1e-2 * out[1].abs()).all()), \
+        float(diff.max())
+
+
+# --- SSD scan (the JAX test's measure: max-abs error over the output's
+# max-abs, 2e-3 float32, 1e-1 bf16) ----------------------------------------
+
+SSD_CASES = [
+    # Bsz, L, H, P, G, N, dtype: tests/test_kernels.py:88-94, then mamba2's
+    # 2000-token prefill (a ragged last chunk) and a ragged case with P not
+    # a multiple of the kernel's 16 columns, G = 3 and N = 256
+    (2, 256, 4, 64, 1, 128, torch.float32),
+    (1, 100, 3, 32, 1, 64, torch.float32),
+    (2, 128, 8, 64, 2, 128, torch.float32),
+    (1, 512, 4, 64, 1, 128, torch.bfloat16),
+    (1, 2000, 48, 64, 1, 128, torch.bfloat16),
+    (3, 77, 6, 40, 3, 256, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(dev, case):
+    Bz, L, H, P, G, N, dt = case
+    g = torch.Generator(device=dev).manual_seed(L)
+    x = (0.5 * torch.randn((Bz, L, H, P), generator=g, device=dev)).to(dt)
+    a = 0.7 + 0.299 * torch.rand((Bz, L, H), generator=g, device=dev)
+    B = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)).to(dt)
+    C = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)).to(dt)
+    before = ssd_ops.LAUNCHES
+    y, s = ssd_ops.ssd_scan(x, a, B, C)
+    assert ssd_ops.LAUNCHES == before + 1
+    yr, sr = ssd_ops.ssd_scan_plain(x, a, B, C)
+    torch.cuda.synchronize()
+    assert y.dtype == dt and s.dtype == torch.float32
+    tol = 1e-1 if dt == torch.bfloat16 else 2e-3
+    for got, want in ((y, yr), (s, sr)):
+        err = (got.float() - want.float()).abs().max() / \
+            (want.float().abs().max() + 1e-9)
+        assert float(err) < tol
+
+
+def test_ssd_scan_kernel_strong_decay_stays_finite(dev):
+    """Decays down to 1e-30 (exp of the cumulative log decay underflows)
+    and up to 1: finite, and within the float32 limit of the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 300, 4, 64), generator=g, device=dev)
+    a = torch.rand((1, 300, 4), generator=g, device=dev) ** 8
+    B = torch.randn((1, 300, 2, 128), generator=g, device=dev)
+    C = torch.randn((1, 300, 2, 128), generator=g, device=dev)
+    y, s = ssd_ops.ssd_scan(x, a, B, C)
+    yr, sr = ssd_ops.ssd_scan_plain(x, a, B, C)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    assert float((y - yr).abs().max() / yr.abs().max()) < 2e-3
+    assert float((s - sr).abs().max() / sr.abs().max()) < 2e-3
+
+
+def test_ssd_scan_kernel_rejects_bad_inputs(dev):
+    x = torch.zeros((1, 8, 4, 16), device=dev)
+    a = torch.ones((1, 8, 4), device=dev)
+    B = torch.zeros((1, 8, 1, 16), device=dev)
+    with pytest.raises(ValueError):      # float16 x
+        ssd_ops.ssd_scan(x.half(), a, B, B)
+    with pytest.raises(ValueError):      # rank 3 x
+        ssd_ops.ssd_scan(x[0], a, B, B)
+    with pytest.raises(ValueError):      # G = 3 does not divide H = 4
+        B3 = torch.zeros((1, 8, 3, 16), device=dev)
+        ssd_ops.ssd_scan(x, a, B3, B3)
+    with pytest.raises(ValueError):      # bf16 decay
+        ssd_ops.ssd_scan(x, a.bfloat16(), B, B)
+    with pytest.raises(ValueError):      # C's dtype differs from B's
+        ssd_ops.ssd_scan(x, a, B, B.bfloat16())
+    with pytest.raises(ValueError):      # non-contiguous B
+        Bt = torch.zeros((1, 16, 1, 8), device=dev).transpose(1, 3)
+        ssd_ops.ssd_scan(x, a, Bt, Bt)
+
+
+def test_serving_engine_mamba2_kernels_match_plain(dev):
+    """Reduced mamba2 in bf16 on the card (the full config's layout, no
+    MLP): logits through the SSD-scan kernel within one bf16 ulp of their
+    scale of the same engine through the plain scan, and one kernel launch
+    per layer per prefill."""
+    import dataclasses
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(
+        get_reduced_config("mamba2-780m", dtype="bfloat16"), d_ff=0)
+    model = T.init_model(0, cfg, device=dev)
+    before = ssd_ops.LAUNCHES
+    kern = _engine_logits(cfg, model, dev, False)
+    assert ssd_ops.LAUNCHES - before == 3 * cfg.n_layers
+    plain = _engine_logits(cfg, model, dev, True)
+    assert ssd_ops.LAUNCHES - before == 3 * cfg.n_layers
+    diff = (kern - plain).abs()
+    assert bool((diff <= 0.0625 + 1e-2 * plain.abs()).all()), \
         float(diff.max())

@@ -10,10 +10,7 @@ request, so the tests hold the logits of every prefill and decode step
 cache (2e-5) and the scheduler's statistics, which must be equal bit for
 bit: the clock is Python floats and the buckets int32.
 """
-import contextlib
 import dataclasses
-import io
-import sys
 
 import jax
 import numpy as np
@@ -21,98 +18,19 @@ import pytest
 import torch
 
 from repro.configs.registry import ARCH_IDS, get_config, get_reduced_config
-from repro.core.flow import SLO as JSLO
-from repro.launch import serve as j_serve
 from repro.serving import costmodel as j_cost
-from repro.serving.engine import ServingEngine as JEngine
-from repro.serving.request import Request as JRequest, Tenant as JTenant
-from repro.serving.scheduler import (ArcusScheduler as JArcus,
-                                     FCFSScheduler as JFCFS)
 from repro_torch.configs import registry as t_registry
 from repro_torch.core.flow import SLO as TSLO
-from repro_torch.launch import serve as t_serve
 from repro_torch.models import convert
 from repro_torch.serving import costmodel as t_cost
 from repro_torch.serving.engine import ServingEngine as TEngine
-from repro_torch.serving.request import Request as TRequest, Tenant as TTenant
-from repro_torch.serving.scheduler import (ArcusScheduler as TArcus,
-                                           FCFSScheduler as TFCFS)
-from _torch_parity import jax_and_port_model
+from repro_torch.serving.request import Tenant as TTenant
+from repro_torch.serving.scheduler import ArcusScheduler as TArcus
+from _torch_parity import (V5E, jax_and_port_model, launcher_report,
+                           run_serving, serving_mix)
 
-V5E = dict(flops=197e12, hbm=819e9)   # the reference's HardwareSpec default
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=2e-5)
-
-
-def _mix(vocab: int):
-    """(tenant, prompt, new tokens, arrival) of a small mix: background
-    80-token prompts (longer than the reduced window of 64, so prefill
-    truncates the local caches and decode wraps their slots) and reserved
-    12-token prompts arriving over time."""
-    rng = np.random.default_rng(0)
-    reqs = [(2, rng.integers(0, vocab, 80).tolist(), 16, 0.0)
-            for _ in range(4)]
-    reqs += [(tid, rng.integers(0, vocab, 12).tolist(), 6, k * 0.02)
-             for k in range(4) for tid in range(2)]
-    return reqs
-
-
-def _run_reference(cfg, params, mix, shaped, use_kernel):
-    eng = JEngine(cfg, params, max_batch=4, max_len=128)
-    logits = []
-    dec, pre = eng._decode, eng._prefill
-
-    def rec_dec(*a):
-        out = dec(*a)
-        logits.append(("decode", np.asarray(out[0])))
-        return out
-
-    def rec_pre(*a):
-        out = pre(*a)
-        logits.append(("prefill", np.asarray(out[0])))
-        return out
-    eng._decode, eng._prefill = rec_dec, rec_pre
-    tenants = [JTenant(0, JSLO.iops(1200.0)), JTenant(1, JSLO.iops(800.0)),
-               JTenant(2, JSLO.iops(1e9), "opportunistic")]
-    cost = j_cost.StepCostModel(get_config("gemma3-12b"),
-                                j_cost.HardwareSpec(chips=8, **V5E))
-    cls = JArcus if shaped else JFCFS
-    sched = cls(eng, tenants, cost, use_kernel=use_kernel)
-    reqs = [JRequest(i, t, p, n, arrive_s=a) for i, (t, p, n, a)
-            in enumerate(mix)]
-    for r in reqs:
-        sched.submit(r)
-    sched.run(0.6, max_rounds=400)
-    return sched, reqs, logits
-
-
-def _run_port(model, mix, shaped, use_kernel):
-    eng = TEngine(model.cfg, model, max_batch=4, max_len=128, device="cpu")
-    logits = []
-    dec, pre = eng._decode, eng._prefill
-
-    def rec_dec(*a):
-        out = dec(*a)
-        logits.append(("decode", out.numpy()))
-        return out
-
-    def rec_pre(*a):
-        out = pre(*a)
-        logits.append(("prefill", out[0].numpy()))
-        return out
-    eng._decode, eng._prefill = rec_dec, rec_pre
-    tenants = [TTenant(0, TSLO.iops(1200.0)), TTenant(1, TSLO.iops(800.0)),
-               TTenant(2, TSLO.iops(1e9), "opportunistic")]
-    cost = t_cost.StepCostModel(t_registry.get_config("gemma3-12b"),
-                                t_cost.HardwareSpec(chips=8, **V5E))
-    cls = TArcus if shaped else TFCFS
-    sched = cls(eng, tenants, cost, use_kernel=use_kernel)
-    reqs = [TRequest(i, t, p, n, arrive_s=a) for i, (t, p, n, a)
-            in enumerate(mix)]
-    for r in reqs:
-        sched.submit(r)
-    sched.run(0.6, max_rounds=400)
-    return sched, reqs, logits
 
 
 @pytest.mark.parametrize("shaped,use_kernel", [(True, True), (False, False)],
@@ -120,10 +38,11 @@ def _run_port(model, mix, shaped, use_kernel):
 def test_engine_and_scheduler_match_reference(shaped, use_kernel):
     cfg = get_reduced_config("gemma3-12b")
     params, model = jax_and_port_model(cfg, 0)
-    mix = _mix(cfg.vocab)
-    j_sched, j_reqs, j_logits = _run_reference(cfg, params, mix, shaped,
-                                               use_kernel)
-    t_sched, t_reqs, t_logits = _run_port(model, mix, shaped, use_kernel)
+    mix = serving_mix(cfg.vocab)
+    j_sched, j_reqs, j_logits = run_serving("jax", cfg, params, mix, shaped,
+                                            use_kernel, "gemma3-12b")
+    t_sched, t_reqs, t_logits = run_serving("torch", cfg, model, mix, shaped,
+                                            use_kernel, "gemma3-12b")
 
     assert [k for k, _ in t_logits] == [k for k, _ in j_logits]
     assert sum(k == "decode" for k, _ in j_logits) >= 8
@@ -150,24 +69,15 @@ def test_engine_and_scheduler_match_reference(shaped, use_kernel):
                                        err_msg=f"layer {li}")
 
 
-def test_launcher_matches_reference():
-    """``python -m repro_torch.launch.serve`` with default flags prints what
-    the reference's launcher prints (reduced gemma3, the same mix, 2000
-    rounds), given the reference's hardware numbers.  The printed stats do
-    not depend on the weights, which differ (each package draws its own)."""
-    buf = io.StringIO()
-    argv = sys.argv
-    sys.argv = ["serve"]
-    try:
-        with contextlib.redirect_stdout(buf):
-            j_serve.main()
-    finally:
-        sys.argv = argv
-    args = t_serve.parser().parse_args([])
-    sched, tenants, cfg = t_serve.serve(
-        args, device="cpu", hw=t_cost.HardwareSpec(chips=args.chips, **V5E))
-    assert t_serve.report(sched, tenants, cfg, args) == \
-        buf.getvalue().rstrip("\n")
+@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m"])
+def test_launcher_matches_reference(arch):
+    """``python -m repro_torch.launch.serve --arch <arch>`` with default
+    flags otherwise prints what the reference's launcher prints (the
+    reduced model, the same mix, 2000 rounds), given the reference's
+    hardware numbers.  The printed stats do not depend on the weights,
+    which differ (each package draws its own)."""
+    want, got = launcher_report(["--arch", arch])
+    assert got == want
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
