@@ -22,9 +22,14 @@ drives the port's paths through the kernels:
     versions on a copy of the same cache: a recurrent state carries any
     rounding difference forward, so two independent runs drift apart).
 
-Cuts against PR 12's script: none; the mamba2 paths run more scheduler
-rounds than the launcher's 2000 (MAMBA_ROUNDS) so that their mixes reach
-3 s of virtual time.
+Flash prefill has two kernels, chosen by operand type: bf16 (what the
+models pass) on the tensor cores, float32 on the CUDA cores; its phase
+checks each call's path, and the serving phases check that every
+flash-prefill launch took the tensor-core path.
+
+Cuts against earlier versions of this script: none; the mamba2 paths run
+more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that
+their mixes reach 3 s of virtual time.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The last three lines are the kernel table, the card's
@@ -323,6 +328,7 @@ FP_CASES = [
 ]
 FP_FIRST_TIMED = 6
 FP_MAIN = 7                 # the serve mix's background prompt: the table's
+FP_LONG = 9                 # the long mix's prompt (local, then global)
 
 
 def _prefill_mask(S: int, w: int, ck: int, dev):
@@ -339,8 +345,11 @@ def _prefill_mask(S: int, w: int, ck: int, dev):
 
 def phase_kernel_flash_prefill(dev) -> dict:
     """CUDA flash prefill vs its plain version on the card (2e-5 for
-    float32, 2e-2 for bf16), then times of the kernel, the plain version
-    and SDPA at gemma3-12b's shapes."""
+    float32, 2e-2 for bf16; bf16 operands go to the tensor-core kernel,
+    float32 ones to the CUDA-core kernel), then times of the kernel, the
+    plain version and SDPA at gemma3-12b's shapes: SDPA with the explicit
+    mask (``library_ms``) and, where the mask is the plain causal one, SDPA
+    with ``is_causal`` (its flash backend, ``library_causal_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import ops
@@ -351,13 +360,19 @@ def phase_kernel_flash_prefill(dev) -> dict:
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
         k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
         v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
+        path = ops.kernel_path(q.dtype, k.dtype)
+        by_path = dict(ops.LAUNCHES_BY_PATH)
         got = ops.flash_prefill(q, k, v, window=w, chunk_size=ck)
+        by_path[path] += 1
+        if ops.LAUNCHES_BY_PATH != by_path:
+            raise AssertionError(f"flash_prefill: {dn} call not on the "
+                                 f"{path} path: {ops.LAUNCHES_BY_PATH}")
         want = ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck)
         torch.cuda.synchronize()
         tol = 2e-2 if dn == "bfloat16" else 2e-5
         err = _max_err(got, want)
         row = dict(shape=[B, S, H, KvH, D], window=w, chunk=ck, dtype=dn,
-                   max_abs_err=err, tol=tol)
+                   path=path, max_abs_err=err, tol=tol)
         if not err < tol:
             emit("kernel_flash_prefill", failed=row)
             raise AssertionError(f"flash_prefill kernel != plain: {row}")
@@ -384,11 +399,23 @@ def phase_kernel_flash_prefill(dev) -> dict:
                 lambda: ops.flash_prefill_plain(q, k, v, window=w,
                                                 chunk_size=ck))
             row["library_ms"] = auto_time_ms(lib)
+            row["library_causal_ms"] = None
+            if not ck and (not w or S <= w):
+
+                def lib_causal():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                lib_err = _max_err(lib_causal().transpose(1, 2), want)
+                if not lib_err < tol:
+                    raise AssertionError(f"SDPA is_causal yardstick != "
+                                         f"plain: {lib_err}")
+                row["library_causal_ms"] = auto_time_ms(lib_causal)
             row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
     emit("kernel_flash_prefill", cases=rows,
          worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
-    return dict(rows=rows, main=rows[FP_MAIN],
+    return dict(rows=rows, main=rows[FP_MAIN], long=rows[FP_LONG:],
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
@@ -672,6 +699,8 @@ def _launch_counts() -> dict:
 def _reset_launch_counts() -> None:
     for m in _kernel_ops().values():
         m.LAUNCHES = 0
+        for path in getattr(m, "LAUNCHES_BY_PATH", {}):
+            m.LAUNCHES_BY_PATH[path] = 0
 
 
 def _instrument(engine, keep_logits: bool = False) -> dict:
@@ -812,6 +841,7 @@ def _run_path(name, model, dev, **kw) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
+    fp_paths = dict(_kernel_ops()["flash_prefill"].LAUNCHES_BY_PATH)
     L = model.cfg.n_layers
     kinds = model.cfg.layer_kinds()
     n_ssd = kinds.count("ssd")
@@ -836,6 +866,7 @@ def _run_path(name, model, dev, **kw) -> dict:
                * 1e3,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, launches_expected=expect,
+               flash_prefill_paths=fp_paths,
                longest_sequence=int(sched.engine.lengths.max()),
                tenants=stats)
     plain = kw.get("plain", False)
@@ -849,6 +880,12 @@ def _run_path(name, model, dev, **kw) -> dict:
     if launches != expect or not all(
             v > 0 for k, v in launches.items() if expect[k]):
         raise AssertionError(f"{name}: launches {launches} != {expect}")
+    # the models' q, k and v are bf16: every flash-prefill launch is the
+    # tensor-core kernel's
+    if model.cfg.dtype == "bfloat16" and \
+            fp_paths["tensor_core"] != launches["flash_prefill"]:
+        raise AssertionError(f"{name}: flash prefill off the tensor-core "
+                             f"path: {fp_paths}")
     out["sched"], out["rec"] = sched, rec
     return out
 
@@ -1193,6 +1230,15 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape, "launches_by_path": by_path[name]})
+        if name == "flash_prefill":
+            rows[-1]["kernel_paths"] = {
+                p: r["flash_prefill_paths"] for p, r in (
+                    ("serve", serve), ("serve_long", long))}
+            rows[-1]["long_prompt"] = [
+                {k: r[k] for k in ("shape", "window", "ms", "plain_ms",
+                                   "library_ms", "library_causal_ms",
+                                   "bound_ms", "bound_by", "bound_share",
+                                   "tflops")} for r in res["long"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-Each kernel is one ``.cu`` file with a plain C interface, compiled by
-``nvcc`` into a shared library and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  Libraries go to ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads the cached library.
-Nothing here runs at import time: the first launch builds.
+Each kernel is one ``.cu`` file with a plain C interface (it may include
+headers beside it in its ``csrc/`` directory), compiled by ``nvcc`` into a
+shared library and loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  Libraries go to ``build/repro_torch/`` at the repository
+root, named by a hash of every file in the source's directory, the source's
+name and the flags, so a changed source or header rebuilds and an unchanged
+one loads the cached library.  Nothing here runs at import time: the first
+launch builds.
 """
 from __future__ import annotations
 
@@ -46,10 +48,17 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str, source: pathlib.Path) -> pathlib.Path:
-    src = pathlib.Path(source).read_bytes()
-    flags = " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
-    digest = hashlib.sha256(src + flags).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``source`` lives: named by a hash of every file
+    under the source's directory (its headers too), which of them is
+    compiled, and the flags."""
+    source = pathlib.Path(source).resolve()
+    csrc = source.parent
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(b"\0" + source.name.encode())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        rel = f.relative_to(csrc).as_posix().encode()
+        h.update(b"\0" + rel + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_many(kernels: list[tuple[str, pathlib.Path]]) -> dict[str, float]:

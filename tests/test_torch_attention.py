@@ -183,6 +183,38 @@ def test_prefill_plain_non_causal():
     assert _err(_np(got), want) < 3e-5
 
 
+@pytest.mark.parametrize("qd, kd, path", [
+    (torch.bfloat16, torch.bfloat16, "tensor_core"),
+    (torch.float32, torch.float32, "cuda_core"),
+    (torch.bfloat16, torch.float32, "cuda_core"),
+    (torch.float32, torch.bfloat16, "cuda_core")])
+def test_prefill_kernel_path_by_dtype(qd, kd, path):
+    """On the card the wrapper picks its kernel by operand type alone; a CPU
+    call runs the plain version and counts a launch on neither path."""
+    assert fp_ops.kernel_path(qd, kd) == path
+    before = dict(fp_ops.LAUNCHES_BY_PATH)
+    q = torch.zeros((1, 3, 2, 8), dtype=qd)
+    kv = torch.zeros((1, 3, 1, 8), dtype=kd)
+    fp_ops.flash_prefill(q, kv, kv)
+    assert fp_ops.LAUNCHES_BY_PATH == before
+
+
+def test_tensor_core_operands_padded_and_aligned():
+    """The tensor-core kernel takes D % 8 == 0 and 16-byte aligned rows: the
+    wrapper pads D with zeros (which change no score) and copies an
+    unaligned view; the models' tensors pass unchanged."""
+    x = torch.randn((1, 5, 2, 36)).to(torch.bfloat16)
+    p = fp_ops._tc_operand(x, 40)
+    assert p.shape == (1, 5, 2, 40) and torch.equal(p[..., :36], x)
+    assert not p[..., 36:].any()
+    y = torch.randn((1, 5, 2, 64)).to(torch.bfloat16)
+    assert fp_ops._tc_operand(y, 64) is y
+    z = torch.randn(1 + 5 * 2 * 64).to(torch.bfloat16)[1:].view(1, 5, 2, 64)
+    assert z.data_ptr() % 16 != 0
+    c = fp_ops._tc_operand(z, 64)
+    assert c.data_ptr() % 16 == 0 and torch.equal(c, z)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((1, 4, 8), device="meta")
     with pytest.raises(ValueError):

@@ -125,30 +125,64 @@ def test_decode_attention_kernel_matches_plain(dev, case):
 
 
 FP_CASES = [
-    # B, S, H, KvH, D, window, chunk, dtype
+    # B, S, H, KvH, D, window, chunk, dtype[, causal]
     (2, 128, 4, 2, 64, 0, 0, torch.float32),
     (1, 200, 4, 1, 80, 0, 0, torch.float32),
     (2, 256, 4, 2, 64, 64, 0, torch.float32),
     (1, 256, 4, 2, 64, 0, 64, torch.float32),
     (1, 300, 16, 8, 256, 100, 0, torch.bfloat16),
     (1, 1536, 16, 8, 256, 1024, 0, torch.bfloat16),
+    # the tensor-core kernel's edges: 128 packed rows (position x head) a
+    # block, 64-key tiles, 64-column panels, D rounded up to 16
+    (1, 1, 8, 2, 128, 0, 0, torch.bfloat16),
+    (1, 63, 8, 2, 64, 0, 0, torch.bfloat16),
+    (2, 65, 8, 2, 80, 0, 0, torch.bfloat16),
+    (1, 129, 8, 1, 128, 0, 0, torch.bfloat16),        # MQA: G = 8
+    (1, 300, 16, 4, 256, 0, 0, torch.bfloat16),       # G = 4
+    (1, 200, 10, 2, 128, 0, 0, torch.bfloat16),       # G = 5
+    (1, 300, 8, 2, 64, 37, 0, torch.bfloat16),        # window edge in a tile
+    (1, 300, 8, 2, 128, 0, 40, torch.bfloat16),       # chunk edges in tiles
+    (2, 129, 8, 8, 80, 0, 0, torch.bfloat16, False),  # non-causal, G = 1
+    (1, 70, 6, 2, 36, 0, 0, torch.bfloat16),          # D padded to 40
 ]
 
 
 @pytest.mark.parametrize("case", FP_CASES)
 def test_flash_prefill_kernel_matches_plain(dev, case):
-    B, S, H, KvH, D, w, ck, dt = case
+    B, S, H, KvH, D, w, ck, dt = case[:8]
+    causal = case[8] if len(case) > 8 else True
     g = torch.Generator(device=dev).manual_seed(S)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
     k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
     v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
-    before = fp_ops.LAUNCHES
-    got = fp_ops.flash_prefill(q, k, v, window=w, chunk_size=ck)
+    path = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+    before, by_path = fp_ops.LAUNCHES, dict(fp_ops.LAUNCHES_BY_PATH)
+    got = fp_ops.flash_prefill(q, k, v, window=w, chunk_size=ck,
+                               causal=causal)
     assert fp_ops.LAUNCHES == before + 1
-    want = fp_ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck)
+    by_path[path] += 1
+    assert fp_ops.LAUNCHES_BY_PATH == by_path
+    want = fp_ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck,
+                                      causal=causal)
     torch.cuda.synchronize()
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    assert got.dtype == dt and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_flash_prefill_mixed_operands_take_cuda_core_path(dev):
+    """bf16 q over float32 k, v: the float32 CUDA-core kernel."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((1, 100, 8, 64), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((1, 100, 2, 64), generator=g, device=dev)
+            for _ in range(2))
+    by_path = dict(fp_ops.LAUNCHES_BY_PATH)
+    got = fp_ops.flash_prefill(q, k, v, window=30)
+    by_path["cuda_core"] += 1
+    assert fp_ops.LAUNCHES_BY_PATH == by_path
+    want = fp_ops.flash_prefill_plain(q, k, v, window=30)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
 
 
 def test_attention_kernels_reject_bad_inputs(dev):
