@@ -22,10 +22,10 @@ drives the port's paths through the kernels:
     versions on a copy of the same cache: a recurrent state carries any
     rounding difference forward, so two independent runs drift apart).
 
-Flash prefill has two kernels, chosen by operand type: bf16 (what the
-models pass) on the tensor cores, float32 on the CUDA cores; its phase
-checks each call's path, and the serving phases check that every
-flash-prefill launch took the tensor-core path.
+Flash prefill and the SSD scan have two kernels each, chosen by operand
+type: bf16 (what the models pass) on the tensor cores, float32 on the CUDA
+cores; their phases check each call's path, and the serving phases check
+that every flash-prefill and SSD-scan launch took the tensor-core path.
 
 Cuts against earlier versions of this script: none; the mamba2 paths run
 more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that
@@ -421,7 +421,7 @@ def phase_kernel_flash_prefill(dev) -> dict:
 
 # Bsz, L, H, P, G, N, dtype: the cases of tests/test_kernels.py:88-94, then
 # mamba2-780m's prefills in bf16: the serve mix's prompts (12 and 64 tokens)
-# and the long mix's (2000)
+# and the long mix's (2000), then bf16 at Bsz = 2 and at G = 2 with N = 256
 SSD_CASES = [
     (2, 256, 4, 64, 1, 128, "float32"),
     (1, 100, 3, 32, 1, 64, "float32"),
@@ -430,33 +430,46 @@ SSD_CASES = [
     (1, 12, 48, 64, 1, 128, "bfloat16"),
     (1, 64, 48, 64, 1, 128, "bfloat16"),
     (1, MAMBA_LONG_PROMPT, 48, 64, 1, 128, "bfloat16"),
+    (2, 300, 8, 64, 1, 128, "bfloat16"),
+    (1, 300, 8, 64, 2, 256, "bfloat16"),
 ]
-SSD_FIRST_TIMED = 5
+SSD_TIMED = (4, 5, 6)       # mamba2's 12-, 64- and 2000-token prefills
 SSD_MAIN = 6                # the long mix's prefill: the table's row
-SSD_CHUNK = 64              # the kernel's chunk (ssd_scan.cu: LC)
+SSD_REF_CHUNK = 128         # the reference kernel's chunk (ops.py:18)
+# the tensor-core kernel against its chunked mirror (ref.ssd_scan_chunked,
+# the same rounding points): float32 summation order and the bf16 roundings
+# it flips, a few bf16 ulps of the output's max-abs
+SSD_MIRROR_TOL = 2e-2
 
 
 def ssd_bound(Bz: int, L: int, H: int, P: int, G: int, N: int,
               dtype_name: str) -> tuple[float, str]:
     """Least time in ms of one scan, in ``attn_bound``'s convention: x, a,
-    B, C read once, y and the final state written once, against the four
-    products of the chunked form (C B^T and M x over a chunk of SSD_CHUNK
-    tokens, C S^T and the state update) for each token and head, at the
-    peak rate of the operands' type."""
+    B, C read once, y and the final state written once, against the
+    products of the chunked form at the reference's chunk of SSD_REF_CHUNK
+    tokens: C B^T once per (batch, group, chunk), and for each token and
+    head M x over the chunk, C S^T and the state update, at the peak rate
+    of the operands' type."""
     isz = 2 if dtype_name == "bfloat16" else 4
     n_bytes = (2 * Bz * L * H * P * isz + 4 * Bz * L * H
                + 2 * Bz * L * G * N * isz + 4 * Bz * H * P * N)
-    flops = 2 * Bz * L * H * (SSD_CHUNK * N + SSD_CHUNK * P + 2 * N * P)
+    flops = 2 * Bz * L * (H * (SSD_REF_CHUNK * P + 2 * N * P)
+                          + G * SSD_REF_CHUNK * N)
     return attn_bound(n_bytes, flops, dtype_name)
 
 
 def phase_kernel_ssd_scan(dev) -> dict:
     """CUDA SSD scan vs its plain (sequential) version on the card: max-abs
     error over the output's max-abs, on y and the final state, within the
-    JAX test's limits (2e-3 float32, 1e-1 bf16); then times of the kernel
-    and the plain version, and the bound, at mamba2-780m's shapes."""
+    JAX test's limits (2e-3 float32, 1e-1 bf16); bf16 operands go to the
+    tensor-core kernel (also held against its chunked mirror within
+    SSD_MIRROR_TOL), float32 ones to the CUDA-core kernel, checked per call
+    through ``ops.LAUNCHES_BY_PATH``.  Then, at mamba2-780m's shapes, times
+    of the kernel, of the CUDA-core kernel on the same bf16 inputs through
+    the same wrapper (``cuda_core_ms``), of the plain version, and the
+    bound."""
     import torch
-    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan import ops, ref
     rows = []
     for i, (Bz, L, H, P, G, N, dn) in enumerate(SSD_CASES):
         dt = getattr(torch, dn)
@@ -468,32 +481,58 @@ def phase_kernel_ssd_scan(dev) -> dict:
              ).to(dt)
         C = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)
              ).to(dt)
+        path = ops.kernel_path(x.dtype, B.dtype)
+        by_path = dict(ops.LAUNCHES_BY_PATH)
         y, st = ops.ssd_scan(x, a, B, C)
+        by_path[path] += 1
+        if ops.LAUNCHES_BY_PATH != by_path:
+            raise AssertionError(f"ssd_scan: {dn} call not on the {path} "
+                                 f"path: {ops.LAUNCHES_BY_PATH}")
         yr, sr = ops.ssd_scan_plain(x, a, B, C)
         torch.cuda.synchronize()
         tol = 1e-1 if dn == "bfloat16" else 2e-3
         rel = [float((u.float() - w.float()).abs().max()
                      / (w.float().abs().max() + 1e-9))
                for u, w in ((y, yr), (st, sr))]
-        row = dict(shape=[Bz, L, H, P, G, N], dtype=dn, rel_err_y=rel[0],
-                   rel_err_state=rel[1], tol=tol,
+        row = dict(shape=[Bz, L, H, P, G, N], dtype=dn, path=path,
+                   rel_err_y=rel[0], rel_err_state=rel[1], tol=tol,
                    max_abs_err=max(_max_err(y, yr), _max_err(st, sr)))
-        if not (max(rel) < tol and bool(torch.isfinite(y.float()).all())):
+        ok = max(rel) < tol and bool(torch.isfinite(y.float()).all())
+        if path == "tensor_core":
+            ym, sm = ref.ssd_scan_chunked(x, a, B, C)
+            row["mirror_rel_err"] = [
+                float((u.float() - w.float()).abs().max()
+                      / (w.float().abs().max() + 1e-9))
+                for u, w in ((y, ym), (st, sm))]
+            row["mirror_tol"] = SSD_MIRROR_TOL
+            ok = ok and max(row["mirror_rel_err"]) < SSD_MIRROR_TOL
+        if not ok:
             emit("kernel_ssd_scan", failed=row)
             raise AssertionError(f"ssd_scan kernel != plain: {row}")
-        if i >= SSD_FIRST_TIMED:
+        if i in SSD_TIMED:
             row["bound_ms"], row["bound_by"] = ssd_bound(Bz, L, H, P, G, N,
                                                          dn)
             row["ms"] = auto_time_ms(lambda: ops.ssd_scan(x, a, B, C))
+            # the CUDA-core kernel on the same bf16 inputs, through the
+            # same wrapper, in the same run: the time this PR replaces
+            kernel_path = ops.kernel_path
+            ops.kernel_path = lambda *_: "cuda_core"
+            try:
+                row["cuda_core_ms"] = auto_time_ms(
+                    lambda: ops.ssd_scan(x, a, B, C))
+            finally:
+                ops.kernel_path = kernel_path
             row["plain_ms"] = auto_time_ms(
                 lambda: ops.ssd_scan_plain(x, a, B, C), budget_s=0.5,
                 max_iters=5)
             row["library_ms"] = None    # no single PyTorch call scans
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
     emit("kernel_ssd_scan", cases=rows,
          worst_err_over_tol=max(max(r["rel_err_y"], r["rel_err_state"])
                                 / r["tol"] for r in rows))
     return dict(rows=rows, main=rows[SSD_MAIN],
+                timed=[rows[i] for i in SSD_TIMED],
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
@@ -620,7 +659,8 @@ def _is_host_wait(name: str) -> bool:
 def _profile_window(dev, n_ticks: int) -> dict:
     """torch.profiler over one simulate window of ``n_ticks`` ticks of the
     two admitted tenants: host wall time, device busy time, device kernels,
-    host waits by name, and the host time of the costliest ops."""
+    the token-bucket kernel's launches and device time, host waits by name,
+    and the host time of the costliest ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import token_bucket as tb
@@ -641,25 +681,30 @@ def _profile_window(dev, n_ticks: int) -> dict:
         simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = kernels = 0
+    dev_us = kernels = tb_us = tb_n = 0
     waits: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_us += e.time_range.elapsed_us()     # one stream: no overlap
             kernels += 1
+            if any(pat in e.name for pat in KERNEL_KINDS["token_bucket"]):
+                tb_us += e.time_range.elapsed_us()
+                tb_n += 1
         elif _is_host_wait(e.name):
             waits[e.name] = waits.get(e.name, 0) + 1
     top = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: -e.cpu_time_total)[:6]
     return dict(wall=wall, dev_us=dev_us, kernels=kernels, waits=waits,
+                tb_us=tb_us, tb_launches=tb_n,
                 top={e.key: e.cpu_time_total / n_ticks for e in top})
 
 
-def phase_profile(dev) -> None:
+def phase_profile(dev) -> dict:
     """Where one window's time goes, and a check that the tick never makes
     the host wait: windows of PROFILE_WINDOW and 2 x PROFILE_WINDOW ticks
-    must show the same host waits (the window's setup and result copies)."""
+    must show the same host waits (the window's setup and result copies).
+    Returns the token-bucket kernel's device ms per launch."""
     n = PROFILE_WINDOW
     p1, p2 = _profile_window(dev, n), _profile_window(dev, 2 * n)
     grown = {k: (p1["waits"].get(k, 0), v) for k, v in p2["waits"].items()
@@ -668,6 +713,9 @@ def phase_profile(dev) -> None:
          device_busy_us_per_tick=p1["dev_us"] / n,
          device_kernels_per_tick=p1["kernels"] / n,
          device_idle_share=max(0.0, 1.0 - p1["dev_us"] / (p1["wall"] * 1e6)),
+         token_bucket_launches=p1["tb_launches"],
+         token_bucket_device_us_per_launch=p1["tb_us"] / max(
+             p1["tb_launches"], 1),
          host_waits_per_window={str(n): p1["waits"], str(2 * n): p2["waits"]},
          top_host_ops_us_per_tick=p1["top"])
     if not p1["waits"]:
@@ -675,6 +723,10 @@ def phase_profile(dev) -> None:
                              "window's result copy is one): cannot check")
     if grown:
         raise AssertionError(f"host waits grow with ticks: {grown}")
+    if not p1["tb_launches"]:
+        raise AssertionError("profiled window shows no token-bucket kernel")
+    return dict(tb_device_ms_per_launch=p1["tb_us"] / p1["tb_launches"]
+                / 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -842,6 +894,7 @@ def _run_path(name, model, dev, **kw) -> dict:
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     fp_paths = dict(_kernel_ops()["flash_prefill"].LAUNCHES_BY_PATH)
+    ssd_paths = dict(_kernel_ops()["ssd_scan"].LAUNCHES_BY_PATH)
     L = model.cfg.n_layers
     kinds = model.cfg.layer_kinds()
     n_ssd = kinds.count("ssd")
@@ -866,7 +919,7 @@ def _run_path(name, model, dev, **kw) -> dict:
                * 1e3,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, launches_expected=expect,
-               flash_prefill_paths=fp_paths,
+               flash_prefill_paths=fp_paths, ssd_scan_paths=ssd_paths,
                longest_sequence=int(sched.engine.lengths.max()),
                tenants=stats)
     plain = kw.get("plain", False)
@@ -880,12 +933,14 @@ def _run_path(name, model, dev, **kw) -> dict:
     if launches != expect or not all(
             v > 0 for k, v in launches.items() if expect[k]):
         raise AssertionError(f"{name}: launches {launches} != {expect}")
-    # the models' q, k and v are bf16: every flash-prefill launch is the
-    # tensor-core kernel's
-    if model.cfg.dtype == "bfloat16" and \
-            fp_paths["tensor_core"] != launches["flash_prefill"]:
-        raise AssertionError(f"{name}: flash prefill off the tensor-core "
-                             f"path: {fp_paths}")
+    # the models' q, k, v and x, B, C are bf16: every flash-prefill and
+    # SSD-scan launch is the tensor-core kernel's
+    if model.cfg.dtype == "bfloat16":
+        for kname, paths in (("flash_prefill", fp_paths),
+                             ("ssd_scan", ssd_paths)):
+            if paths["tensor_core"] != launches[kname]:
+                raise AssertionError(f"{name}: {kname} off the tensor-core "
+                                     f"path: {paths}")
     out["sched"], out["rec"] = sched, rec
     return out
 
@@ -899,7 +954,8 @@ def _public(run: dict) -> dict:
 KERNEL_KINDS = {
     "decode_attention": ("decode_split", "decode_combine"),
     "flash_prefill": ("flash_prefill",),
-    "ssd_scan": ("ssd_scan",),
+    "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
+                 "ssd_output_kernel"),
     "token_bucket": ("tb_step",),
     "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK"),
     "elementwise": ("elementwise", "vectorized", "unrolled"),
@@ -1106,7 +1162,7 @@ def phase_serve_mamba2(dev) -> tuple:
          params=module.param_count(model), weights_gib=weights_gib,
          init_s=init_s, max_batch=8, max_len=256, **_public(run),
          profile=prof)
-    return model, run
+    return model, run, prof
 
 
 def phase_serve_mamba2_long(dev, model) -> dict:
@@ -1163,7 +1219,8 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build_many([
         ("token_bucket", tb_ops._SRC), (da_ops.NAME, da_ops.SOURCE),
-        (fp_ops.NAME, fp_ops.SOURCE), (ssd_ops.NAME, ssd_ops.SOURCE)])
+        (fp_ops.NAME, fp_ops.SOURCE), (ssd_ops.NAME, ssd_ops.SOURCE),
+        (ssd_ops.TC_NAME, ssd_ops.TC_SOURCE)])
     emit("build", kernels=list(seconds), seconds=seconds,
          wall_s=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in v.splitlines()
@@ -1176,7 +1233,7 @@ def main() -> int:
     phase_interp(dev)
     main = phase_main_path(dev)
     phase_parity(dev)
-    phase_profile(dev)
+    prof = phase_profile(dev)
     model, serve, _ = phase_serve(dev)
     long = phase_serve_long(dev, model)
     phase_serve_parity(dev, model)
@@ -1185,9 +1242,10 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    model, mserve = phase_serve_mamba2(dev)
+    model, mserve, mprof = phase_serve_mamba2(dev)
     mlong = phase_serve_mamba2_long(dev, model)
     phase_serve_mamba2_parity(dev, model)
+    n_ssd = model.cfg.layer_kinds().count("ssd")
     n_main = 2
     t = k["times"][n_main]
     by_path = {name: {"main_path": main["launches"] if name == "token_bucket"
@@ -1205,6 +1263,7 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "shape": f"[{n_main}] flows (admission call)",
+        "device_ms_per_launch": prof["tb_device_ms_per_launch"],
         "launches_by_path": by_path["token_bucket"]}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,
@@ -1218,7 +1277,7 @@ def main() -> int:
              "src/repro/kernels/flash_prefill/kernel.py:24",
              "q [1,64,16,256], k/v [1,64,8,256] bf16, window 1024", serve),
             ("ssd_scan", ssd,
-             "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
              "src/repro/kernels/ssd_scan/kernel.py:27",
              f"x [1,{MAMBA_LONG_PROMPT},48,64], B/C [1,{MAMBA_LONG_PROMPT},"
              "1,128] bf16, a f32", mserve)):
@@ -1239,6 +1298,18 @@ def main() -> int:
                                    "library_ms", "library_causal_ms",
                                    "bound_ms", "bound_by", "bound_share",
                                    "tflops")} for r in res["long"]]
+        if name == "ssd_scan":
+            pre = mprof[f"prefill_{MAMBA_LONG_PROMPT}"]
+            # one wrapper call (three kernels) a layer
+            rows[-1]["device_ms_per_launch"] = \
+                pre["device_ms_by_kind"].get("ssd_scan", 0.0) / n_ssd
+            rows[-1]["kernel_paths"] = {
+                p: r["ssd_scan_paths"] for p, r in (
+                    ("serve_mamba2", mserve), ("serve_mamba2_long", mlong))}
+            rows[-1]["prompts"] = [
+                {k: r.get(k) for k in ("shape", "ms", "cuda_core_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "bound_share")} for r in res["timed"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

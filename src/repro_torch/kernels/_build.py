@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 Each kernel is one ``.cu`` file with a plain C interface (it may include
-headers beside it in its ``csrc/`` directory), compiled by ``nvcc`` into a
-shared library and loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  Libraries go to ``build/repro_torch/`` at the repository
-root, named by a hash of every file in the source's directory, the source's
-name and the flags, so a changed source or header rebuilds and an unchanged
-one loads the cached library.  Nothing here runs at import time: the first
-launch builds.
+headers beside it in its ``csrc/`` directory, and the shared Hopper headers
+of ``kernels/csrc_common/``, which every build gets with ``-I``), compiled
+by ``nvcc`` into a shared library and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries go to ``build/repro_torch/``
+at the repository root, named by a hash of every file in the source's
+directory and in ``csrc_common/``, the source's name and the flags, so a
+changed source or header rebuilds and an unchanged one loads the cached
+library.  Nothing here runs at import time: the first launch builds.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+#: headers shared by the kernels (``-I`` of every build, hashed into every
+#: library's name)
+COMMON_DIR = pathlib.Path(__file__).resolve().parent / "csrc_common"
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 
 #: seconds each library took to build in this process (0.0 = cache hit)
@@ -49,15 +53,15 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str, source: pathlib.Path) -> pathlib.Path:
     """Where the library of ``source`` lives: named by a hash of every file
-    under the source's directory (its headers too), which of them is
-    compiled, and the flags."""
+    under the source's directory (its headers too) and under
+    ``COMMON_DIR``, which of them is compiled, and the flags."""
     source = pathlib.Path(source).resolve()
-    csrc = source.parent
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     h.update(b"\0" + source.name.encode())
-    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
-        rel = f.relative_to(csrc).as_posix().encode()
-        h.update(b"\0" + rel + b"\0" + f.read_bytes())
+    for tag, root in ((b"csrc", source.parent), (b"common", COMMON_DIR)):
+        for f in sorted(p for p in root.rglob("*") if p.is_file()):
+            rel = f.relative_to(root).as_posix().encode()
+            h.update(b"\0" + tag + b"/" + rel + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -77,7 +81,8 @@ def build_many(kernels: list[tuple[str, pathlib.Path]]) -> dict[str, float]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(source)]
+        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(COMMON_DIR),
+               "-o", tmp, str(source)]
         procs.append((name, source, lib_path, tmp,
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))

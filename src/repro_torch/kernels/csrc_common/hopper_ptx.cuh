@@ -1,6 +1,9 @@
-// Hopper (sm_90a) building blocks for the tensor-core flash-prefill kernel:
-// mbarriers, TMA tile loads, register rebalancing and warpgroup matrix
-// multiplies (wgmma) on bf16 tiles held in 128-byte-swizzled shared memory.
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// (flash prefill, the SSD scan): mbarriers, TMA tile loads, asynchronous
+// copies, register rebalancing and warpgroup matrix multiplies (wgmma) on
+// bf16 tiles held in 128-byte-swizzled shared memory.  Every kernel
+// library is built with -I on this directory and named by a hash of it
+// (kernels/_build.py), so a change here rebuilds them all.
 //
 // Shared-memory tiles are "panels": R rows of 64 bf16 values (128 bytes),
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B (or by hand with the same
@@ -87,6 +90,17 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Close the group of this thread's asynchronous copies issued so far.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Generic-proxy stores to shared memory made visible to the async proxy

@@ -41,11 +41,12 @@
 // 2 LC P N flops (C B^T, M x, C S^T, the state update), about 5.6 GFLOP
 // for a 2000-token mamba2 prefill, against about 28 MB moved (x and y,
 // B and C once, the state): 0.084 ms at the 67 TFLOP/s float32 rate, 0.006
-// ms at the bf16 tensor-core rate, 0.008 ms at 3.35 TB/s.  This first
-// version does float32 FMAs on the CUDA cores from shared memory (register
-// tiles of 4 x 4 for C B^T, 128-bit shared loads); the redundant C B^T of
-// the P split is about half its work.  Tensor cores (wgmma on bf16 tiles)
-// and TMA are later work.
+// ms at the bf16 tensor-core rate, 0.008 ms at 3.35 TB/s.  This kernel
+// does float32 FMAs on the CUDA cores from shared memory (register tiles
+// of 4 x 4 for C B^T, 128-bit shared loads); the redundant C B^T of the P
+// split is about half its work.  It serves float32 and mixed operands;
+// bf16 x, B and C (the models') go to the tensor-core kernel,
+// ssd_scan_tc.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

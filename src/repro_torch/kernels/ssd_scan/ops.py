@@ -1,14 +1,29 @@
-"""Mamba2 SSD chunked scan: the Hopper kernel's wrapper and its plain
-version.
+"""Mamba2 SSD chunked scan: the Hopper kernels' wrapper and its plain
+versions.
 
 Port of ``src/repro/kernels/ssd_scan/ops.py`` (whose Pallas kernel is
 ``kernel.py::_ssd_kernel``).  ``ssd_scan`` runs the selective-SSM
-recurrence over a whole prompt: on a CUDA tensor it launches
-``csrc/ssd_scan.cu`` (built at first use) or raises; on a CPU tensor it
-runs ``ssd_scan_plain`` (``ref.py``, the sequential recurrence).  Unlike the
-reference wrapper it broadcasts no group to the heads and pads nothing: the
-kernel reads group h // (H // G) and masks the ragged last chunk.
-``LAUNCHES`` counts kernel launches and nothing else.
+recurrence over a whole prompt: on a CUDA tensor it launches a kernel
+(built at first use) or raises; on a CPU tensor it runs ``ssd_scan_plain``
+(``ref.py``, the sequential recurrence).  Unlike the reference wrapper it
+broadcasts no group to the heads and pads nothing: the kernels read group
+h // (H // G) and mask the ragged last chunk.
+
+Two kernels, chosen by operand type alone (``kernel_path``):
+
+* bf16 x, B and C (what the model passes): the tensor-core kernel
+  (``csrc/ssd_scan_tc.cu``: chunks of 128 in parallel, C B^T once per
+  (batch, group, chunk), the four products in bf16 ``wgmma`` with float32
+  sums, a short pass carrying the float32 state across chunks);
+  ``ref.ssd_scan_chunked`` is its arithmetic on the CPU;
+* float32 or mixed operands: the CUDA-core kernel (``csrc/ssd_scan.cu``,
+  float32 products, each block walking the chunks in turn), since a
+  float32 caller asked for float32 products.
+
+There is no fallback: if the chosen kernel fails to build or launch, the
+wrapper raises.  ``LAUNCHES`` counts wrapper calls that launched a kernel
+(the tensor-core path's three launches count once) and nothing else;
+``LAUNCHES_BY_PATH`` splits them by kernel.
 """
 from __future__ import annotations
 
@@ -20,31 +35,57 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan as ssd_scan_plain
 
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NAME = "ssd_scan"
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-_FN = None
+SOURCE = _CSRC / "ssd_scan.cu"
+TC_NAME = "ssd_scan_tc"
+TC_SOURCE = _CSRC / "ssd_scan_tc.cu"
+_FNS = None
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 256
+#: bytes of scratch the tensor-core kernel needs, by shape
+_WORKSPACE: dict[tuple, int] = {}
 
-#: kernel launches since import (or since a caller reset it to 0)
+#: wrapper calls that launched a kernel since import (or since a caller
+#: reset it to 0)
 LAUNCHES = 0
+#: the same launches by kernel: ``kernel_path``'s names
+LAUNCHES_BY_PATH = {"tensor_core": 0, "cuda_core": 0}
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = _build.build(NAME, SOURCE).ssd_scan_launch
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+def _launchers():
+    """(tensor-core entry point, its workspace size, CUDA-core entry
+    point)."""
+    global _FNS
+    if _FNS is None:
+        _build.build_many([(TC_NAME, TC_SOURCE), (NAME, SOURCE)])
+        tc_lib, cc_lib = _build.build(TC_NAME, TC_SOURCE), \
+            _build.build(NAME, SOURCE)
+        tc, ws = tc_lib.ssd_scan_tc_launch, tc_lib.ssd_scan_tc_workspace_bytes
+        cc = cc_lib.ssd_scan_launch
+        tc.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        ws.argtypes = [ctypes.c_int] * 6
+        cc.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        tc.restype = cc.restype = ctypes.c_int
+        ws.restype = ctypes.c_longlong
+        _FNS = (tc, ws, cc)
+    return _FNS
 
 
 def build() -> float:
-    """Build (or load) the kernel library; seconds the build took."""
-    _launcher()
-    return _build.BUILD_SECONDS[NAME]
+    """Build (or load) both kernel libraries; seconds the builds took."""
+    _launchers()
+    return max(_build.BUILD_SECONDS[TC_NAME], _build.BUILD_SECONDS[NAME])
+
+
+def kernel_path(x_dtype: torch.dtype, bc_dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with these operand types launches:
+    ``"tensor_core"`` for bf16 x, B and C, ``"cuda_core"`` otherwise."""
+    if x_dtype == bc_dtype == torch.bfloat16:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _check(name: str, t: torch.Tensor, shape, dtypes, dev) -> None:
@@ -80,14 +121,28 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     _check("a", a, (Bsz, L, H), (torch.float32,), dev)
     _check("B", B, (Bsz, L, G, N), _DTYPES, dev)
     _check("C", C, (Bsz, L, G, N), (B.dtype,), dev)
+    path = kernel_path(x.dtype, B.dtype)
+    tc, ws, cc = _launchers()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    err = _launcher()(
-        int(x.dtype == torch.bfloat16), int(B.dtype == torch.bfloat16),
-        x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), Bsz, L, H, P, G, N,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if path == "tensor_core":
+        shape = (Bsz, L, H, P, G, N)
+        n_work = _WORKSPACE.get(shape)
+        if n_work is None:
+            n_work = _WORKSPACE[shape] = ws(*shape)
+        work = torch.empty(n_work, dtype=torch.uint8, device=dev)
+        err = tc(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
+                 y.data_ptr(), state.data_ptr(), work.data_ptr(), Bsz, L, H,
+                 P, G, N, stream)
+    else:
+        err = cc(int(x.dtype == torch.bfloat16),
+                 int(B.dtype == torch.bfloat16), x.data_ptr(), a.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 Bsz, L, H, P, G, N, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan {path} kernel launch failed: CUDA "
+                           f"error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return y, state

@@ -10,11 +10,18 @@ recurrence, per batch b and head h (group g = h * G // H):
 x [Bsz, L, H, P]; a [Bsz, L, H] decay factors in (0, 1]; B, C
 [Bsz, L, G, N].  ``ssd_scan`` walks the tokens one by one in float32, in the
 reference's step order, and returns (y [Bsz, L, H, P] in x's dtype, final
-state [Bsz, H, P, N] float32).
+state [Bsz, H, P, N] float32): the plain version of both kernels, which
+the wrapper runs for a CPU tensor.  ``ssd_scan_chunked`` computes what the
+tensor-core kernel computes, in its order and with its bf16 rounding
+points, for the tests and ``chip_smoke.py``; the model never calls it.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+_LOG2E = 1.0 / math.log(2.0)
 
 
 def _head_group(H: int, G: int, device) -> torch.Tensor:
@@ -48,3 +55,93 @@ def ssd_decode_step(state, x_t, a_t, B_t, C_t):
     state = state * a_t[..., None, None] + x_t[..., :, None] * Bh[..., None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, Ch)
     return state, y.to(x_t.dtype)
+
+
+def ssd_scan_chunked(x, a, B, C, chunk: int = 128):
+    """What the tensor-core kernel (``csrc/ssd_scan_tc.cu``) computes, in
+    its order, as plain torch on any device: the SSD paper's chunked
+    decomposition (arXiv:2405.21060, section 6) with its rounding points.
+    Same arguments and results as ``ssd_scan``.
+
+    Per chunk of ``chunk`` tokens (the last one padded with the neutral
+    a = 1, x = B = C = 0), with ca the prefix sum of log(max(a, 1e-37)) in
+    float64:
+
+    1. ``C B^T`` once per (batch, group, chunk), float32; the chunk state
+       ``S_c = (x o w)^T B`` with w_j = exp(ca_last - ca_j), and ca itself;
+    2. the state pass: ``S_prev[c]`` is the state entering chunk c,
+       ``S <- exp(ca_last) S + S_c`` in float32, the final state float32;
+    3. ``y = M x + exp(ca_i) C S_prev^T`` with M = (C B^T) o exp(ca_i -
+       ca_j) for j <= i (taken only there), else 0.  In log2 units from
+       (hi, lo) float pairs of ca / ln 2: where the chunk's decay spans at
+       most 2^120, exp(ca_i - ca_j) = e_i f_j with e = 2^(ca - mid) and
+       f = 2^(mid - ca) about the middle of the range (every factor within
+       2^+-60), M = (C B^T e_i) f_j; otherwise 2^((hi_i - hi_j) + (lo_i -
+       lo_j)) an entry, as exact as the float64 difference rounded to
+       float32.
+
+    With bf16 x, B and C (the kernel's operands) the computed operands
+    ``x o w``, ``M`` and ``S_prev`` are rounded to bf16, as the kernel
+    feeds them to the tensor cores; with float32 operands nothing is
+    rounded, which checks the decomposition alone.  Every product
+    accumulates in float32.  Used by the tests and ``chip_smoke.py`` only.
+    """
+    Bsz, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    op = torch.bfloat16 if x.dtype == B.dtype == torch.bfloat16 \
+        else torch.float32
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    hg = _head_group(H, G, x.device)
+
+    def chunks(t, fill=0.0):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_full((Bsz, pad) + t.shape[2:], fill)], 1)
+        return t.reshape((Bsz, nc, chunk) + t.shape[2:])
+
+    xc, ac = chunks(x), chunks(a, 1.0)              # [b, c, j, h, (p)]
+    Bc, Cc = chunks(B), chunks(C)                   # [b, c, j, g, n]
+    ca = torch.log(ac.clamp(min=1e-37).double()).cumsum(2)
+    ca_last = ca[:, :, -1]                          # [b, c, h]
+    # 1. C B^T per group; the chunk states
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    w = torch.exp(ca_last[:, :, None] - ca).float()
+    xw = (xc * w[..., None]).to(op).float()
+    s_c = torch.einsum("bcjhp,bcjhn->bchpn", xw, Bc[:, :, :, hg])
+    # 2. the state pass
+    dA = torch.exp(ca_last).float()
+    S = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    s_prev = []
+    for c in range(nc):
+        s_prev.append(S)
+        S = dA[:, c, :, None, None] * S + s_c[:, c]
+    if not nc:
+        return x.new_zeros(x.shape), S
+    sp = torch.stack(s_prev, 1).to(op).float()      # [b, c, h, p, n]
+    # 3. the outputs
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    # the decay in log2 units from float (hi, lo) pairs of ca / ln 2, as
+    # the kernel: factored about the middle of the chunk's range where it
+    # spans at most 2^120, else one exponential an entry
+    ca2 = ca * _LOG2E
+    ca_hi = ca2.float()
+    ca_lo = (ca2 - ca_hi.double()).float()              # [b, c, i, h]
+    mid = 0.5 * (ca_hi[:, :, :1] + ca_hi[:, :, -1:])
+    e = torch.exp2((ca_hi - mid) + ca_lo)
+    f = torch.exp2((mid - ca_hi) - ca_lo)
+    factored = (ca_hi[:, :, 0] - ca_hi[:, :, -1] <= 120.0)[:, :, None, None]
+    cbh = cb[:, :, hg].permute(0, 1, 3, 4, 2)           # [b, c, i, j, h]
+    m_fac = (cbh * e[:, :, :, None]) * f[:, :, None, :]
+    seg = (ca_hi[:, :, :, None] - ca_hi[:, :, None, :]) + \
+        (ca_lo[:, :, :, None] - ca_lo[:, :, None, :])
+    m_exp = cbh * torch.exp2(seg.masked_fill(~causal, 0.0))
+    M = torch.where(causal, torch.where(factored, m_fac, m_exp), 0.0)
+    M = M.to(op).float()
+    y = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+    y_off = torch.einsum("bcihn,bchpn->bcihp", Cc[:, :, :, hg], sp)
+    y = y_off * torch.exp2(ca_hi.double() + ca_lo.double()).float()[
+        ..., None] + y
+    y = y.reshape(Bsz, nc * chunk, H, P)[:, :L]
+    return y.to(x.dtype), S

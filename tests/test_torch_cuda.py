@@ -21,7 +21,7 @@ from repro_torch.core.interconnect import LinkSpec
 from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
-from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.token_bucket import ops
 
 pytestmark = pytest.mark.cuda
@@ -242,14 +242,27 @@ def test_serving_engine_kernels_match_plain(dev):
 SSD_CASES = [
     # Bsz, L, H, P, G, N, dtype: tests/test_kernels.py:88-94, then mamba2's
     # 2000-token prefill (a ragged last chunk) and a ragged case with P not
-    # a multiple of the kernel's 16 columns, G = 3 and N = 256
+    # a multiple of the kernel's 16 columns, G = 3 and N = 256; then bf16
+    # at Bsz = 2, at G = 2 with N = 256, and below one 128-token chunk
     (2, 256, 4, 64, 1, 128, torch.float32),
     (1, 100, 3, 32, 1, 64, torch.float32),
     (2, 128, 8, 64, 2, 128, torch.float32),
     (1, 512, 4, 64, 1, 128, torch.bfloat16),
     (1, 2000, 48, 64, 1, 128, torch.bfloat16),
     (3, 77, 6, 40, 3, 256, torch.float32),
+    (2, 300, 8, 64, 1, 128, torch.bfloat16),
+    (1, 300, 8, 64, 2, 256, torch.bfloat16),
+    (1, 64, 48, 64, 1, 128, torch.bfloat16),
 ]
+# the tensor-core kernel against its chunked mirror (ref.ssd_scan_chunked:
+# the same rounding points, so only float32 summation order and the bf16
+# roundings it flips differ): a few bf16 ulps of the output's max-abs
+SSD_MIRROR_TOL = 2e-2
+
+
+def _ssd_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-9))
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -260,17 +273,22 @@ def test_ssd_scan_kernel_matches_plain(dev, case):
     a = 0.7 + 0.299 * torch.rand((Bz, L, H), generator=g, device=dev)
     B = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)).to(dt)
     C = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)).to(dt)
-    before = ssd_ops.LAUNCHES
+    before, by_path = ssd_ops.LAUNCHES, dict(ssd_ops.LAUNCHES_BY_PATH)
     y, s = ssd_ops.ssd_scan(x, a, B, C)
     assert ssd_ops.LAUNCHES == before + 1
+    path = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+    by_path[path] += 1
+    assert ssd_ops.LAUNCHES_BY_PATH == by_path
     yr, sr = ssd_ops.ssd_scan_plain(x, a, B, C)
     torch.cuda.synchronize()
     assert y.dtype == dt and s.dtype == torch.float32
     tol = 1e-1 if dt == torch.bfloat16 else 2e-3
     for got, want in ((y, yr), (s, sr)):
-        err = (got.float() - want.float()).abs().max() / \
-            (want.float().abs().max() + 1e-9)
-        assert float(err) < tol
+        assert _ssd_rel(got, want) < tol
+    if dt == torch.bfloat16:
+        ym, sm = ssd_ref.ssd_scan_chunked(x, a, B, C)
+        assert _ssd_rel(y, ym) < SSD_MIRROR_TOL
+        assert _ssd_rel(s, sm) < SSD_MIRROR_TOL
 
 
 def test_ssd_scan_kernel_strong_decay_stays_finite(dev):
@@ -287,6 +305,47 @@ def test_ssd_scan_kernel_strong_decay_stays_finite(dev):
     assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
     assert float((y - yr).abs().max() / yr.abs().max()) < 2e-3
     assert float((s - sr).abs().max() / sr.abs().max()) < 2e-3
+
+
+def test_ssd_scan_kernel_bf16_strong_decay(dev):
+    """bf16 on the tensor cores with decays down to 1e-30: chunks whose
+    decay spans more than 2^120 take the per-entry exponential; finite, and
+    within the bf16 limit of the plain version and the mirror's."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((1, 300, 4, 64), generator=g, device=dev).bfloat16()
+    a = torch.rand((1, 300, 4), generator=g, device=dev) ** 8
+    B = torch.randn((1, 300, 2, 128), generator=g, device=dev).bfloat16()
+    C = torch.randn((1, 300, 2, 128), generator=g, device=dev).bfloat16()
+    by_path = dict(ssd_ops.LAUNCHES_BY_PATH)
+    y, s = ssd_ops.ssd_scan(x, a, B, C)
+    assert ssd_ops.LAUNCHES_BY_PATH["tensor_core"] == \
+        by_path["tensor_core"] + 1
+    yr, sr = ssd_ops.ssd_scan_plain(x, a, B, C)
+    ym, sm = ssd_ref.ssd_scan_chunked(x, a, B, C)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all())
+    assert _ssd_rel(y, yr) < 1e-1 and _ssd_rel(s, sr) < 1e-1
+    assert _ssd_rel(y, ym) < SSD_MIRROR_TOL
+    assert _ssd_rel(s, sm) < SSD_MIRROR_TOL
+
+
+@pytest.mark.parametrize("x_dt,bc_dt,path", [
+    (torch.bfloat16, torch.bfloat16, "tensor_core"),
+    (torch.float32, torch.float32, "cuda_core"),
+    (torch.bfloat16, torch.float32, "cuda_core"),
+    (torch.float32, torch.bfloat16, "cuda_core"),
+])
+def test_ssd_scan_path_follows_operand_types(dev, x_dt, bc_dt, path):
+    """bf16 x, B and C launch the tensor-core kernel, anything else the
+    CUDA-core one: one launch on one path a call."""
+    assert ssd_ops.kernel_path(x_dt, bc_dt) == path
+    x = torch.ones((1, 40, 2, 16), device=dev).to(x_dt)
+    a = torch.full((1, 40, 2), 0.9, device=dev)
+    B = torch.ones((1, 40, 1, 8), device=dev).to(bc_dt)
+    before, by_path = ssd_ops.LAUNCHES, dict(ssd_ops.LAUNCHES_BY_PATH)
+    ssd_ops.ssd_scan(x, a, B, B)
+    by_path[path] += 1
+    assert ssd_ops.LAUNCHES == before + 1
+    assert ssd_ops.LAUNCHES_BY_PATH == by_path
 
 
 def test_ssd_scan_kernel_rejects_bad_inputs(dev):
@@ -320,9 +379,10 @@ def test_serving_engine_mamba2_kernels_match_plain(dev):
     cfg = dataclasses.replace(
         get_reduced_config("mamba2-780m", dtype="bfloat16"), d_ff=0)
     model = T.init_model(0, cfg, device=dev)
-    before = ssd_ops.LAUNCHES
+    before, tc = ssd_ops.LAUNCHES, ssd_ops.LAUNCHES_BY_PATH["tensor_core"]
     kern = _engine_logits(cfg, model, dev, False)
     assert ssd_ops.LAUNCHES - before == 3 * cfg.n_layers
+    assert ssd_ops.LAUNCHES_BY_PATH["tensor_core"] - tc == 3 * cfg.n_layers
     plain = _engine_logits(cfg, model, dev, True)
     assert ssd_ops.LAUNCHES - before == 3 * cfg.n_layers
     diff = (kern - plain).abs()

@@ -11,6 +11,12 @@ Pallas kernel (run in interpret mode, as the JAX tests run it) the limits
 are that test's own: max-abs error over the max-abs of the output, 2e-3 in
 float32 and 1e-1 in bf16, since the chunked form sums in another order.
 On the CPU the wrapper takes the plain version and launches nothing.
+
+``ref.ssd_scan_chunked`` is the tensor-core kernel's arithmetic on the CPU
+(chunks of 128, C B^T once per group, the state pass, the kernel's bf16
+rounding points); it is held against the same oracle and Pallas kernel
+under the same limits, at the cases above, one prompt shorter than a chunk
+and one with G = 2.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +36,15 @@ SSD_CASES = [
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 PALLAS_TOL = {"float32": 2e-3, "bfloat16": 1e-1}
+# the chunked mirror's extra cases: below one 128-token chunk, and G = 2
+MIRROR_CASES = SSD_CASES + [
+    (1, 50, 4, 64, 1, 128, 128, "bfloat16"),
+    (1, 300, 4, 32, 2, 64, 128, "bfloat16"),
+]
+
+
+def _rel(got, want) -> float:
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
 
 
 def _inputs(case, seed):
@@ -76,6 +91,55 @@ def test_plain_scan_matches_pallas_kernel(case):
     yk, sk = _f32(yk), np.asarray(sk)
     assert np.abs(_f32(yt) - yk).max() / (np.abs(yk).max() + 1e-9) < tol
     assert np.abs(st.numpy() - sk).max() / (np.abs(sk).max() + 1e-9) < tol
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES,
+                         ids=lambda c: f"L{c[1]}-G{c[4]}-{c[7]}")
+def test_chunked_mirror_matches_reference_oracle(case):
+    (jx, ja, jB, jC), (tx, ta, tB, tC) = _inputs(case, 5)
+    yr, sr = j_ref.ssd_scan(jx, ja, jB, jC)
+    yc, sc = t_ref.ssd_scan_chunked(tx, ta, tB, tC)
+    assert yc.dtype == tx.dtype and sc.dtype == torch.float32
+    assert tuple(yc.shape) == tuple(tx.shape)
+    tol = PALLAS_TOL[case[7]]
+    assert _rel(_f32(yc), _f32(yr)) < tol
+    assert _rel(sc.numpy(), np.asarray(sr)) < tol
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES,
+                         ids=lambda c: f"L{c[1]}-G{c[4]}-{c[7]}")
+def test_chunked_mirror_matches_pallas_kernel(case):
+    (jx, ja, jB, jC), (tx, ta, tB, tC) = _inputs(case, 6)
+    yk, sk = j_ops.ssd_scan(jx, ja, jB, jC, chunk=case[6], interpret=True)
+    yc, sc = t_ref.ssd_scan_chunked(tx, ta, tB, tC)
+    tol = PALLAS_TOL[case[7]]
+    assert _rel(_f32(yc), _f32(yk)) < tol
+    assert _rel(sc.numpy(), np.asarray(sk)) < tol
+
+
+def test_chunked_mirror_strong_decay_takes_both_decay_forms():
+    """Heads of strong decay (a down to 1e-30: a chunk's decay spans more
+    than 2^120, so M takes one exponential an entry) beside heads of mild
+    decay (the factored form): finite, within the bf16 limit of the plain
+    scan, and the float32 mirror within the float32 limit."""
+    rng = np.random.default_rng(7)
+    a = rng.uniform(0.7, 0.999, (1, 300, 4)).astype(np.float32)
+    a[:, :, :2] = rng.random((1, 300, 2)) ** 8
+    x, B, C = (rng.standard_normal(sh).astype(np.float32) for sh in
+               ((1, 300, 4, 64), (1, 300, 2, 128), (1, 300, 2, 128)))
+    ta = torch.as_tensor(a)
+    ca = torch.log(ta[:, :256].double()).reshape(1, 2, 128, 4).cumsum(2)
+    span = (ca[:, :, 0] - ca[:, :, -1]) / np.log(2.0)
+    assert bool((span[..., :2] > 120).all() and (span[..., 2:] <= 120).all())
+    for dt, tol in ((torch.bfloat16, PALLAS_TOL["bfloat16"]),
+                    (torch.float32, PALLAS_TOL["float32"])):
+        tx, tB, tC = (torch.as_tensor(v).to(dt) for v in (x, B, C))
+        yr, sr = t_ref.ssd_scan(tx, ta, tB, tC)
+        yc, sc = t_ref.ssd_scan_chunked(tx, ta, tB, tC)
+        assert bool(torch.isfinite(yc.float()).all()
+                    and torch.isfinite(sc).all())
+        assert _rel(_f32(yc), _f32(yr)) < tol
+        assert _rel(sc.numpy(), sr.numpy()) < tol
 
 
 def test_decode_step_matches_reference_and_scan_tail():
