@@ -114,6 +114,25 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms_per_launch(fn, kind: str, calls: int = 50) -> float:
+    """Device time of one launch of ``kind``'s kernels (KERNEL_KINDS), from
+    ``torch.profiler`` over ``calls`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(p in e.name for p in KERNEL_KINDS[kind])]
+    if not us:
+        raise AssertionError(f"the profile shows no {kind} kernel")
+    return sum(us) / len(us) / 1e3
+
+
 def auto_time_ms(fn, budget_s: float = 0.2, max_iters: int = 200) -> float:
     """``cuda_time_ms`` with as many calls as fit in about ``budget_s``."""
     once = cuda_time_ms(fn, 3)
@@ -242,7 +261,8 @@ DA_CASES = [
     (8, 16, 8, 256, 1024, 0, "bfloat16", "float32", (1024, 1025)),
     (8, 16, 8, 256, 2048, 0, "bfloat16", "float32", (1536, 1569)),
 ]
-DA_MAIN = 7                 # the serve mix's shape: the table's row
+DA_MAIN = 7                 # the serve mix's shape: the table's row (then
+                            # the long mix's two caches)
 
 
 def phase_kernel_decode_attention(dev) -> dict:
@@ -296,16 +316,21 @@ def phase_kernel_decode_attention(dev) -> dict:
             lib_err = _max_err(lib()[:, :, 0], want)
             if not lib_err < tol:
                 raise AssertionError(f"SDPA yardstick != plain: {lib_err}")
-            row["ms"] = auto_time_ms(
-                lambda: ops.decode_attention(q, k, v, ln, window=w))
+            def call():
+                return ops.decode_attention(q, k, v, ln, window=w)
+            row["ms"] = auto_time_ms(call)
+            row["device_ms"] = device_ms_per_launch(call, "decode_attention")
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
             row["plain_ms"] = auto_time_ms(
                 lambda: ops.decode_attention_plain(q, k, v, ln, window=w))
             row["library_ms"] = auto_time_ms(lib)
             row["lengths"] = ln.tolist()
+            row["plan"] = ops.launch_plan(B, KvH, H // KvH, S,
+                                          D * k.element_size())
         rows.append(row)
     emit("kernel_decode_attention", cases=rows,
          worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
-    return dict(rows=rows, main=rows[DA_MAIN],
+    return dict(rows=rows, main=rows[DA_MAIN], long=rows[DA_MAIN + 1:],
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
@@ -704,9 +729,14 @@ def phase_profile(dev) -> dict:
     """Where one window's time goes, and a check that the tick never makes
     the host wait: windows of PROFILE_WINDOW and 2 x PROFILE_WINDOW ticks
     must show the same host waits (the window's setup and result copies).
-    Returns the token-bucket kernel's device ms per launch."""
+    Also the launch floor: the device time of the smallest kernel the card
+    runs (a one-element in-place add) under the same profiler.  Returns the
+    token-bucket kernel's device ms per launch and the floor."""
+    import torch
     n = PROFILE_WINDOW
     p1, p2 = _profile_window(dev, n), _profile_window(dev, 2 * n)
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms_per_launch(lambda: one.add_(1), "elementwise", 200)
     grown = {k: (p1["waits"].get(k, 0), v) for k, v in p2["waits"].items()
              if v > p1["waits"].get(k, 0)}
     emit("profile", ticks=n, host_us_per_tick=p1["wall"] / n * 1e6,
@@ -716,6 +746,7 @@ def phase_profile(dev) -> dict:
          token_bucket_launches=p1["tb_launches"],
          token_bucket_device_us_per_launch=p1["tb_us"] / max(
              p1["tb_launches"], 1),
+         launch_floor_ms=floor_ms,
          host_waits_per_window={str(n): p1["waits"], str(2 * n): p2["waits"]},
          top_host_ops_us_per_tick=p1["top"])
     if not p1["waits"]:
@@ -726,7 +757,7 @@ def phase_profile(dev) -> dict:
     if not p1["tb_launches"]:
         raise AssertionError("profiled window shows no token-bucket kernel")
     return dict(tb_device_ms_per_launch=p1["tb_us"] / p1["tb_launches"]
-                / 1e3)
+                / 1e3, launch_floor_ms=floor_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -952,7 +983,7 @@ def _public(run: dict) -> dict:
 #: kernel-name patterns of each kind in a profile (cuBLAS's Hopper GEMMs
 #: are named nvjet_*)
 KERNEL_KINDS = {
-    "decode_attention": ("decode_split", "decode_combine"),
+    "decode_attention": ("decode_attention_cluster",),
     "flash_prefill": ("flash_prefill",),
     "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
                  "ssd_output_kernel"),
@@ -1264,6 +1295,7 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "shape": f"[{n_main}] flows (admission call)",
         "device_ms_per_launch": prof["tb_device_ms_per_launch"],
+        "launch_floor_ms": prof["launch_floor_ms"],
         "launches_by_path": by_path["token_bucket"]}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,
@@ -1289,6 +1321,15 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape, "launches_by_path": by_path[name]})
+        if name == "decode_attention":
+            rows[-1]["device_ms_per_launch"] = m["device_ms"]
+            rows[-1]["bound_share"] = m["bound_share"]
+            rows[-1]["plan"] = m["plan"]
+            rows[-1]["long_cache"] = [
+                {k: r[k] for k in ("shape", "lengths", "ms", "device_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "bound_share", "plan")}
+                for r in res["long"]]
         if name == "flash_prefill":
             rows[-1]["kernel_paths"] = {
                 p: r["flash_prefill_paths"] for p, r in (

@@ -16,9 +16,12 @@ every arbiter (RR / WRR / PRIORITY / WFQ):
 
 The reference asserts that its one-shot fast paths equal these loops
 bitwise, so ``SimConfig.grant_fast`` / ``stage_fast`` are accepted and the
-loops run regardless.  Shaping mode and arbiter are plain Python values
-here (the port has no batched engine yet), so a tick computes only the
-branch its mode selects; ``where`` over both branches gives the same bits.
+loops run regardless; ``stage_fast`` only picks which queue entry a
+direction that does not pop leaves in the completion ring's scratch slot,
+as the reference's two egress forms do.  Shaping mode and arbiter are
+plain Python values here (the port has no batched engine yet), so a tick
+computes only the branch its mode selects; ``where`` over both branches
+gives the same bits.
 
 The carry is a dict of tensors on one device (a ``TBState`` under ``"tb"``)
 with the reference's keys, shapes and dtypes, and it is **updated in
@@ -506,13 +509,22 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
         c["eq_cnt"].scatter_add_(0, d, okq.to(torch.int32))
 
     # -- 6. egress link + completions (sequential pops) ---------------------
+    # A direction's pops are a prefix of the tick's iterations, so pass j
+    # pops the entry j past the tick's first head either way.  Where a
+    # direction does not pop, the reference's vectorised egress
+    # (``stage_fast``) reads that entry and its sequential loop the current
+    # head; the values reach the completion ring's scratch slot.
     dirs = args["dirs"]
-    for _ in range(cfg.k_eg):
-        h = c["eq_head"].long()[:, None]
+    head0 = c["eq_head"].long()
+    prev = torch.ones(3, dtype=torch.bool, device=dirs.device)
+    for j in range(cfg.k_eg):
+        h = ((head0 + j) % cfg.eq_len if cfg.stage_fast
+             else c["eq_head"].long())[:, None]
         sz, isz, fl, at, rd = (c[k].gather(1, h)[:, 0] for k in
                                ("eq_sz", "eq_isz", "eq_fl", "eq_at", "eq_rd"))
         bud3 = torch.cat([budget, args["bud_off"]])
-        pop = (c["eq_cnt"] > 0) & (rd < now_end) & (bud3 > 0.0)
+        pop = prev & (c["eq_cnt"] > 0) & (rd < now_end) & (bud3 > 0.0)
+        prev = pop
         popi = pop.to(torch.int32)
         c["eq_head"] = (c["eq_head"] + popi) % cfg.eq_len
         c["eq_cnt"] -= popi

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 
 import numpy as np
 
@@ -86,7 +87,10 @@ class CapacityEntry:
     shaped capacity, ``per_flow[r][i]`` the flow's demand coefficient);
     the port profiles the link axis only, and reads extra axes from
     tables the reference wrote.  Scalar positional arguments (the
-    pre-vector schema) are promoted to R=1 vectors."""
+    pre-vector schema) are promoted to R=1 vectors; the pre-vector
+    ``capacity_gbps`` / ``per_flow_gbps`` names remain readable as
+    properties and construct entries through a ``DeprecationWarning``
+    shim, as in the reference."""
 
     capacity: list          # [R] Gbps per axis (axis 0 measured)
     per_flow: list          # [R][n]: measured split / demand coefficients
@@ -94,8 +98,19 @@ class CapacityEntry:
     ctx: str
     res_names: list         # [R] axis names (axis 0 = "link")
 
-    def __init__(self, capacity, per_flow=None, fairness: float = 0.0,
-                 ctx: str = "", res_names=None):
+    def __init__(self, capacity=None, per_flow=None, fairness: float = 0.0,
+                 ctx: str = "", res_names=None, *,
+                 capacity_gbps=None, per_flow_gbps=None):
+        if capacity_gbps is not None or per_flow_gbps is not None:
+            warnings.warn(
+                "CapacityEntry(capacity_gbps=..., per_flow_gbps=...) is "
+                "deprecated: pass the vector fields capacity= / per_flow= "
+                "(scalars are promoted to R=1)", DeprecationWarning,
+                stacklevel=2)
+            capacity = capacity_gbps if capacity is None else capacity
+            per_flow = per_flow_gbps if per_flow is None else per_flow
+        if capacity is None:
+            raise TypeError("CapacityEntry requires capacity")
         if not isinstance(capacity, (list, tuple, np.ndarray)):
             capacity = [capacity]              # scalar -> R=1 degenerate
         per_flow = [] if per_flow is None else per_flow
@@ -110,6 +125,15 @@ class CapacityEntry:
             res_names = [RES_LINK] + [f"res{r}"
                                       for r in range(1, len(self.capacity))]
         self.res_names = list(res_names)
+
+    # -- the pre-vector field names, read-only (see class docstring) -----
+    @property
+    def capacity_gbps(self) -> float:
+        return self.capacity[0]
+
+    @property
+    def per_flow_gbps(self) -> list:
+        return self.per_flow[0]
 
     def slo_tag(self, slo_gbps: list[float], margin: float = 0.02) -> bool:
         """True = SLO-Friendly: requested SLOs fit the profiled capacity and

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash prefill, the SSD scan): mbarriers, TMA tile loads, asynchronous
-// copies, register rebalancing and warpgroup matrix multiplies (wgmma) on
-// bf16 tiles held in 128-byte-swizzled shared memory.  Every kernel
-// library is built with -I on this directory and named by a hash of it
-// (kernels/_build.py), so a change here rebuilds them all.
+// Hopper (sm_90a) building blocks shared by the port's kernels (flash
+// prefill, the SSD scan, decode attention): mbarriers, TMA tile loads and
+// 1-D bulk copies, asynchronous copies, register rebalancing and warpgroup
+// matrix multiplies (wgmma) on bf16 tiles held in 128-byte-swizzled shared
+// memory.  Every kernel library is built with -I on this directory and
+// named by a hash of it (kernels/_build.py), so a change here rebuilds
+// them all.
 //
 // Shared-memory tiles are "panels": R rows of 64 bf16 values (128 bytes),
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B (or by hand with the same
@@ -58,6 +59,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- thread-block clusters ------------------------------------------------
+
+// Split cluster barrier: arrive early (no ordering), wait where every CTA of
+// the cluster must have started (before the first access to a peer's
+// shared memory).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const void* tmap) {
@@ -76,6 +89,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory by the bulk-copy
+// engine (no tensor map); completion is counted in bytes on `bar`.  Both
+// addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

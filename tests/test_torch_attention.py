@@ -222,3 +222,30 @@ def test_wrappers_refuse_other_devices():
                                 torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         fp_ops.flash_prefill(x[None], x[None], x[None])
+
+
+def test_decode_launch_plan():
+    """The decode kernel's launch plan, from shapes alone: clusters of 1..8
+    CTAs, never more CTAs a cluster than S has row tiles, a ring that fits
+    three CTAs an SM over a short cache and one over a longer one, and at
+    least one CTA for each of the H100's 132 SMs at the serve mix's shape
+    (gemma3-12b: B 8, 8 KV heads of 256 floats, G 2)."""
+    gc, cluster, tile_rows = da_ops.launch_plan(8, 8, 2, 256, 256 * 4)
+    assert gc == 2 and 8 * 8 * cluster >= 132
+    # the long mix's caches: one CTA an SM
+    for S in (1024, 2048):
+        assert 8 * 8 * da_ops.launch_plan(8, 8, 2, S, 256 * 4)[1] <= 132
+    for B in (1, 2, 8, 64):
+        for KvH, G in ((1, 8), (2, 5), (8, 2), (16, 1), (2, 16)):
+            for S in (1, 7, 64, 256, 1024, 2048):
+                for row_bytes in (16, 160, 512, 1024):
+                    gc, cluster, tile_rows = da_ops.launch_plan(
+                        B, KvH, G, S, row_bytes)
+                    assert gc == da_ops.group_chunk(G)
+                    assert 1 <= cluster <= da_ops.MAX_CLUSTER
+                    assert 1 <= tile_rows <= min(S, da_ops.MAX_TILE_ROWS)
+                    assert cluster <= -(-S // tile_rows)
+                    ring = da_ops.RING_BYTES * (1 if S <= da_ops.SHORT_S
+                                                else 2)
+                    assert da_ops.STAGES * 2 * tile_rows * row_bytes <= \
+                        max(ring, da_ops.STAGES * 2 * row_bytes)

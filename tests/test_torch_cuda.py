@@ -105,15 +105,41 @@ DA_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", DA_CASES)
-def test_decode_attention_kernel_matches_plain(dev, case):
-    B, H, KvH, D, S, w, qdt, cdt = case
-    g = torch.Generator(device=dev).manual_seed(S)
+# the cluster kernel's edges: B, H, KvH, D, S, window, q dtype, cache
+# dtype, lengths (each CTA of a cluster of up to 8 takes a share of the
+# valid rows)
+DA_EDGE_CASES = {
+    # empty sequences and fewer valid rows than CTAs in the cluster
+    "lengths_0_and_below_cluster": (4, 8, 2, 64, 64, 0, torch.float32,
+                                    torch.float32, [0, 1, 3, 0]),
+    # a window whose start falls inside one CTA's share
+    "window_inside_a_share": (3, 8, 2, 128, 512, 37, torch.float32,
+                              torch.float32, [500, 40, 37]),
+    # lengths past S clamp to S (and the window's start to 0)
+    "lengths_past_s": (3, 8, 4, 64, 100, 150, torch.bfloat16,
+                       torch.bfloat16, [101, 250, 100]),
+    "g5": (2, 10, 2, 128, 300, 0, torch.bfloat16, torch.float32,
+           [300, 17]),
+    "g16": (2, 32, 2, 128, 300, 0, torch.float32, torch.float32,
+            [150, 299]),
+    "d80": (2, 8, 2, 80, 200, 0, torch.float32, torch.bfloat16, [200, 9]),
+    "d96": (2, 8, 4, 96, 200, 64, torch.bfloat16, torch.bfloat16,
+            [190, 64]),
+}
+DA_DTYPE_PAIRS = [(a, b) for a in (torch.float32, torch.bfloat16)
+                  for b in (torch.float32, torch.bfloat16)]
+
+
+def _da_check(dev, B, H, KvH, D, S, w, qdt, cdt, ln, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, D), generator=g, device=dev).to(qdt)
     k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
     v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
-    ln = torch.randint(0, S + 1, (B,), generator=g, device=dev,
-                       dtype=torch.int32)
+    if ln is None:
+        ln = torch.randint(0, S + 1, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    else:
+        ln = torch.tensor(ln, dtype=torch.int32, device=dev)
     before = da_ops.LAUNCHES
     got = da_ops.decode_attention(q, k, v, ln, window=w)
     assert da_ops.LAUNCHES == before + 1
@@ -122,6 +148,50 @@ def test_decode_attention_kernel_matches_plain(dev, case):
     tol = 2e-2 if torch.bfloat16 in (qdt, cdt) else 2e-5
     assert got.dtype == qdt
     assert float((got.float() - want.float()).abs().max()) < tol
+    return got, ln
+
+
+@pytest.mark.parametrize("case", DA_CASES)
+def test_decode_attention_kernel_matches_plain(dev, case):
+    B, H, KvH, D, S, w, qdt, cdt = case
+    _da_check(dev, B, H, KvH, D, S, w, qdt, cdt, None, S)
+
+
+@pytest.mark.parametrize("name", sorted(DA_EDGE_CASES))
+def test_decode_attention_kernel_edges(dev, name):
+    got, ln = _da_check(dev, *DA_EDGE_CASES[name], seed=len(name))
+    # a sequence with no valid position returns exactly 0
+    assert not got[ln == 0].any()
+
+
+@pytest.mark.parametrize("qdt, cdt", DA_DTYPE_PAIRS)
+def test_decode_attention_kernel_dtype_pairs(dev, qdt, cdt):
+    _da_check(dev, 3, 8, 2, 128, 160, 0, qdt, cdt, [160, 3, 77], seed=7)
+
+
+def test_decode_attention_one_launch_no_scratch(dev):
+    """One call is one launch, allocates its output and nothing else, and
+    never waits for the card (``lengths`` stays there)."""
+    B, H, KvH, D, S = 8, 16, 8, 256, 256
+    q = torch.randn((B, H, D), device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KvH, D), device=dev)
+    ln = torch.arange(13, 13 + 8 * B, 8, dtype=torch.int32, device=dev)
+    da_ops.decode_attention(q, k, k, ln)          # builds, sets attributes
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    before = da_ops.LAUNCHES
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = da_ops.decode_attention(q, k, k, ln)
+    torch.cuda.synchronize()
+    assert da_ops.LAUNCHES == before + 1
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == \
+        allocs + 1
+    assert out.shape == q.shape
+    waits = [e.name for e in prof.events()
+             if "Synchronize" in e.name or "Memcpy" in e.name
+             or e.name in ("aten::item", "aten::_local_scalar_dense")]
+    assert not waits
 
 
 FP_CASES = [
@@ -197,6 +267,13 @@ def test_attention_kernels_reject_bad_inputs(dev):
         da_ops.decode_attention(torch.zeros((2, 4, 512), device=dev),
                                 torch.zeros((2, 16, 2, 512), device=dev),
                                 torch.zeros((2, 16, 2, 512), device=dev), ln)
+    with pytest.raises(ValueError, match="16 bytes"):   # 34 floats a row
+        da_ops.decode_attention(torch.zeros((2, 4, 34), device=dev),
+                                torch.zeros((2, 16, 2, 34), device=dev),
+                                torch.zeros((2, 16, 2, 34), device=dev), ln)
+    with pytest.raises(ValueError, match="16 bytes"):   # k off 16 bytes
+        kk = torch.zeros(2 * 16 * 2 * 64 + 1, device=dev)[1:]
+        da_ops.decode_attention(q, kk.view(2, 16, 2, 64), k, ln)
     with pytest.raises(ValueError):      # v's dtype differs from k's
         fp_ops.flash_prefill(q[:, None], k, k.half())
 

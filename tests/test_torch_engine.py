@@ -47,24 +47,48 @@ CASES = {
     # a completion ring small enough to wrap
     "hw_ring_wrap": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
                          cfg=dict(comp_cap=64)),
+    # IOPS SLOs: the admission costs 1 a message (bimodal sizes, so a
+    # byte cost would differ)
+    "hw_iops": dict(shaping=SHAPING_HW, arbiter=ARB_RR, slo="iops", msg=512,
+                    msg2=4096, p2=0.3),
+    # off-fabric egress (dir 2) beside a loopback flow
+    "hw_nic_tx": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
+                      paths=(Path.INLINE_NIC_TX, Path.FUNCTION_CALL)),
+    # the same under the reference's sequential egress loop, which leaves
+    # other entries in the completion ring's scratch slot
+    "hw_nic_tx_seq_egress": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
+                                 paths=(Path.INLINE_NIC_TX,
+                                        Path.FUNCTION_CALL),
+                                 cfg=dict(stage_fast=False)),
+    # device to device: d2h ingress, h2d egress, beside a NIC-RX flow
+    "hw_p2p": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
+                   paths=(Path.INLINE_P2P, Path.INLINE_NIC_RX)),
 }
 
 
 def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
               msg2=0, p2=0.0, accels=("ipsec32",), cfg=None, n_ticks=N_TICKS,
-              seed=3):
-    specs = [FlowSpec(i, i, Path.INLINE_NIC_RX if i % 2 else Path.FUNCTION_CALL,
-                      i % len(accels),
+              seed=3, paths=(Path.FUNCTION_CALL, Path.INLINE_NIC_RX),
+              slo="gbps"):
+    """Flow i takes ``paths[i % len(paths)]`` and SLO ``8 (i + 1)`` Gbps,
+    or with ``slo="iops"`` ``400,000 (i + 1)`` IOPS, under the registers
+    that SLO plans."""
+    if slo == "gbps":
+        slos = [SLO.gbps(8.0 * (i + 1)) for i in range(n_flows)]
+        plans = [jtb.params_for_gbps(s.target) for s in slos]
+    else:
+        slos = [SLO.iops(400_000.0 * (i + 1)) for i in range(n_flows)]
+        plans = [jtb.params_for_iops(s.target) for s in slos]
+    specs = [FlowSpec(i, i, paths[i % len(paths)], i % len(accels),
                       TrafficPattern(msg, load=load, process="poisson",
                                      msg_bytes2=msg2, p2=p2),
-                      SLO.gbps(8.0 * (i + 1)), priority=i, weight=1.0 + i)
+                      slos[i], priority=i, weight=1.0 + i)
              for i in range(n_flows)]
     flows = FlowSet.build(specs)
     sim_cfg = SimConfig(n_ticks=n_ticks, shaping=shaping, arbiter=arbiter,
                         **(cfg or {}))
     arr = gen_arrivals(flows, sim_cfg, seed=seed,
                        load_ref_gbps={i: 40.0 for i in range(n_flows)})
-    plans = [jtb.params_for_gbps(8.0 * (i + 1)) for i in range(n_flows)]
     system = system or {SHAPING_NONE: jb.HOST_NO_TS, SHAPING_HW: jb.ARCUS,
                         SHAPING_SW: jb.HOST_TS_REFLEX}[shaping]
     tbs = jb.make_tb_state(system, plans)

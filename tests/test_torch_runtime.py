@@ -168,3 +168,39 @@ def test_runtime_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tprof.ProfileTable()
     assert tsim.SHAPING_HW == 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(capacity_gbps=28.0, per_flow_gbps=[12.0, 16.0]),
+    dict(capacity_gbps=28.0),
+    dict(per_flow_gbps=[12.0, 16.0], capacity=[30.0, 5.0]),
+    dict(capacity=[30.0], per_flow=[[14.0, 16.0]], capacity_gbps=1.0,
+         per_flow_gbps=[1.0, 1.0]),
+    dict(capacity=25.0, per_flow=[10.0, 15.0])])
+def test_capacity_entry_compat_surface(kw):
+    """The pre-vector keyword names construct entries through the same
+    DeprecationWarning as the reference's, with the same precedence (the
+    vector fields win), and read back as properties."""
+    import warnings
+
+    from repro.core.profiler import CapacityEntry as JEntry
+    entries = []
+    for cls in (JEntry, tprof.CapacityEntry):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            e = cls(fairness=0.5, ctx="c", **kw)
+        entries.append((e, [(w.category, str(w.message)) for w in caught]))
+    (j, j_warn), (t, t_warn) = entries
+    assert t_warn == j_warn
+    assert bool(t_warn) == any(k.endswith("_gbps") for k in kw)
+    assert (t.capacity, t.per_flow, t.res_names) == \
+        (j.capacity, j.per_flow, j.res_names)
+    assert t.capacity_gbps == j.capacity_gbps
+    assert t.per_flow_gbps == j.per_flow_gbps
+    with pytest.raises(AttributeError):
+        t.capacity_gbps = 1.0
+    with pytest.raises(TypeError, match="requires capacity"):
+        tprof.CapacityEntry()
+    with pytest.raises(TypeError, match="requires capacity"), \
+            pytest.warns(DeprecationWarning):
+        tprof.CapacityEntry(per_flow_gbps=[1.0])
