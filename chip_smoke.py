@@ -8,8 +8,10 @@ at once), holds each against its plain PyTorch version on the card, and
 drives the port's paths through the kernels:
 
   * the dataplane (the quickstart server: ``ArcusRuntime`` admission +
-    ``run_managed``, Algorithm 1), with a CUDA window checked bitwise
-    against the same window on the CPU;
+    ``run_managed``, Algorithm 1), one token-bucket grant-tick launch a
+    simulated tick, with CUDA windows (hardware shaping with round robin,
+    software shaping with WFQ) checked bitwise against the same windows on
+    the CPU;
   * serving (``ServingEngine`` + ``ArcusScheduler``) of gemma3-12b at full
     width and depth with random weights: the launcher's request mix, a
     long-prompt mix that crosses the 1024-token window, and, at one period
@@ -223,6 +225,27 @@ def phase_kernel(dev) -> dict:
     emit("kernel", name="token_bucket", bitwise=True, max_abs_err=worst,
          times={str(k): v for k, v in times.items()})
     return dict(max_abs_err=worst, times=times)
+
+
+def phase_kernel_grant_tick(dev) -> dict:
+    """The token bucket's grant-tick kernel (one launch: every flow's
+    refill, then k_grant shaper + arbiter grants) against its plain version
+    on random valid carries, bitwise on every leaf it writes: N = 1, 2, 3,
+    33 and 1025 flows, every shaping mode and arbiter, k_grant 1, 4 and 8
+    (``rehearse.CASES``); then its times at N = 2, 3 and 1025 (ms a call,
+    device ms a launch, plain ms, bound)."""
+    from repro_torch.kernels.token_bucket import rehearse
+    grants = 0
+    for case in rehearse.CASES:
+        row = rehearse.check_case(case, dev)
+        if row["launches"] != 1 or row["differ"]:
+            raise AssertionError(f"grant_tick kernel != plain: {row}")
+        grants += row["grants"]
+    times = {n: rehearse.time_grant_tick(n, dev) for n in rehearse.TIMED_NS}
+    emit("kernel_grant_tick", name="token_bucket/grant_tick", bitwise=True,
+         cases=len(rehearse.CASES), grants=grants,
+         times={str(k): v for k, v in times.items()})
+    return dict(max_abs_err=0, times=times)
 
 
 # ---------------------------------------------------------------------------
@@ -597,15 +620,13 @@ def phase_main_path(dev) -> dict:
 
     import torch
     from repro_torch.core.accelerator import CATALOG
-    from repro_torch.core.engine import SimConfig
     from repro_torch.core.profiler import ProfileTable
     from repro_torch.core.runtime import ArcusRuntime
     from repro_torch.kernels.token_bucket import ops
-    k_grant = SimConfig(n_ticks=1).k_grant
     rt = ArcusRuntime([CATALOG["ipsec32"]],
                       profile_table=ProfileTable(n_ticks=PROFILE_TICKS,
                                                  device=dev), device=dev)
-    ops.LAUNCHES = 0
+    _reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     admitted = [rt.register(s) for s in quickstart_specs()]
@@ -616,9 +637,10 @@ def phase_main_path(dev) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = ops.LAUNCHES
+    by_path = dict(ops.LAUNCHES_BY_PATH)
     profiled = len(rt.profile.entries) * PROFILE_TICKS
     ticks = profiled + TOTAL_TICKS
-    expect = ticks * (1 + k_grant)
+    expect = ticks          # one grant-tick launch a tick
     emit("reduced", what="tick counts only",
          profile_ticks=[PROFILE_TICKS, 60_000],
          total_ticks=[TOTAL_TICKS, 120_000],
@@ -631,12 +653,14 @@ def phase_main_path(dev) -> dict:
          us_per_tick_admission=(t1 - t0) / profiled * 1e6,
          us_per_tick_managed=(t2 - t1) / TOTAL_TICKS * 1e6,
          us_per_tick=(t2 - t0) / ticks * 1e6,
-         tb_launches=launches, tb_launches_expected=expect)
+         tb_launches=launches, tb_launches_expected=expect,
+         tb_launches_by_path=by_path)
     if admitted != [True, True, False]:
         raise AssertionError(f"admission {admitted} != [True, True, False]")
-    if launches != expect:
-        raise AssertionError(f"token_bucket launches {launches} != ticks x "
-                             f"(1 + k_grant) = {expect}")
+    if launches != expect or by_path != dict(step=0, grant_tick=expect):
+        raise AssertionError(f"token_bucket launches {launches} "
+                             f"({by_path}) != ticks = {expect}, all "
+                             "grant_tick")
     if len(reports) != TOTAL_TICKS // WINDOW_TICKS or not all(
             math.isfinite(v) and v >= 0 for r in reports
             for v in r.measured.values()):
@@ -644,32 +668,59 @@ def phase_main_path(dev) -> dict:
     done, adm = res.counters["c_done_msgs"], res.counters["c_adm_msgs"]
     if not ((done <= adm).all() and done.sum() > 0):
         raise AssertionError(f"counters inconsistent: done={done} adm={adm}")
-    return dict(launches=launches)
+    return dict(launches=launches, by_path=by_path)
 
 
 def phase_parity(dev) -> None:
-    """One simulate window of the two admitted tenants, CUDA vs CPU."""
+    """simulate windows CUDA vs CPU, bitwise on every counter and the
+    completion ring: the two admitted tenants under hardware shaping and
+    round robin, and three tenants of weights 1, 2 and 3 under software
+    shaping (host-descheduling stalls, deferred refills, host delays) and
+    weighted fair queueing."""
+    import dataclasses
+
     import numpy as np
-    from repro_torch.core import token_bucket as tb
+    from repro_torch.core import baselines as bl, token_bucket as tb
     from repro_torch.core.accelerator import CATALOG, AccelTable
     from repro_torch.core.flow import FlowSet
-    from repro_torch.core.interconnect import LinkSpec
-    from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
-    flows = FlowSet.build(quickstart_specs()[:2])
-    cfg = SimConfig(n_ticks=PARITY_TICKS)
-    arr = gen_arrivals(flows, cfg, load_ref_gbps={0: 32.0, 1: 32.0})
-    tbs = tb.pack([tb.params_for_gbps(10.0), tb.params_for_gbps(20.0)])
+    from repro_torch.core.interconnect import ARB_WFQ, LinkSpec
+    from repro_torch.core.sim import (SHAPING_SW, SimConfig, gen_arrivals,
+                                      gen_stall_mask, simulate)
     atab = AccelTable.build([CATALOG["ipsec32"]])
-    out = [simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=d)
-           for d in (dev, "cpu")]
-    for k in out[0].counters:
-        a, b = out[0].counters[k], out[1].counters[k]
-        if a.tobytes() != b.tobytes():
-            raise AssertionError(f"CUDA != CPU counter {k}: {a} vs {b}")
-    for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
-        if not np.array_equal(getattr(out[0], k), getattr(out[1], k)):
-            raise AssertionError(f"CUDA != CPU completion ring {k}")
-    emit("parity", ticks=PARITY_TICKS, completions=int(len(out[0].comp_flow)),
+    plans = [tb.params_for_gbps(g) for g in (10.0, 20.0, 10.0)]
+    hw_cfg = SimConfig(n_ticks=PARITY_TICKS)
+    sw_cfg = SimConfig(n_ticks=PARITY_TICKS, shaping=SHAPING_SW,
+                       arbiter=ARB_WFQ)
+    sw_specs = [dataclasses.replace(s, weight=1.0 + i)
+                for i, s in enumerate(quickstart_specs())]
+    windows = {
+        "hw_rr": (FlowSet.build(quickstart_specs()[:2]), hw_cfg,
+                  tb.pack(plans[:2]), None),
+        "sw_wfq": (FlowSet.build(sw_specs), sw_cfg,
+                   bl.make_tb_state(bl.HOST_TS_REFLEX, plans),
+                   gen_stall_mask(sw_cfg, seed=1, stall_rate_hz=500_000.0,
+                                  stall_us=(0.2, 1.0)))}
+    report = {}
+    for name, (flows, cfg, tbs, stall) in windows.items():
+        arr = gen_arrivals(flows, cfg, load_ref_gbps={
+            i: 32.0 for i in range(flows.n)})
+        out = [simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+                        device=d) for d in (dev, "cpu")]
+        for k in out[0].counters:
+            a, b = out[0].counters[k], out[1].counters[k]
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{name}: CUDA != CPU counter {k}: {a} "
+                                     f"vs {b}")
+        for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
+            if not np.array_equal(getattr(out[0], k), getattr(out[1], k)):
+                raise AssertionError(f"{name}: CUDA != CPU completion ring "
+                                     f"{k}")
+        if not len(out[0].comp_flow):
+            raise AssertionError(f"{name}: no completions")
+        report[name] = dict(
+            flows=flows.n, completions=int(len(out[0].comp_flow)),
+            stalled_ticks=0 if stall is None else int(np.sum(stall)))
+    emit("parity", ticks=PARITY_TICKS, windows=report,
          counters_bitwise=True, ring_bitwise=True)
 
 
@@ -926,6 +977,7 @@ def _run_path(name, model, dev, **kw) -> dict:
     launches = _launch_counts()
     fp_paths = dict(_kernel_ops()["flash_prefill"].LAUNCHES_BY_PATH)
     ssd_paths = dict(_kernel_ops()["ssd_scan"].LAUNCHES_BY_PATH)
+    tb_paths = dict(_kernel_ops()["token_bucket"].LAUNCHES_BY_PATH)
     L = model.cfg.n_layers
     kinds = model.cfg.layer_kinds()
     n_ssd = kinds.count("ssd")
@@ -951,6 +1003,7 @@ def _run_path(name, model, dev, **kw) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, launches_expected=expect,
                flash_prefill_paths=fp_paths, ssd_scan_paths=ssd_paths,
+               token_bucket_paths=tb_paths,
                longest_sequence=int(sched.engine.lengths.max()),
                tenants=stats)
     plain = kw.get("plain", False)
@@ -964,6 +1017,9 @@ def _run_path(name, model, dev, **kw) -> dict:
     if launches != expect or not all(
             v > 0 for k, v in launches.items() if expect[k]):
         raise AssertionError(f"{name}: launches {launches} != {expect}")
+    # the scheduler's buckets take the step kernel, never the grant tick
+    if tb_paths != dict(step=launches["token_bucket"], grant_tick=0):
+        raise AssertionError(f"{name}: token-bucket launches {tb_paths}")
     # the models' q, k, v and x, B, C are bf16: every flash-prefill and
     # SSD-scan launch is the tensor-core kernel's
     if model.cfg.dtype == "bfloat16":
@@ -987,7 +1043,7 @@ KERNEL_KINDS = {
     "flash_prefill": ("flash_prefill",),
     "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
                  "ssd_output_kernel"),
-    "token_bucket": ("tb_step",),
+    "token_bucket": ("tb_step", "tb_grant_tick"),
     "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK"),
     "elementwise": ("elementwise", "vectorized", "unrolled"),
     "reduce": ("reduce",),
@@ -1258,6 +1314,7 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
                 for k, v in _build.PTXAS_INFO.items()})
     k = phase_kernel(dev)
+    gt = phase_kernel_grant_tick(dev)
     da = phase_kernel_decode_attention(dev)
     fp = phase_kernel_flash_prefill(dev)
     ssd = phase_kernel_ssd_scan(dev)
@@ -1278,24 +1335,33 @@ def main() -> int:
     phase_serve_mamba2_parity(dev, model)
     n_ssd = model.cfg.layer_kinds().count("ssd")
     n_main = 2
-    t = k["times"][n_main]
-    by_path = {name: {"main_path": main["launches"] if name == "token_bucket"
-                      else 0,
-                      "serve": serve["launches"][name],
-                      "serve_long": long["launches"][name],
-                      "serve_mamba2": mserve["launches"][name],
-                      "serve_mamba2_long": mlong["launches"][name]}
+    t = gt["times"][n_main]
+    runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
+                serve_mamba2_long=mlong)
+    by_path = {name: dict(main_path=0, **{p: r["launches"][name]
+                                          for p, r in runs.items()})
                for name in serve["launches"]}
+    # the token bucket's by kernel: the dataplane's grant ticks, the
+    # serving scheduler's steps
+    by_path["token_bucket"] = dict(main_path=main["by_path"], **{
+        p: r["token_bucket_paths"] for p, r in runs.items()})
+    tb_src = "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu"
+    step = k["times"][n_main]
     rows = [{
-        "name": "token_bucket", "route": "cuda",
-        "source": "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu",
+        "name": "token_bucket", "route": "cuda", "source": tb_src,
+        "sources": {"grant_tick": f"{tb_src}::tb_grant_tick_kernel",
+                    "step": f"{tb_src}::tb_step_kernel"},
         "replaces": "src/repro/kernels/token_bucket/kernel.py:41",
-        "launches": main["launches"], "max_abs_err": k["max_abs_err"],
+        "launches": main["launches"],
+        "max_abs_err": max(k["max_abs_err"], gt["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "shape": f"[{n_main}] flows (admission call)",
+        "shape": f"grant tick: [{n_main}] flows, k_grant 4",
         "device_ms_per_launch": prof["tb_device_ms_per_launch"],
+        "device_ms_per_launch_alone": t["device_ms"],
         "launch_floor_ms": prof["launch_floor_ms"],
+        "grant_tick_times": {str(n): v for n, v in gt["times"].items()},
+        "step": dict(step, shape=f"[{n_main}] flows (admission call)"),
         "launches_by_path": by_path["token_bucket"]}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,

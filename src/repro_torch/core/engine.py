@@ -6,13 +6,19 @@ runs ``n_ticks`` calls of ``_tick``, each the reference's tick in its
 every shaping mode (NONE / HW / SW with stall mask and host-delay LCG) and
 every arbiter (RR / WRR / PRIORITY / WFQ):
 
-    1. token-bucket timers      -> Hopper token-bucket kernel (refill)
+    1. token-bucket timers      -> Hopper token-bucket kernel
+                                   ``grant_tick``, one launch with stage 4
     2. arrivals -> flow queues
     3. per-tick link budgets
-    4. shaper + arbiter grants  -> Hopper token-bucket kernel (admission,
-                                   once per grant iteration)
+    4. shaper + arbiter grants  -> the same launch (``k_grant`` grants)
     5. accelerator service
     6. egress link + completions
+
+Stages 1 and 4 run together, after 2 and 3 (which read neither the bucket
+state nor ``sw_pend``): ``kernels/token_bucket/ops.grant_tick`` refills
+every bucket and runs the ``k_grant`` sequential grants in one launch a
+tick on the card (``grant_tick_plain`` on the CPU).  Stages 2, 3, 5 and 6
+are eager PyTorch ops.
 
 The reference asserts that its one-shot fast paths equal these loops
 bitwise, so ``SimConfig.grant_fast`` / ``stage_fast`` are accepted and the
@@ -44,16 +50,13 @@ from repro_torch.core.flow import FlowSet, Path
 from repro_torch.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ,
                                            ARB_WRR, LinkSpec)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.token_bucket.ops import token_bucket_step
-
-SHAPING_NONE = 0
-SHAPING_HW = 1
-SHAPING_SW = 2
+from repro_torch.kernels.token_bucket import ops as tb_ops
+from repro_torch.kernels.token_bucket.ops import (  # noqa: F401 (re-exported)
+    SHAPING_HW, SHAPING_NONE, SHAPING_SW)
 
 INF_I32 = np.int32(2**31 - 1)
 _LCG_A = 1103515245
 _LCG_C = 12345
-_BIG = float(np.float32(3e38))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,8 +253,12 @@ def _pack_args(flows: FlowSet, accels: AccelTable, link: LinkSpec,
     fa = _flow_args(flows)
     ac_mask = _accel_mask(accels)
     t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
-    N = flows.n
-    args = dict(
+    args = tb_ops.grant_args(
+        fa["fl_accel"], fa["fl_in_dir"], fa["fl_prio"], fa["fl_w"],
+        ovh=link.msg_overhead_bytes, credits=link.credits,
+        tick_cycles=cfg.tick_cycles,
+        stall=_window_stall(stall_mask, cfg, t0_ticks), device=dev)
+    args.update(
         arr_t=_as_i32(arr_t, dev), arr_sz=_as_i32(arr_sz, dev),
         svc_tab=t(accels.service_cycles, torch.float32),
         eg_tab=t(accels.egress_bytes, torch.float32),
@@ -260,29 +267,14 @@ def _pack_args(flows: FlowSet, accels: AccelTable, link: LinkSpec,
         # per egress direction (dir 2 is off-fabric and never divides)
         bpc3=t(np.asarray([h2d_bpc, d2h_bpc, d2h_bpc], np.float32),
                torch.float32),
-        ovh=float(np.float32(link.msg_overhead_bytes)),
-        credits=int(link.credits),
-        stall=t(_window_stall(stall_mask, cfg, t0_ticks), torch.bool),
-        fl_accel=t(fa["fl_accel"], torch.long),
-        fl_in_dir=t(fa["fl_in_dir"], torch.int32),
-        fl_in01=t(np.minimum(fa["fl_in_dir"], 1), torch.long),
-        fl_in_off=t(fa["fl_in_dir"] == 2, torch.bool),
         fl_eg_dir=t(fa["fl_eg_dir"], torch.long),
         fl_eg_full=t(fa["fl_eg_full"], torch.bool),
-        fl_prio=t(fa["fl_prio"], torch.float32),
-        fl_w=t(fa["fl_w"], torch.float32),
         # constants reused every tick (no per-tick allocation from Python)
-        iota_n=torch.arange(N, dtype=torch.int32, device=dev),
-        iota_l=torch.arange(N, dtype=torch.long, device=dev),
         jj_arr=torch.arange(cfg.k_arr, dtype=torch.int32, device=dev),
-        ar2=torch.arange(2, dtype=torch.long, device=dev),
         dirs=torch.arange(3, dtype=torch.long, device=dev),
         ar3p1=torch.arange(1, 4, dtype=torch.int32, device=dev),
-        e_zero=torch.zeros(1, dtype=torch.int32, device=dev),
-        e_tick=torch.full((1,), cfg.tick_cycles, dtype=torch.int32,
-                          device=dev),
-        no_want=torch.zeros(N, dtype=torch.bool, device=dev),
-        bud_off=torch.full((1,), _BIG, dtype=torch.float32, device=dev),
+        bud_off=torch.full((1,), tb_ops.BIG, dtype=torch.float32,
+                           device=dev),
         grid=grid_position_table(dev),
     )
     return args
@@ -301,16 +293,6 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _arb_key(arb: int, rr_key, fl_prio, vft):
-    """Arbiter key (lower = served first) from the cyclic RR key; the
-    compiled reference fuses each product into its add."""
-    if arb == ARB_PRIORITY:
-        return fma32(-fl_prio, 1e6, rr_key)
-    if arb in (ARB_WRR, ARB_WFQ):
-        return fma32(_f32(1e-6), rr_key, vft)
-    return rr_key
-
-
 def _host_delay(u, sw_jit, sw_delay):
     """``sw_delay + u ** 4 * sw_jit`` as the compiled reference computes it:
     ``(u * u) * (u * u)``, the jitter's multiply fused into the add."""
@@ -318,49 +300,17 @@ def _host_delay(u, sw_jit, sw_delay):
     return fma32(u2 * u2, sw_jit, sw_delay)
 
 
-# Single elements are read and written through [1]-shaped index tensors
-# with gather / scatter_ on flat views: indexing with a 0-dim tensor would
-# read it back to the host, and advanced indexing / index_put_ cost several
-# launches (sorting, bounds asserts) per element on the GPU.
-
-
-def _put(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor, ok, v):
-    """x[row, col] = v where ``ok`` (else unchanged), for [1] indices."""
-    flat = row * x.shape[1] + col
-    old = x.view(-1).gather(0, flat)
-    x.view(-1).scatter_(0, flat, torch.where(ok, v, old))
-
-
 def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
     """One simulated tick, in place on the carry ``c``."""
-    fl_accel, fl_in_dir = args["fl_accel"], args["fl_in_dir"]
     fl_eg_dir, fl_eg_full = args["fl_eg_dir"], args["fl_eg_full"]
     svc_tab, eg_tab = args["svc_tab"], args["eg_tab"]
     ac_mask = args["ac_mask"]
-    ovh, credits = args["ovh"], args["credits"]
-    iota_n, iota_l = args["iota_n"], args["iota_l"]
-    N = iota_n.shape[0]
+    ovh = args["ovh"]
     A = svc_tab.shape[0]
     sw = cfg.shaping == SHAPING_SW
-    shaped = cfg.shaping != SHAPING_NONE
-    arb = cfg.arbiter
 
     now = t * cfg.tick_cycles
     now_end = now + cfg.tick_cycles
-    is_stall = args["stall"][t - t0] if sw else None
-
-    # -- 1. token-bucket timers (Hopper kernel, refill only) ----------------
-    # host descheduled (software shaping): refills deferred, catch up on
-    # wakeup; hardware shaping and unshaped systems tick every cycle
-    if sw:
-        pend = c["sw_pend"] + cfg.tick_cycles
-        elapsed = torch.where(is_stall, 0, pend)
-        c["sw_pend"] = torch.where(is_stall, pend, 0)
-    else:
-        elapsed = args["e_tick"]
-        c["sw_pend"].zero_()
-    st = c["tb"]
-    c["tb"], _ = token_bucket_step(st, elapsed, out=(st.tokens, st.cyc))
 
     # -- 2. arrivals -> per-flow queues (single gather) ---------------------
     arr_t, arr_sz = args["arr_t"], args["arr_sz"]
@@ -385,75 +335,9 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
     # -- 3. per-tick link budgets ------------------------------------------
     budget = args["bpc"] * float(cfg.tick_cycles) + c["lres"]  # [2] bytes
 
-    # -- 4. shaper + arbiter grants (sequential argmin loop) ----------------
-    if arb == ARB_WRR:
-        vft_unit = 1.0 / args["fl_w"]
-    gbps = c["tb"].mode == tb.MODE_GBPS     # registers are fixed in a tick
-    for _ in range(cfg.k_grant):
-        head = c["q_head"].long()[:, None]
-        head_sz = c["q_sz"].gather(1, head)[:, 0]
-        head_at = c["q_at"].gather(1, head)[:, 0]
-        st = c["tb"]
-        cost = torch.where(gbps, head_sz, 1)
-        elig = ((c["q_cnt"] > 0)
-                & (c["aq_cnt"].gather(0, fl_accel) < cfg.aq_len)
-                & (c["aq_bytes"].gather(0, fl_accel) + head_sz
-                   <= cfg.aq_byte_cap)
-                & (c["credits_used"] < credits))
-        if shaped:
-            elig &= st.tokens >= cost
-        # a message may start whenever the link has *any* budget left; it
-        # then drives the budget negative (its serialization time)
-        bud_f = torch.where(args["fl_in_off"], _BIG,
-                            budget.gather(0, args["fl_in01"]))
-        elig &= bud_f > 0.0
-        if sw:
-            elig &= ~is_stall
-        # arbiter key (lower = served first): lanes in cyclic order after
-        # the last grant, under priority or virtual finish time for the
-        # other arbiters
-        key = _arb_key(arb, torch.remainder(iota_n - c["rr_ptr"] - 1,
-                                            N).float(),
-                       args["fl_prio"], c["vft"])
-        key = torch.where(elig, key, _BIG)
-        g = torch.argmin(key, dim=0, keepdim=True)          # [1]
-        ok = elig.gather(0, g)
-        sz = head_sz.gather(0, g)
-        at = head_at.gather(0, g)
-        onehot = (iota_l == g) & ok
-        onehot_i, ok_i, g_i = (x.to(torch.int32) for x in (onehot, ok, g))
-        szf = sz.float()
-        # consume tokens (Hopper kernel, admission; transparent unshaped)
-        c["tb"], _ = token_bucket_step(
-            st, args["e_zero"], cost, onehot if shaped else args["no_want"],
-            out=(st.tokens, st.cyc))
-        # pop flow queue
-        c["q_head"] = (c["q_head"] + onehot_i) % cfg.qlen
-        c["q_cnt"] -= onehot_i
-        # link budget + credits (per-message fabric overhead included)
-        spend = torch.where((fl_in_dir.gather(0, g) != 2) & ok, szf + ovh,
-                            0.0)
-        budget = budget - torch.where(
-            args["ar2"] == args["fl_in01"].gather(0, g), spend, 0.0)
-        c["credits_used"] += ok_i.view(())
-        # accel queue push
-        a = fl_accel.gather(0, g)
-        slot = ((c["aq_head"].gather(0, a) + c["aq_cnt"].gather(0, a))
-                % cfg.aq_len).long()
-        _put(c["aq_sz"], a, slot, ok, sz)
-        _put(c["aq_fl"], a, slot, ok, g_i)
-        _put(c["aq_at"], a, slot, ok, at)
-        c["aq_cnt"].scatter_add_(0, a, ok_i)
-        c["aq_bytes"].scatter_add_(0, a, torch.where(ok, sz, 0))
-        # arbiter state (WRR message-granular, WFQ byte-granular)
-        c["rr_ptr"] = torch.where(ok, g_i, c["rr_ptr"]).view(())
-        vft_inc = vft_unit if arb == ARB_WRR else szf / args["fl_w"]
-        c["vft"] = c["vft"] + torch.where(onehot, vft_inc, 0.0)
-        # counters
-        c["c_adm_msgs"] += onehot_i
-        lo = c["c_adm_b_lo"] + torch.where(onehot, sz, 0)
-        c["c_adm_b_hi"] += lo >> 20
-        c["c_adm_b_lo"] = lo & 0xFFFFF
+    # -- 1. token-bucket timers + 4. shaper + arbiter grants ---------------
+    # one launch of the Hopper kernel a tick (the plain version on the CPU)
+    tb_ops.grant_tick(cfg, args, c, budget, t, t0)
 
     # -- 5. accelerator service (pass-major: iteration i serves i % A) ------
     f_now, f_end = _f32(now), _f32(now_end)
@@ -500,12 +384,12 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
         cnt_d = c["eq_cnt"].gather(0, d)
         slot = ((c["eq_head"].gather(0, d) + cnt_d) % cfg.eq_len).long()
         okq = ok & (cnt_d < cfg.eq_len)
-        _put(c["eq_sz"], d, slot, okq,
+        tb_ops.put_at(c["eq_sz"], d, slot, okq,
              torch.clamp(esz.to(torch.int32), min=1))
-        _put(c["eq_isz"], d, slot, okq, sz)
-        _put(c["eq_fl"], d, slot, okq, fl.to(torch.int32))
-        _put(c["eq_at"], d, slot, okq, at)
-        _put(c["eq_rd"], d, slot, okq, ready)
+        tb_ops.put_at(c["eq_isz"], d, slot, okq, sz)
+        tb_ops.put_at(c["eq_fl"], d, slot, okq, fl.to(torch.int32))
+        tb_ops.put_at(c["eq_at"], d, slot, okq, at)
+        tb_ops.put_at(c["eq_rd"], d, slot, okq, ready)
         c["eq_cnt"].scatter_add_(0, d, okq.to(torch.int32))
 
     # -- 6. egress link + completions (sequential pops) ---------------------

@@ -1,30 +1,58 @@
-"""Token-bucket shaper step: the Hopper kernel's wrapper and its plain
-PyTorch version.
+"""Token-bucket shaper: the Hopper kernels' wrappers and their plain PyTorch
+versions.
 
 Port of ``src/repro/kernels/token_bucket/ops.py`` (whose Pallas kernel is
-``kernel.py::_tb_kernel``).  ``token_bucket_step`` advances every flow's
-bucket by ``elapsed`` cycles and, where ``want`` is given, admits the
-flows that want to send and can pay ``cost`` (bytes in GBPS mode, one
-message in IOPS mode).  On a CUDA tensor it launches
-``csrc/token_bucket.cu`` (built at first use) or raises; on a CPU tensor it
-runs ``token_bucket_step_plain``, which repeats the kernel's arithmetic.
-``LAUNCHES`` counts kernel launches and nothing else.
+``kernel.py::_tb_kernel``).  ``csrc/token_bucket.cu`` (built at first use)
+holds two kernels:
+
+* ``token_bucket_step`` advances every flow's bucket by ``elapsed`` cycles
+  and, where ``want`` is given, admits the flows that want to send and can
+  pay ``cost`` (bytes in GBPS mode, one message in IOPS mode): the TPU
+  kernel's function, one launch a call (the serving scheduler's buckets).
+* ``grant_tick`` is the dataplane tick's stages 1 and 4 in one launch: the
+  token-bucket timers of every flow, then ``k_grant`` sequential shaper +
+  arbiter grants (eligibility, arbiter key, argmin, queue pop, link budget,
+  credits, accelerator-queue push, arbiter state, admission counters).  It
+  carries the TPU kernel's "refill and admission for every flow in one
+  launch" on to the decision the engine makes around it.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain version (``token_bucket_step_plain``,
+``grant_tick_plain``), which the kernel repeats bit for bit.  ``LAUNCHES``
+counts launches of both kernels and nothing else; ``LAUNCHES_BY_PATH``
+splits them by kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
 
+import numpy as np
 import torch
 
+from repro_torch.core import token_bucket as tb
+from repro_torch.core.accelerator import fma32
+from repro_torch.core.interconnect import ARB_PRIORITY, ARB_WFQ, ARB_WRR
 from repro_torch.core.token_bucket import TBState, wrap_i32
 from repro_torch.kernels import _build
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "token_bucket.cu"
 _FN = None
+_GRANT_FN = None
+
+#: shaping mode words of the dataplane (``SimConfig.shaping``)
+SHAPING_NONE = 0
+SHAPING_HW = 1
+SHAPING_SW = 2
+#: the arbiter key of an ineligible flow (float32)
+BIG = float(np.float32(3e38))
+#: flows ``grant_tick``'s kernel holds (1024 threads, 8 flows a thread)
+MAX_GRANT_FLOWS = 8192
 
 #: kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+#: the same launches by kernel
+LAUNCHES_BY_PATH = {"step": 0, "grant_tick": 0}
 
 
 def _launcher():
@@ -73,11 +101,13 @@ def token_bucket_step_plain(state: TBState, elapsed, cost=None, want=None
     return state._replace(tokens=tok, cyc=cyc), admit
 
 
-def _check(name: str, x: torch.Tensor, n: int, dtype, dev) -> None:
+def _check(name: str, x: torch.Tensor, shape, dtype, dev,
+           fn: str = "token_bucket_step") -> None:
+    shape = tuple(shape)
     if x.device != dev or x.dtype != dtype or not x.is_contiguous() \
-            or x.shape != (n,):
+            or tuple(x.shape) != shape:
         raise ValueError(
-            f"token_bucket_step: {name} must be a contiguous [{n}] {dtype} "
+            f"{fn}: {name} must be a contiguous {list(shape)} {dtype} "
             f"tensor on {dev} (got {tuple(x.shape)} {x.dtype} on {x.device},"
             f" contiguous={x.is_contiguous()})")
 
@@ -106,7 +136,7 @@ def token_bucket_step(state: TBState, elapsed, cost=None, want=None, *,
     global LAUNCHES
     dev, n = tokens.device, tokens.shape[0]
     for name in TBState._fields:
-        _check(name, getattr(state, name), n, torch.int32, dev)
+        _check(name, getattr(state, name), (n,), torch.int32, dev)
     e = _elapsed_tensor(elapsed, tokens)
     if e.device != dev or e.dtype != torch.int32 or e.ndim != 1 \
             or e.shape[0] not in (1, n) or not e.is_contiguous():
@@ -115,12 +145,12 @@ def token_bucket_step(state: TBState, elapsed, cost=None, want=None, *,
     if (want is None) != (cost is None):
         raise ValueError("token_bucket_step: pass cost and want together")
     if want is not None:
-        _check("cost", cost, n, torch.int32, dev)
-        _check("want", want, n, torch.bool, dev)
+        _check("cost", cost, (n,), torch.int32, dev)
+        _check("want", want, (n,), torch.bool, dev)
     tok_out, cyc_out = out if out is not None else (torch.empty_like(tokens),
                                                     torch.empty_like(tokens))
-    _check("out tokens", tok_out, n, torch.int32, dev)
-    _check("out cyc", cyc_out, n, torch.int32, dev)
+    _check("out tokens", tok_out, (n,), torch.int32, dev)
+    _check("out cyc", cyc_out, (n,), torch.int32, dev)
     admit = torch.empty_like(tokens, dtype=torch.bool) \
         if want is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
@@ -133,4 +163,266 @@ def token_bucket_step(state: TBState, elapsed, cost=None, want=None, *,
         raise RuntimeError(f"token_bucket kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
+    LAUNCHES_BY_PATH["step"] += 1
     return state._replace(tokens=tok_out, cyc=cyc_out), admit
+
+
+# ---------------------------------------------------------------------------
+# The dataplane's grant tick: stage 1 (timers) + stage 4 (grants)
+# ---------------------------------------------------------------------------
+
+
+def grant_args(fl_accel, fl_in_dir, fl_prio, fl_w, *, ovh: float,
+               credits: int, tick_cycles: int, stall, device) -> dict:
+    """The per-window arguments of ``grant_tick`` (a part of the engine's
+    ``args``) from the flow tables: accelerator and ingress direction of
+    each flow, its priority and weight (floored at 1e-3 by the caller), the
+    per-message fabric overhead, the root complex's credits, the tick's
+    cycles and the window's [n_ticks] stall mask."""
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=device)  # noqa: E731
+    fl_in_dir = np.asarray(fl_in_dir, np.int32)
+    N = fl_in_dir.shape[0]
+    return dict(
+        fl_accel=t(np.asarray(fl_accel, np.int64), torch.long),
+        fl_in_dir=t(fl_in_dir, torch.int32),
+        fl_in01=t(np.minimum(fl_in_dir, 1), torch.long),
+        fl_in_off=t(fl_in_dir == 2, torch.bool),
+        fl_prio=t(np.asarray(fl_prio, np.float32), torch.float32),
+        fl_w=t(np.asarray(fl_w, np.float32), torch.float32),
+        ovh=float(np.float32(ovh)), credits=int(credits),
+        stall=t(np.asarray(stall, bool), torch.bool),
+        # constants reused every tick (no per-tick allocation from Python)
+        iota_n=torch.arange(N, dtype=torch.int32, device=device),
+        iota_l=torch.arange(N, dtype=torch.long, device=device),
+        ar2=torch.arange(2, dtype=torch.long, device=device),
+        e_tick=torch.full((1,), tick_cycles, dtype=torch.int32,
+                          device=device))
+
+
+def arb_key(arb: int, rr_key, fl_prio, vft):
+    """Arbiter key (lower = served first) from the cyclic RR key; the
+    compiled reference fuses each product into its add."""
+    if arb == ARB_PRIORITY:
+        return fma32(-fl_prio, 1e6, rr_key)
+    if arb in (ARB_WRR, ARB_WFQ):
+        return fma32(float(np.float32(1e-6)), rr_key, vft)
+    return rr_key
+
+
+# Single elements are read and written through [1]-shaped index tensors
+# with gather / scatter_ on flat views: indexing with a 0-dim tensor would
+# read it back to the host, and advanced indexing / index_put_ cost several
+# launches (sorting, bounds asserts) per element on the GPU.
+
+
+def put_at(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor, ok, v):
+    """x[row, col] = v where ``ok`` (else unchanged), for [1] indices."""
+    flat = row * x.shape[1] + col
+    old = x.view(-1).gather(0, flat)
+    x.view(-1).scatter_(0, flat, torch.where(ok, v, old))
+
+
+def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
+                     t0: int) -> None:
+    """Stages 1 and 4 of tick ``t`` of a window that starts at ``t0``, in
+    plain PyTorch ops (any device), in place on the carry ``c`` and the [2]
+    link ``budget``: every flow's token-bucket timers, then ``k_grant``
+    sequential grants.
+
+    The refill may run after stages 2 and 3 (as here): they read neither
+    the bucket state nor ``sw_pend``.  A grant charges its cost as
+    ``tokens - cost``: after the refill every bucket holds at most its size
+    and ``cyc < interval``, so the zero-cycle step with admission the
+    engine used to call changes no other bit."""
+    fl_accel, fl_in_dir = args["fl_accel"], args["fl_in_dir"]
+    ovh, credits = args["ovh"], args["credits"]
+    iota_n, iota_l = args["iota_n"], args["iota_l"]
+    N = iota_n.shape[0]
+    sw = cfg.shaping == SHAPING_SW
+    shaped = cfg.shaping != SHAPING_NONE
+    arb = cfg.arbiter
+    is_stall = args["stall"][t - t0] if sw else None
+
+    # -- 1. token-bucket timers ---------------------------------------------
+    # host descheduled (software shaping): refills deferred, catch up on
+    # wakeup; hardware shaping and unshaped systems tick every cycle
+    if sw:
+        pend = c["sw_pend"] + cfg.tick_cycles
+        elapsed = torch.where(is_stall, 0, pend)
+        c["sw_pend"] = torch.where(is_stall, pend, 0)
+    else:
+        elapsed = args["e_tick"]
+        c["sw_pend"].zero_()
+    st, _ = token_bucket_step_plain(c["tb"], elapsed)
+    c["tb"] = st
+
+    # -- 4. shaper + arbiter grants (sequential argmin loop) ----------------
+    b = budget
+    if arb == ARB_WRR:
+        vft_unit = 1.0 / args["fl_w"]
+    gbps = st.mode == tb.MODE_GBPS     # registers are fixed in a tick
+    for _ in range(cfg.k_grant):
+        head = c["q_head"].long()[:, None]
+        head_sz = c["q_sz"].gather(1, head)[:, 0]
+        head_at = c["q_at"].gather(1, head)[:, 0]
+        cost = torch.where(gbps, head_sz, 1)
+        elig = ((c["q_cnt"] > 0)
+                & (c["aq_cnt"].gather(0, fl_accel) < cfg.aq_len)
+                & (c["aq_bytes"].gather(0, fl_accel) + head_sz
+                   <= cfg.aq_byte_cap)
+                & (c["credits_used"] < credits))
+        if shaped:
+            elig &= c["tb"].tokens >= cost
+        # a message may start whenever the link has *any* budget left; it
+        # then drives the budget negative (its serialization time)
+        bud_f = torch.where(args["fl_in_off"], BIG,
+                            b.gather(0, args["fl_in01"]))
+        elig &= bud_f > 0.0
+        if sw:
+            elig &= ~is_stall
+        # arbiter key (lower = served first): lanes in cyclic order after
+        # the last grant, under priority or virtual finish time for the
+        # other arbiters
+        key = arb_key(arb, torch.remainder(iota_n - c["rr_ptr"] - 1,
+                                           N).float(),
+                      args["fl_prio"], c["vft"])
+        key = torch.where(elig, key, BIG)
+        g = torch.argmin(key, dim=0, keepdim=True)          # [1]
+        ok = elig.gather(0, g)
+        sz = head_sz.gather(0, g)
+        at = head_at.gather(0, g)
+        onehot = (iota_l == g) & ok
+        onehot_i, ok_i, g_i = (x.to(torch.int32) for x in (onehot, ok, g))
+        szf = sz.float()
+        # consume tokens (transparent unshaped)
+        if shaped:
+            c["tb"] = c["tb"]._replace(
+                tokens=c["tb"].tokens - torch.where(onehot, cost, 0))
+        # pop flow queue
+        c["q_head"] = (c["q_head"] + onehot_i) % cfg.qlen
+        c["q_cnt"] -= onehot_i
+        # link budget + credits (per-message fabric overhead included)
+        spend = torch.where((fl_in_dir.gather(0, g) != 2) & ok, szf + ovh,
+                            0.0)
+        b = b - torch.where(args["ar2"] == args["fl_in01"].gather(0, g),
+                            spend, 0.0)
+        c["credits_used"] += ok_i.view(())
+        # accel queue push
+        a = fl_accel.gather(0, g)
+        slot = ((c["aq_head"].gather(0, a) + c["aq_cnt"].gather(0, a))
+                % cfg.aq_len).long()
+        put_at(c["aq_sz"], a, slot, ok, sz)
+        put_at(c["aq_fl"], a, slot, ok, g_i)
+        put_at(c["aq_at"], a, slot, ok, at)
+        c["aq_cnt"].scatter_add_(0, a, ok_i)
+        c["aq_bytes"].scatter_add_(0, a, torch.where(ok, sz, 0))
+        # arbiter state (WRR message-granular, WFQ byte-granular)
+        c["rr_ptr"] = torch.where(ok, g_i, c["rr_ptr"]).view(())
+        vft_inc = vft_unit if arb == ARB_WRR else szf / args["fl_w"]
+        c["vft"] = c["vft"] + torch.where(onehot, vft_inc, 0.0)
+        # counters
+        c["c_adm_msgs"] += onehot_i
+        lo = c["c_adm_b_lo"] + torch.where(onehot, sz, 0)
+        c["c_adm_b_hi"] += lo >> 20
+        c["c_adm_b_lo"] = lo & 0xFFFFF
+    budget.copy_(b)
+
+
+class GrantTickArgs(ctypes.Structure):
+    """The kernel's argument block, field for field as ``struct
+    GrantTickArgs`` in ``csrc/token_bucket.cu``: pointers to the carry's
+    and the window's tensors, then the tick's scalars."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "tokens", "cyc", "refill", "bkt", "interval", "mode", "sw_pend",
+        "q_head", "q_cnt", "q_sz", "q_at", "vft", "fl_w", "fl_prio",
+        "fl_accel", "fl_in_dir", "rr_ptr", "credits_used", "budget",
+        "aq_head", "aq_cnt", "aq_bytes", "aq_sz", "aq_fl", "aq_at",
+        "c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "stall")] + [
+        (name, ctypes.c_int) for name in (
+            "n", "qlen", "aq_len", "aq_byte_cap", "credits", "k_grant",
+            "tick_cycles", "shaping", "arbiter", "t_idx")] + [
+        ("ovh", ctypes.c_float)]
+
+
+def _grant_launcher():
+    global _GRANT_FN
+    if _GRANT_FN is None:
+        fn = _build.build("token_bucket", _SRC).tb_grant_tick_launch
+        fn.argtypes = [ctypes.POINTER(GrantTickArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _GRANT_FN = fn
+    return _GRANT_FN
+
+
+def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
+                  t_idx: int) -> GrantTickArgs:
+    """The checked argument block of one launch."""
+    st = c["tb"]
+    dev = st.tokens.device
+    N = st.tokens.shape[0]
+    A = c["aq_cnt"].shape[0]
+    i32, f32 = torch.int32, torch.float32
+    shapes = dict(
+        tokens=(st.tokens, (N,), i32), cyc=(st.cyc, (N,), i32),
+        refill=(st.refill_rate, (N,), i32), bkt=(st.bkt_size, (N,), i32),
+        interval=(st.interval, (N,), i32), mode=(st.mode, (N,), i32),
+        sw_pend=(c["sw_pend"], (N,), i32), q_head=(c["q_head"], (N,), i32),
+        q_cnt=(c["q_cnt"], (N,), i32), q_sz=(c["q_sz"], (N, cfg.qlen), i32),
+        q_at=(c["q_at"], (N, cfg.qlen), i32), vft=(c["vft"], (N,), f32),
+        fl_w=(args["fl_w"], (N,), f32), fl_prio=(args["fl_prio"], (N,), f32),
+        fl_accel=(args["fl_accel"], (N,), torch.long),
+        fl_in_dir=(args["fl_in_dir"], (N,), i32),
+        rr_ptr=(c["rr_ptr"], (), i32),
+        credits_used=(c["credits_used"], (), i32), budget=(budget, (2,), f32),
+        aq_head=(c["aq_head"], (A,), i32), aq_cnt=(c["aq_cnt"], (A,), i32),
+        aq_bytes=(c["aq_bytes"], (A,), i32),
+        aq_sz=(c["aq_sz"], (A, cfg.aq_len), i32),
+        aq_fl=(c["aq_fl"], (A, cfg.aq_len), i32),
+        aq_at=(c["aq_at"], (A, cfg.aq_len), i32),
+        c_adm_msgs=(c["c_adm_msgs"], (N,), i32),
+        c_adm_b_lo=(c["c_adm_b_lo"], (N,), i32),
+        c_adm_b_hi=(c["c_adm_b_hi"], (N,), i32),
+        stall=(args["stall"], args["stall"].shape, torch.bool))
+    s = GrantTickArgs()
+    for name, (x, shape, dtype) in shapes.items():
+        _check(name, x, shape, dtype, dev, "grant_tick")
+        setattr(s, name, x.data_ptr())
+    if cfg.shaping == SHAPING_SW and not 0 <= t_idx < args["stall"].shape[0]:
+        raise ValueError(f"grant_tick: tick {t_idx} of the window is past "
+                         f"its stall mask ({args['stall'].shape[0]} ticks)")
+    s.n, s.qlen, s.aq_len = N, cfg.qlen, cfg.aq_len
+    s.aq_byte_cap, s.credits = cfg.aq_byte_cap, args["credits"]
+    s.k_grant, s.tick_cycles = cfg.k_grant, cfg.tick_cycles
+    s.shaping, s.arbiter, s.t_idx = cfg.shaping, cfg.arbiter, t_idx
+    s.ovh = args["ovh"]
+    return s
+
+
+def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
+               t0: int) -> None:
+    """Stages 1 and 4 of tick ``t`` (window start ``t0``) in place on the
+    carry ``c`` and the [2] float32 link ``budget``.
+
+    On a CUDA carry: one launch of ``tb_grant_tick_kernel`` on the current
+    stream (no host sync, no allocation), or an error; the tick index
+    reaches the kernel as ``t - t0``, which reads the stall mask itself.
+    On a CPU carry: ``grant_tick_plain``."""
+    dev = c["tb"].tokens.device
+    if dev.type == "cpu":
+        grant_tick_plain(cfg, args, c, budget, t, t0)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"grant_tick: unsupported device {dev}")
+    N = c["tb"].tokens.shape[0]
+    if not 1 <= N <= MAX_GRANT_FLOWS:
+        raise ValueError(f"grant_tick: {N} flows; the kernel holds 1.."
+                         f"{MAX_GRANT_FLOWS}")
+    global LAUNCHES
+    s = _grant_struct(cfg, args, c, budget, t - t0)
+    err = _grant_launcher()(ctypes.byref(s),
+                            torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"token_bucket grant_tick kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES += 1
+    LAUNCHES_BY_PATH["grant_tick"] += 1

@@ -1,6 +1,7 @@
-"""On-card tests of the port: the Hopper token-bucket, decode-attention,
-flash-prefill and SSD-scan kernels against their plain versions, a CUDA
-dataplane window against the same window on the CPU, and the serving engine
+"""On-card tests of the port: the Hopper token-bucket (step and grant
+tick), decode-attention, flash-prefill and SSD-scan kernels against their
+plain versions, CUDA dataplane windows (every engine parity case) against
+the same windows on the CPU, and the serving engine
 (gemma3 and mamba2) through the kernels against the same engine through the
 plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card
 run them with
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import token_bucket as tb
+from _engine_cases import CASES as ENGINE_CASES, port_scenario
+from repro_torch.core import engine as te, token_bucket as tb
 from repro_torch.core.accelerator import CATALOG, AccelTable
 from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
                                    TrafficPattern)
@@ -22,7 +24,7 @@ from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
-from repro_torch.kernels.token_bucket import ops
+from repro_torch.kernels.token_bucket import ops, rehearse as tb_rehearse
 
 pytestmark = pytest.mark.cuda
 
@@ -83,12 +85,80 @@ def test_cuda_window_matches_cpu_window(dev):
     atab = AccelTable.build([CATALOG["ipsec32"]])
     before = ops.LAUNCHES
     r_dev = simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
-    assert ops.LAUNCHES - before == cfg.n_ticks * (1 + cfg.k_grant)
+    assert ops.LAUNCHES - before == cfg.n_ticks      # one grant tick a tick
     r_cpu = simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device="cpu")
     for k in r_cpu.counters:
         assert r_dev.counters[k].tobytes() == r_cpu.counters[k].tobytes(), k
     np.testing.assert_array_equal(r_dev.comp_t_s, r_cpu.comp_t_s)
     np.testing.assert_array_equal(r_dev.comp_flow, r_cpu.comp_flow)
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_engine_case_on_card_matches_cpu(dev, case):
+    """Every engine parity case (``_engine_cases.CASES``) as a CUDA window
+    equals the same window on the CPU on every carry leaf, with one
+    grant-tick launch a tick and no step launch."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(**ENGINE_CASES[case])
+    before = dict(ops.LAUNCHES_BY_PATH)
+    c_dev = te.run_window(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+                          device=dev)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_PATH["grant_tick"] - before["grant_tick"] == \
+        cfg.n_ticks
+    assert ops.LAUNCHES_BY_PATH["step"] == before["step"]
+    c_cpu = te.run_window(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+                          device="cpu")
+    got, want = te.carry_to_numpy(c_dev), te.carry_to_numpy(c_cpu)
+    assert int(want["c_adm_msgs"].sum()) > 0
+    for k, v in want.items():
+        for a, b in zip(v if k == "tb" else (v,),
+                        got[k] if k == "tb" else (got[k],)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.mark.parametrize("k_grant", tb_rehearse.GRANT_K)
+@pytest.mark.parametrize("n", tb_rehearse.GRANT_NS)
+def test_grant_tick_matches_plain_on_card(dev, n, k_grant):
+    """``grant_tick`` (one launch) equals ``grant_tick_plain`` bitwise on
+    random valid carries under every shaping mode and arbiter."""
+    for shaping in tb_rehearse.SHAPINGS:
+        for arbiter in tb_rehearse.ARBITERS:
+            row = tb_rehearse.check_case((n, shaping, arbiter, k_grant), dev)
+            torch.cuda.synchronize()
+            assert row["launches"] == 1 and row["differ"] == [], row
+
+
+def test_grant_tick_one_launch_a_tick(dev):
+    """A window of 50 ticks makes 50 grant-tick launches and nothing else
+    of the token bucket's."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(
+        **ENGINE_CASES["hw_rr"], n_ticks=50)
+    before = (ops.LAUNCHES, dict(ops.LAUNCHES_BY_PATH))
+    te.run_window(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+                  device=dev)
+    assert ops.LAUNCHES - before[0] == 50
+    assert ops.LAUNCHES_BY_PATH == dict(
+        step=before[1]["step"], grant_tick=before[1]["grant_tick"] + 50)
+
+
+def test_grant_tick_rejects_bad_inputs(dev):
+    """A CUDA carry with a wrong dtype, shape or layout raises before any
+    launch; so does a stall index past the mask."""
+    cfg, args, carry, budget, t, t0 = tb_rehearse.random_grant_inputs(
+        5, 0, dev, shaping=2, arbiter=0, k_grant=4)
+    before = ops.LAUNCHES
+    for key, bad in (("vft", carry["vft"].double()),
+                     ("q_head", carry["q_head"].long()),
+                     ("q_sz", carry["q_sz"].t().contiguous().t()),
+                     ("rr_ptr", carry["rr_ptr"].view(1))):
+        c = dict(carry, **{key: bad})
+        with pytest.raises(ValueError, match=key):
+            ops.grant_tick(cfg, args, c, budget, t, t0)
+    with pytest.raises(ValueError, match="budget"):
+        ops.grant_tick(cfg, args, carry, budget.double(), t, t0)
+    with pytest.raises(ValueError, match="stall"):
+        ops.grant_tick(cfg, args, carry, budget, t0 + cfg.n_ticks, t0)
+    assert ops.LAUNCHES == before
 
 
 # --- attention kernels (tolerances of the JAX tests: 2e-5 float32, 2e-2

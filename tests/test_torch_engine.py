@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _engine_cases import CASES, DEFAULT_SYSTEM, N_TICKS, port_scenario
 from _torch_parity import (assert_bitwise, assert_carry_equal, port_cfg,
                            port_flows)
 from repro.core import baselines as jb, engine as je, token_bucket as jtb
@@ -17,69 +18,28 @@ from repro.core.accelerator import CATALOG, AccelTable
 from repro.core.flow import SLO, FlowSet, FlowSpec, Path, TrafficPattern
 from repro.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ, ARB_WRR,
                                      LinkSpec, mem_bw)
-from repro.core.sim import (SHAPING_HW, SHAPING_NONE, SHAPING_SW, SimConfig,
-                            gen_arrivals, gen_stall_mask)
+from repro.core.sim import SHAPING_SW, SimConfig, gen_arrivals, gen_stall_mask
 from repro_torch.core import accelerator as tacc, engine as te
 from repro_torch.core import interconnect as tic, token_bucket as ttb
-
-N_TICKS = 250
-
-CASES = {
-    # Arcus: hardware shaping, round robin (the managed run)
-    "hw_rr": dict(shaping=SHAPING_HW, arbiter=ARB_RR),
-    # profiling: unshaped, RR, Host_noTS registers (int32 wraparound)
-    "none_rr_profiling": dict(shaping=SHAPING_NONE, arbiter=ARB_RR,
-                              n_flows=3, system=jb.HOST_NO_TS, load=0.99),
-    "none_wrr": dict(shaping=SHAPING_NONE, arbiter=ARB_WRR),
-    "none_priority": dict(shaping=SHAPING_NONE, arbiter=ARB_PRIORITY),
-    "none_wfq": dict(shaping=SHAPING_NONE, arbiter=ARB_WFQ, n_flows=3),
-    # software shaping: stall mask, deferred refills, host-delay LCG (a
-    # short host delay, so messages complete within the test's ticks)
-    "sw_stall": dict(shaping=SHAPING_SW, arbiter=ARB_RR,
-                     cfg=dict(sw_host_delay_cycles=100,
-                              sw_jitter_cycles=800)),
-    # bimodal message sizes (64 B / 4 KiB)
-    "hw_bimodal": dict(shaping=SHAPING_HW, arbiter=ARB_RR, msg=64,
-                       msg2=4096, p2=0.2),
-    # two accelerators, one with fixed-size egress
-    "hw_two_accels": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
-                          accels=("synthetic50", "sha3_512")),
-    # a completion ring small enough to wrap
-    "hw_ring_wrap": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
-                         cfg=dict(comp_cap=64)),
-    # IOPS SLOs: the admission costs 1 a message (bimodal sizes, so a
-    # byte cost would differ)
-    "hw_iops": dict(shaping=SHAPING_HW, arbiter=ARB_RR, slo="iops", msg=512,
-                    msg2=4096, p2=0.3),
-    # off-fabric egress (dir 2) beside a loopback flow
-    "hw_nic_tx": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
-                      paths=(Path.INLINE_NIC_TX, Path.FUNCTION_CALL)),
-    # the same under the reference's sequential egress loop, which leaves
-    # other entries in the completion ring's scratch slot
-    "hw_nic_tx_seq_egress": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
-                                 paths=(Path.INLINE_NIC_TX,
-                                        Path.FUNCTION_CALL),
-                                 cfg=dict(stage_fast=False)),
-    # device to device: d2h ingress, h2d egress, beside a NIC-RX flow
-    "hw_p2p": dict(shaping=SHAPING_HW, arbiter=ARB_RR,
-                   paths=(Path.INLINE_P2P, Path.INLINE_NIC_RX)),
-}
+from repro_torch.kernels.token_bucket import ops as tb_ops
 
 
 def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
               msg2=0, p2=0.0, accels=("ipsec32",), cfg=None, n_ticks=N_TICKS,
               seed=3, paths=(Path.FUNCTION_CALL, Path.INLINE_NIC_RX),
               slo="gbps"):
-    """Flow i takes ``paths[i % len(paths)]`` and SLO ``8 (i + 1)`` Gbps,
-    or with ``slo="iops"`` ``400,000 (i + 1)`` IOPS, under the registers
-    that SLO plans."""
+    """A case of ``_engine_cases.CASES`` built with the JAX package (the
+    accelerator table with both): flow i takes ``paths[i % len(paths)]``
+    and SLO ``8 (i + 1)`` Gbps, or with ``slo="iops"`` ``400,000 (i + 1)``
+    IOPS, under the registers that SLO plans."""
     if slo == "gbps":
         slos = [SLO.gbps(8.0 * (i + 1)) for i in range(n_flows)]
         plans = [jtb.params_for_gbps(s.target) for s in slos]
     else:
         slos = [SLO.iops(400_000.0 * (i + 1)) for i in range(n_flows)]
         plans = [jtb.params_for_iops(s.target) for s in slos]
-    specs = [FlowSpec(i, i, paths[i % len(paths)], i % len(accels),
+    specs = [FlowSpec(i, i, Path(int(paths[i % len(paths)])),
+                      i % len(accels),
                       TrafficPattern(msg, load=load, process="poisson",
                                      msg_bytes2=msg2, p2=p2),
                       slos[i], priority=i, weight=1.0 + i)
@@ -89,9 +49,8 @@ def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
                         **(cfg or {}))
     arr = gen_arrivals(flows, sim_cfg, seed=seed,
                        load_ref_gbps={i: 40.0 for i in range(n_flows)})
-    system = system or {SHAPING_NONE: jb.HOST_NO_TS, SHAPING_HW: jb.ARCUS,
-                        SHAPING_SW: jb.HOST_TS_REFLEX}[shaping]
-    tbs = jb.make_tb_state(system, plans)
+    tbs = jb.make_tb_state(getattr(jb, system or DEFAULT_SYSTEM[shaping]),
+                           plans)
     stall = None
     if shaping == SHAPING_SW:
         # host-descheduling bursts of 6..31 ticks, a few per window
@@ -124,6 +83,28 @@ def test_run_window_matches_reference(case):
     host = jax.device_get(c_ref)
     assert int(host["comp_n"]) > 0 and host["c_adm_msgs"].sum() > 0
     assert_carry_equal(host, te.carry_to_numpy(c_port))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_scenario_matches_reference_scenario(case):
+    """The card tests' scenarios (built with the port alone) are the CPU
+    parity tests' scenarios: the same flow tables, bucket registers,
+    arrival traces, stall mask and config."""
+    flows, _, ttab, cfg, tbs, arr, stall = _scenario(**CASES[case])
+    p_flows, p_tab, p_cfg, p_tbs, p_arr, p_stall = port_scenario(
+        **CASES[case])
+    assert p_cfg == port_cfg(cfg)
+    assert [dataclasses.asdict(s) for s in p_flows.specs] == \
+        [dataclasses.asdict(s) for s in port_flows(flows).specs]
+    for a, b in zip(tbs, p_tbs):
+        assert_bitwise(np.asarray(a), b.numpy())
+    for a, b in zip(arr, p_arr):
+        assert_bitwise(a, b)
+    assert (stall is None) == (p_stall is None)
+    if stall is not None:
+        np.testing.assert_array_equal(stall, p_stall)
+    assert_bitwise(np.asarray(ttab.service_cycles),
+                   np.asarray(p_tab.service_cycles))
 
 
 def _two_windows(case):
@@ -226,7 +207,7 @@ def test_arbiter_key_matches_compiled_reference(arb):
         arb == ARB_RR, rk, jnp.where(arb == ARB_PRIORITY, -p * 1e6 + rk,
                                      v + 1e-6 * rk)))
     want = np.asarray(f(jnp.int32(arb), prio, rr_key, vft))
-    got = te._arb_key(arb, torch.as_tensor(rr_key), torch.as_tensor(prio),
+    got = tb_ops.arb_key(arb, torch.as_tensor(rr_key), torch.as_tensor(prio),
                       torch.as_tensor(vft)).numpy()
     assert_bitwise(want, got, f"arbiter {arb}")
     if arb in (ARB_WRR, ARB_WFQ):

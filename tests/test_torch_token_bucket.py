@@ -1,5 +1,10 @@
 """Port parity: ``repro_torch`` token bucket (core functions, planners and
-the plain version of the Hopper kernel) against the JAX package, bitwise."""
+the plain version of the Hopper kernel) against the JAX package, bitwise;
+and, on the CPU, the grant-tick kernel's binding (its argument block and
+mode words against the CUDA source) and its random test carries."""
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -7,7 +12,9 @@ import torch
 from repro.core import token_bucket as jtb
 from repro.kernels.token_bucket import ops as jops, ref as jref
 from repro_torch.core import token_bucket as ttb
+from repro_torch.core import interconnect as tic
 from repro_torch.kernels.token_bucket import ops as tops, ref as tref
+from repro_torch.kernels.token_bucket import rehearse
 
 NS = [1, 3, 1023, 1025]
 ELAPSED = [0, 8, 1000, 10**7]
@@ -154,3 +161,86 @@ def test_plain_kernel_per_flow_elapsed_and_refill_only(n):
     t2, _ = tops.token_bucket_step(st, torch.as_tensor(e), out=out)
     assert t2.tokens is st.tokens
     np.testing.assert_array_equal(t2.tokens.numpy(), t.tokens.numpy())
+
+
+def _cuda_source() -> str:
+    return tops._SRC.read_text()
+
+
+def test_grant_args_struct_matches_cuda_source():
+    """``ops.GrantTickArgs`` (ctypes) declares the fields of ``struct
+    GrantTickArgs`` in ``token_bucket.cu`` in order, with the same types:
+    every pointer a ``c_void_p``, ``int`` a ``c_int``, ``float`` a
+    ``c_float`` (parsed from the source: there is no nvcc here)."""
+    body = re.search(r"struct GrantTickArgs \{(.*?)\n\};", _cuda_source(),
+                     re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        code = line.split("//")[0].strip()
+        if not code:
+            continue
+        m = re.fullmatch(r"(const\s+)?([\w ]+?)\s*(\*?)\s*(\w+);", code)
+        assert m, code
+        ctype = (ctypes.c_void_p if m.group(3) else
+                 {"int": ctypes.c_int, "float": ctypes.c_float}[m.group(2)])
+        fields.append((m.group(4), ctype))
+    assert fields == list(tops.GrantTickArgs._fields_)
+    assert len(fields) == 40
+
+
+def test_grant_kernel_mode_words_match_python():
+    """The shaping and arbiter words the kernel compares against are the
+    engine's."""
+    src = _cuda_source()
+    words = dict(re.findall(r"constexpr int (SHAPING_\w+|ARB_\w+) = (\d+);",
+                            src))
+    expect = dict(SHAPING_NONE=tops.SHAPING_NONE, SHAPING_SW=tops.SHAPING_SW,
+                  ARB_WRR=tic.ARB_WRR, ARB_PRIORITY=tic.ARB_PRIORITY,
+                  ARB_WFQ=tic.ARB_WFQ)
+    assert {k: int(v) for k, v in words.items()} == expect
+    assert re.search(r"constexpr float BIG = 3e38f;", src)
+    assert tops.BIG == float(np.float32(3e38))
+
+
+def test_grant_tick_on_cpu_runs_plain_version():
+    """On a CPU carry the wrapper runs ``grant_tick_plain`` and launches
+    nothing."""
+    before = (tops.LAUNCHES, dict(tops.LAUNCHES_BY_PATH))
+    for arbiter in (tic.ARB_RR, tic.ARB_WFQ):
+        cfg, args, carry, budget, t, t0 = rehearse.random_grant_inputs(
+            33, arbiter, "cpu", shaping=tops.SHAPING_HW, arbiter=arbiter,
+            k_grant=4)
+        c1, b1 = rehearse.copy_inputs(carry, budget)
+        c2, b2 = rehearse.copy_inputs(carry, budget)
+        tops.grant_tick(cfg, args, c1, b1, t, t0)
+        tops.grant_tick_plain(cfg, args, c2, b2, t, t0)
+        assert rehearse.differing_leaves(c1, b1, c2, b2) == []
+        assert rehearse.grants_made(carry, c1) > 0
+    assert (tops.LAUNCHES, tops.LAUNCHES_BY_PATH) == before
+
+
+def test_random_grant_inputs_reach_every_kernel_path():
+    """The card tests' random carries (``rehearse.CASES`` below 1025 flows,
+    run here through the plain version) grant under every shaping mode and
+    arbiter, leave some iterations without a winner, grant one flow more
+    often than the kernel holds queue entries ahead (``KPF`` = 4), and
+    grant flows of a second warp."""
+    grants = {}
+    past_prefetch = second_warp = idle = False
+    for case in rehearse.CASES:
+        n, shaping, arbiter, k = case
+        if n > 33:
+            continue
+        cfg, args, carry, budget, t, t0 = rehearse.random_grant_inputs(
+            n, n * 100 + shaping * 10 + arbiter + k * 1000, "cpu",
+            shaping=shaping, arbiter=arbiter, k_grant=k)
+        c, b = rehearse.copy_inputs(carry, budget)
+        tops.grant_tick_plain(cfg, args, c, b, t, t0)
+        per_flow = c["c_adm_msgs"] - carry["c_adm_msgs"]
+        grants[shaping, arbiter] = grants.get((shaping, arbiter), 0) + \
+            int(per_flow.sum())
+        past_prefetch |= int(per_flow.max()) > 4
+        second_warp |= bool((per_flow[32:] > 0).any())
+        idle |= int(per_flow.sum()) < k
+    assert all(v > 0 for v in grants.values()) and len(grants) == 12
+    assert past_prefetch and second_warp and idle
