@@ -9,11 +9,17 @@ drives the port's paths through the kernels:
 
   * the dataplane (the quickstart server: ``ArcusRuntime`` admission +
     ``run_managed``, Algorithm 1), one token-bucket grant-tick launch a
-    simulated tick, with CUDA windows (hardware shaping with round robin,
-    software shaping with WFQ) checked bitwise against the same windows on
-    the CPU;
-  * serving (``ServingEngine`` + ``ArcusScheduler``) of gemma3-12b at full
-    width and depth with random weights: the launcher's request mix, a
+    simulated tick, every window a replay of its compile-cache entry's
+    CUDA graph of one tick (``cache_info()`` steady across the managed
+    windows; the eager body's µs a tick beside it), with CUDA windows
+    (hardware shaping with round robin, software shaping with WFQ) checked
+    bitwise against the same windows on the CPU, and graph windows (those
+    two, and a resumed one with a register write) bitwise against the
+    eager body on the card (``graph_parity``);
+  * serving (``ServingEngine`` + ``ArcusScheduler``, every decode step a
+    replay of the engine's CUDA graph, held against its eager body in
+    ``graph_parity``) of gemma3-12b at full width and depth with random
+    weights: the launcher's request mix, a
     long-prompt mix that crosses the 1024-token window, and, at one period
     of depth (6 layers), both mixes through the kernels against the same
     mixes through the plain versions;
@@ -43,6 +49,7 @@ printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -61,6 +68,12 @@ TOTAL_TICKS = 6_000
 WINDOW_TICKS = 2_000
 PARITY_TICKS = 2_000
 PROFILE_WINDOW = 100
+# eager windows beside the graph's (``engine._run_window_eager``, about
+# 9 ms a tick): the main path's comparison window and graph_parity's
+EAGER_TICKS = 300
+GRAPH_PARITY_TICKS = 500
+# graph_parity's serving decode: steps after three prompts
+DECODE_PARITY_STEPS = 8
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 3.35 TB/s of HBM; the table
 # has no int32 entry, so integer work is held against the 67 TFLOP/s
@@ -614,11 +627,51 @@ def quickstart_specs():
             for i, slo in enumerate((10.0, 20.0, 10.0))]
 
 
+def _counting_eager_body():
+    """Count calls of the dataplane's eager window body (``_run_core``):
+    the main path must make none on the card.  Returns the count (a list)
+    and the function that restores the body."""
+    from repro_torch.core import engine
+    calls, core = [0], engine._run_core
+
+    def counted(*a):
+        calls[0] += 1
+        return core(*a)
+    engine._run_core = counted
+    return calls, lambda: setattr(engine, "_run_core", core)
+
+
+def _eager_window_us(dev, n_ticks: int) -> float:
+    """Synchronised wall µs a tick of one window of the two admitted
+    quickstart tenants through the eager body (``_run_window_eager``)."""
+    import torch
+    from repro_torch.core import engine, token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import FlowSet
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.sim import SimConfig, gen_arrivals
+    flows = FlowSet.build(quickstart_specs()[:2])
+    cfg = SimConfig(n_ticks=n_ticks)
+    arr = gen_arrivals(flows, cfg, load_ref_gbps={0: 32.0, 1: 32.0})
+    tbs = tb.pack([tb.params_for_gbps(10.0), tb.params_for_gbps(20.0)])
+    atab = AccelTable.build([CATALOG["ipsec32"]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._run_window_eager(flows, atab, LinkSpec(), cfg, tbs, *arr,
+                             device=dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_ticks * 1e6
+
+
 def phase_main_path(dev) -> dict:
-    """The quickstart server through ArcusRuntime on the card."""
+    """The quickstart server through ArcusRuntime on the card: every window
+    through its entry's CUDA graph (no eager window body), ``cache_info()``
+    steady across the managed windows; beside it the eager body's µs a
+    tick on the same tenants."""
     import math
 
     import torch
+    from repro_torch.core import engine, runtime
     from repro_torch.core.accelerator import CATALOG
     from repro_torch.core.profiler import ProfileTable
     from repro_torch.core.runtime import ArcusRuntime
@@ -626,18 +679,32 @@ def phase_main_path(dev) -> dict:
     rt = ArcusRuntime([CATALOG["ipsec32"]],
                       profile_table=ProfileTable(n_ticks=PROFILE_TICKS,
                                                  device=dev), device=dev)
+    infos = []
+    simulate = runtime.simulate
+
+    def windowed(*a, **k):
+        out = simulate(*a, **k)
+        infos.append(engine.cache_info())
+        return out
+    runtime.simulate = windowed
+    eager_calls, restore = _counting_eager_body()
     _reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    admitted = [rt.register(s) for s in quickstart_specs()]
-    t1 = time.perf_counter()
-    res, reports = rt.run_managed(total_ticks=TOTAL_TICKS,
-                                  window_ticks=WINDOW_TICKS,
-                                  load_ref_gbps={0: 32.0, 1: 32.0})
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        admitted = [rt.register(s) for s in quickstart_specs()]
+        t1 = time.perf_counter()
+        res, reports = rt.run_managed(total_ticks=TOTAL_TICKS,
+                                      window_ticks=WINDOW_TICKS,
+                                      load_ref_gbps={0: 32.0, 1: 32.0})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        runtime.simulate = simulate
+        restore()
     launches = ops.LAUNCHES
     by_path = dict(ops.LAUNCHES_BY_PATH)
+    eager_us = _eager_window_us(dev, EAGER_TICKS)
     profiled = len(rt.profile.entries) * PROFILE_TICKS
     ticks = profiled + TOTAL_TICKS
     expect = ticks          # one grant-tick launch a tick
@@ -653,8 +720,17 @@ def phase_main_path(dev) -> dict:
          us_per_tick_admission=(t1 - t0) / profiled * 1e6,
          us_per_tick_managed=(t2 - t1) / TOTAL_TICKS * 1e6,
          us_per_tick=(t2 - t0) / ticks * 1e6,
+         eager_us_per_tick=eager_us, eager_ticks=EAGER_TICKS,
+         eager_window_bodies=eager_calls[0],
+         cache_info_by_window=infos, cache_info=engine.cache_info(),
          tb_launches=launches, tb_launches_expected=expect,
          tb_launches_by_path=by_path)
+    if eager_calls[0]:
+        raise AssertionError(f"main path ran the eager window body "
+                             f"{eager_calls[0]} times")
+    if len(set(map(str, infos[-len(reports):]))) != 1:
+        raise AssertionError(f"cache_info() moved across the managed "
+                             f"windows: {infos}")
     if admitted != [True, True, False]:
         raise AssertionError(f"admission {admitted} != [True, True, False]")
     if launches != expect or by_path != dict(step=0, grant_tick=expect):
@@ -724,6 +800,135 @@ def phase_parity(dev) -> None:
          counters_bitwise=True, ring_bitwise=True)
 
 
+def _results_equal(name: str, a, b) -> None:
+    """Two SimResults bitwise on every counter and the completion ring."""
+    import numpy as np
+    for k in a.counters:
+        if a.counters[k].tobytes() != b.counters[k].tobytes():
+            raise AssertionError(f"{name}: counter {k}: {a.counters[k]} vs "
+                                 f"{b.counters[k]}")
+    for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{name}: completion ring {k} differs")
+    if not len(a.comp_flow):
+        raise AssertionError(f"{name}: no completions")
+
+
+def phase_graph_parity(dev) -> None:
+    """Windows through the entries' CUDA graphs against the same windows
+    through the eager body on the card, bitwise on every counter and the
+    completion ring: the two admitted tenants under hardware shaping and
+    round robin; three tenants under software shaping and WFQ; and the
+    first, resumed (t0 > 0) with a register write."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import baselines as bl, token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import FlowSet
+    from repro_torch.core.interconnect import ARB_WFQ, LinkSpec
+    from repro_torch.core.sim import (SHAPING_SW, SimConfig, gen_arrivals,
+                                      gen_stall_mask, simulate)
+    n = GRAPH_PARITY_TICKS
+    atab = AccelTable.build([CATALOG["ipsec32"]])
+    plans = [tb.params_for_gbps(g) for g in (10.0, 20.0, 10.0)]
+    hw_cfg = SimConfig(n_ticks=n)
+    sw_cfg = SimConfig(n_ticks=n, shaping=SHAPING_SW, arbiter=ARB_WFQ)
+    sw_specs = [dataclasses.replace(s, weight=1.0 + i)
+                for i, s in enumerate(quickstart_specs())]
+    hw_flows = FlowSet.build(quickstart_specs()[:2])
+    rewrite = tb.pack([tb.params_for_gbps(3.0), tb.params_for_gbps(30.0)])
+    # name: flows, cfg, [(t0, registers)] (a resumed window's first runs
+    # from 0), stall mask
+    windows = {
+        "hw_rr": (hw_flows, hw_cfg, [(0, tb.pack(plans[:2]))], None),
+        "sw_wfq": (FlowSet.build(sw_specs), sw_cfg,
+                   [(0, bl.make_tb_state(bl.HOST_TS_REFLEX, plans))],
+                   gen_stall_mask(sw_cfg, seed=1, stall_rate_hz=500_000.0,
+                                  stall_us=(0.2, 1.0))),
+        "hw_rr_resumed": (hw_flows, hw_cfg, [(0, tb.pack(plans[:2])),
+                                             (n, rewrite)], None)}
+    report = {}
+    for name, (flows, cfg, steps, stall) in windows.items():
+        full = dataclasses.replace(cfg, n_ticks=n * len(steps))
+        arr = gen_arrivals(flows, full, load_ref_gbps={
+            i: 32.0 for i in range(flows.n)})
+        out = []
+        for eager in (False, True):
+            carry = res = None
+            with _eager_windows() if eager else contextlib.nullcontext():
+                for t0, regs in steps:
+                    res, carry = simulate(flows, atab, LinkSpec(), cfg,
+                                          regs, *arr, stall, t0_ticks=t0,
+                                          carry=carry, return_carry=True,
+                                          device=dev)
+            out.append(res)
+        _results_equal(f"graph_parity {name}", *out)
+        report[name] = dict(
+            flows=flows.n, windows=len(steps), t0=[t for t, _ in steps],
+            completions=int(len(out[0].comp_flow)),
+            stalled_ticks=0 if stall is None else int(np.sum(stall)))
+    emit("graph_parity", path="dataplane", ticks=n, windows=report,
+         counters_bitwise=True, ring_bitwise=True)
+
+
+def _decode_graph_parity(arch: str, model, dev, layers: int) -> None:
+    """The serving decode step through the engine's CUDA graph against its
+    eager body at ``layers`` of depth: three prompts, then
+    DECODE_PARITY_STEPS steps, each step's logits and the cache it leaves
+    against the eager body run on a copy of the cache the step started
+    from; and each replay's decode-attention launches counted (one a
+    layer).  Bitwise, or else the same tokens within LOGIT_RTOL /
+    LOGIT_ATOL, recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cut = model.first_layers(layers)
+    n_attn = layers - cut.cfg.layer_kinds().count("ssd")
+    eng = ServingEngine(cut.cfg, cut, max_batch=4, max_len=256, device=dev)
+    graph = eng._decode
+    rows = []
+
+    def decode(tok, ln, cache):
+        snap = [tuple(t.clone() for t in kv) for kv in cache]
+        n0 = da.LAUNCHES
+        out = graph(tok, ln, cache)
+        launched = da.LAUNCHES - n0
+        want = eng._decode_eager(tok, ln, snap)
+        same_cache = all(torch.equal(a, b) for kv, sv in zip(cache, snap)
+                         for a, b in zip(kv, sv))
+        rows.append((out, want, same_cache, launched))
+        return out
+    eng._decode = decode
+    rng = np.random.default_rng(3)
+    for i, n in enumerate((80, 12, 40)):
+        eng.admit(Request(i, 0, list(rng.integers(0, cut.cfg.vocab, n)),
+                          2 * DECODE_PARITY_STEPS))
+    for _ in range(DECODE_PARITY_STEPS):
+        eng.step()
+    bitwise = all(torch.equal(a, b) and c for a, b, c, _ in rows)
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b, _, _ in rows)
+    tokens = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                 for a, b, _, _ in rows)
+    launches = [n for *_, n in rows]
+    emit("graph_parity", path=f"{arch} decode", layers=layers,
+         steps=len(rows), logits_and_cache_bitwise=bitwise,
+         tokens_equal=tokens, max_abs_logit_diff=worst,
+         decode_attention_launches_per_replay=launches)
+    if len(rows) != DECODE_PARITY_STEPS or launches != [n_attn] * len(rows):
+        raise AssertionError(f"{arch} decode graph: {len(rows)} steps, "
+                             f"decode-attention launches {launches}")
+    if not bitwise:
+        _logits_within(f"{arch} decode graph",
+                       [("decode", a, b) for a, b, _, _ in rows])
+        if not tokens:
+            raise AssertionError(f"{arch} decode graph: tokens differ")
+
+
 def _is_host_wait(name: str) -> bool:
     """A profiler event at which the host waits for the device: the CUDA
     runtime's stream/device/event synchronisations and blocking copies,
@@ -732,11 +937,27 @@ def _is_host_wait(name: str) -> bool:
             or name in ("aten::item", "aten::_local_scalar_dense"))
 
 
-def _profile_window(dev, n_ticks: int) -> dict:
+@contextlib.contextmanager
+def _eager_windows():
+    """Within: ``simulate`` runs the dataplane's eager body
+    (``engine._run_window_eager``) instead of the compiled entry, for the
+    graph-against-eager comparisons."""
+    from repro_torch.core import engine
+    run = engine.run_window
+    engine.run_window = engine._run_window_eager
+    try:
+        yield
+    finally:
+        engine.run_window = run
+
+
+def _profile_window(dev, n_ticks: int, eager: bool = False) -> dict:
     """torch.profiler over one simulate window of ``n_ticks`` ticks of the
-    two admitted tenants: host wall time, device busy time, device kernels,
-    the token-bucket kernel's launches and device time, host waits by name,
-    and the host time of the costliest ops."""
+    two admitted tenants (through the entry's graph, or with ``eager`` the
+    eager body; an unprofiled window first captures the graph): host wall
+    time, device busy time, device kernels, the token-bucket kernel's
+    launches and device time, host waits by name, and the host time of the
+    costliest ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import token_bucket as tb
@@ -749,14 +970,15 @@ def _profile_window(dev, n_ticks: int) -> dict:
     arr = gen_arrivals(flows, cfg, load_ref_gbps={0: 32.0, 1: 32.0})
     tbs = tb.pack([tb.params_for_gbps(10.0), tb.params_for_gbps(20.0)])
     atab = AccelTable.build([CATALOG["ipsec32"]])
-    simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with _eager_windows() if eager else contextlib.nullcontext():
         simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     dev_us = kernels = tb_us = tb_n = 0
     waits: dict[str, int] = {}
     for e in prof.events():
@@ -776,30 +998,39 @@ def _profile_window(dev, n_ticks: int) -> dict:
                 top={e.key: e.cpu_time_total / n_ticks for e in top})
 
 
+def _window_row(p: dict, n: int) -> dict:
+    return dict(host_us_per_tick=p["wall"] / n * 1e6,
+                device_busy_us_per_tick=p["dev_us"] / n,
+                device_kernels_per_tick=p["kernels"] / n,
+                device_idle_share=max(0.0, 1.0 - p["dev_us"]
+                                      / (p["wall"] * 1e6)),
+                token_bucket_launches=p["tb_launches"],
+                token_bucket_device_us_per_launch=p["tb_us"] / max(
+                    p["tb_launches"], 1),
+                top_host_ops_us_per_tick=p["top"])
+
+
 def phase_profile(dev) -> dict:
-    """Where one window's time goes, and a check that the tick never makes
-    the host wait: windows of PROFILE_WINDOW and 2 x PROFILE_WINDOW ticks
-    must show the same host waits (the window's setup and result copies).
-    Also the launch floor: the device time of the smallest kernel the card
-    runs (a one-element in-place add) under the same profiler.  Returns the
+    """Where one window's time goes, through the entry's graph and through
+    the eager body, and a check that the tick never makes the host wait:
+    graph windows of PROFILE_WINDOW and 2 x PROFILE_WINDOW ticks must show
+    the same host waits (the window's setup and result copies).  Also the
+    launch floor: the device time of the smallest kernel the card runs (a
+    one-element in-place add) under the same profiler.  Returns the
     token-bucket kernel's device ms per launch and the floor."""
     import torch
+    from repro_torch.core import engine
     n = PROFILE_WINDOW
     p1, p2 = _profile_window(dev, n), _profile_window(dev, 2 * n)
+    pe = _profile_window(dev, n, eager=True)
     one = torch.zeros(1, device=dev)
     floor_ms = device_ms_per_launch(lambda: one.add_(1), "elementwise", 200)
     grown = {k: (p1["waits"].get(k, 0), v) for k, v in p2["waits"].items()
              if v > p1["waits"].get(k, 0)}
-    emit("profile", ticks=n, host_us_per_tick=p1["wall"] / n * 1e6,
-         device_busy_us_per_tick=p1["dev_us"] / n,
-         device_kernels_per_tick=p1["kernels"] / n,
-         device_idle_share=max(0.0, 1.0 - p1["dev_us"] / (p1["wall"] * 1e6)),
-         token_bucket_launches=p1["tb_launches"],
-         token_bucket_device_us_per_launch=p1["tb_us"] / max(
-             p1["tb_launches"], 1),
-         launch_floor_ms=floor_ms,
+    emit("profile", ticks=n, **_window_row(p1, n),
+         eager=_window_row(pe, n), launch_floor_ms=floor_ms,
          host_waits_per_window={str(n): p1["waits"], str(2 * n): p2["waits"]},
-         top_host_ops_us_per_tick=p1["top"])
+         cache_info=engine.cache_info())
     if not p1["waits"]:
         raise AssertionError("profiler recorded no host wait at all (the "
                              "window's result copy is one): cannot check")
@@ -1087,8 +1318,9 @@ def _profile(fn, calls: int) -> dict:
 
 def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
     """Where a decode step and a prefill spend their time: 4 decode steps
-    of a full batch (8 requests with 64-token prompts, max_len 256), and
-    the prefill of one ``long_prompt``-token prompt (max_len 2048)."""
+    of a full batch (8 requests with 64-token prompts, max_len 256) through
+    the engine's decode graph, then 4 through its eager body, and the
+    prefill of one ``long_prompt``-token prompt (max_len 2048)."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
@@ -1100,6 +1332,9 @@ def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
                                                      64)), 64))
     engine.step()
     decode = _profile(engine.step, 4)
+    engine._decode = engine._decode_eager
+    engine.step()
+    decode_eager = _profile(engine.step, 4)
     del engine
     engine = ServingEngine(model.cfg, model, max_batch=1, max_len=2048,
                            device=dev)
@@ -1109,7 +1344,7 @@ def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
         engine.active[:] = False
         engine.admit(Request(0, 0, prompt, 2))
     prefill()
-    return {"decode_step": decode,
+    return {"decode_step": decode, "decode_step_eager": decode_eager,
             f"prefill_{long_prompt}": _profile(prefill, 2)}
 
 
@@ -1212,8 +1447,10 @@ def _kernels_vs_plain(name, cut, dev, arch, long_prompt, max_rounds=2000,
 
 
 def phase_serve_parity(dev, model) -> None:
-    """At full width and one period of depth, both mixes through the kernels
-    and through their plain versions (``_kernels_vs_plain``)."""
+    """At full width and one period of depth, the decode graph against its
+    eager body (``_decode_graph_parity``), then both mixes through the
+    kernels and through their plain versions (``_kernels_vs_plain``)."""
+    _decode_graph_parity(SERVE_ARCH, model, dev, PARITY_LAYERS)
     cut = model.first_layers(PARITY_LAYERS)
     report = _kernels_vs_plain("serve_parity", cut, dev, SERVE_ARCH,
                                LONG_PROMPT)
@@ -1269,7 +1506,9 @@ def phase_serve_mamba2_long(dev, model) -> dict:
 def phase_serve_mamba2_parity(dev, model) -> None:
     """At full width and 4 layers, both mamba2 mixes through the SSD-scan
     kernel and through the plain scan (``_kernels_vs_plain``), the logits
-    of each call held against the plain versions on the same cache."""
+    of each call held against the plain versions on the same cache; first
+    the decode graph against its eager body (``_decode_graph_parity``)."""
+    _decode_graph_parity(MAMBA_ARCH, model, dev, MAMBA_PARITY_LAYERS)
     cut = model.first_layers(MAMBA_PARITY_LAYERS)
     report = _kernels_vs_plain("serve_mamba2_parity", cut, dev, MAMBA_ARCH,
                                MAMBA_LONG_PROMPT, MAMBA_ROUNDS,
@@ -1321,6 +1560,7 @@ def main() -> int:
     phase_interp(dev)
     main = phase_main_path(dev)
     phase_parity(dev)
+    phase_graph_parity(dev)
     prof = phase_profile(dev)
     model, serve, _ = phase_serve(dev)
     long = phase_serve_long(dev, model)

@@ -3,7 +3,8 @@ shaping, in PyTorch (port of ``src/repro/core``).
 
 Layers ported so far:
   flow / token_bucket / accelerator / interconnect — abstractions & models
-  engine     — the six-stage dataplane tick on torch tensors
+  engine     — the six-stage dataplane tick on torch tensors, and its
+               compile cache (one tick as a CUDA graph on the card)
   sim        — trace generation, results and ``simulate``
   shaper     — ReshapeDecision: rate pacing + message re-sizing
   profiler   — Capacity(t, X, N) tables, profiled one context at a time

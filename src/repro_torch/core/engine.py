@@ -1,7 +1,7 @@
 """Dataplane engine: the six-stage tick on torch tensors.
 
 Port of ``src/repro/core/engine.py`` (serial ``run_window`` only).  A window
-runs ``n_ticks`` calls of ``_tick``, each the reference's tick in its
+runs ``n_ticks`` ticks of ``_tick``, each the reference's tick in its
 *sequential* form — ``grant_body``, ``srv_body`` and ``eg_body`` loops — with
 every shaping mode (NONE / HW / SW with stall mask and host-delay LCG) and
 every arbiter (RR / WRR / PRIORITY / WFQ):
@@ -32,8 +32,23 @@ gives the same bits.
 The carry is a dict of tensors on one device (a ``TBState`` under ``"tb"``)
 with the reference's keys, shapes and dtypes, and it is **updated in
 place**: hand the returned carry forward, never reuse one passed in (the
-reference donates it for the same reason).  The tick issues no host sync:
-no ``.item()``, no Python branch on a tensor.
+reference donates it for the same reason).  The tick issues no host sync
+(no ``.item()``, no Python branch on a tensor), and it changes no carry
+tensor's identity or address and adds no key: every update is a
+``copy_`` or an in-place op.  It reads its time from an int32 device
+counter (the tick and its index in the window, the reference's traced
+``t``) and advances it in place.
+
+So a tick is capturable.  The reference jits each window (``_run_core``,
+a ``lax.scan`` of ticks, cached in ``_RUN_CACHE`` by ``_get_run``); the
+port's ``_RUN_CACHE`` holds an entry (``_Run``) per static signature:
+the config, the link and accelerator values the tick bakes in, and all
+shapes.  The entry owns the buffers a tick reads and writes; on the card it
+captures one tick as a CUDA graph at its first window and replays it
+``n_ticks`` times a window, and on the CPU it runs the same buffers through
+the eager body.  ``cache_info()`` / ``cache_clear()`` as in the reference;
+``_run_window_eager`` is the eager body outside the cache, for the tests
+and the smoke's comparisons only.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import cuda_graph
 from repro_torch.core import token_bucket as tb
 from repro_torch.core.accelerator import (GRID_TAB_MAX, AccelTable, fma32,
                                           grid_blend, grid_position_table)
@@ -214,7 +230,8 @@ def _flow_args(flows: FlowSet) -> dict[str, np.ndarray]:
 
 
 def _window_stall(stall_mask, cfg: SimConfig, t0_ticks) -> np.ndarray:
-    """Window-relative ``[n_ticks]`` stall mask."""
+    """Window-relative ``[n_ticks]`` stall mask: the window's one bound
+    check of the grant tick's ``stall[t_idx]``, which the card reads."""
     if stall_mask is None:
         return np.zeros(cfg.n_ticks, bool)
     stall_mask = np.asarray(stall_mask, bool)
@@ -275,7 +292,6 @@ def _pack_args(flows: FlowSet, accels: AccelTable, link: LinkSpec,
         ar3p1=torch.arange(1, 4, dtype=torch.int32, device=dev),
         bud_off=torch.full((1,), tb_ops.BIG, dtype=torch.float32,
                            device=dev),
-        grid=grid_position_table(dev),
     )
     return args
 
@@ -300,8 +316,12 @@ def _host_delay(u, sw_jit, sw_delay):
     return fma32(u2 * u2, sw_jit, sw_delay)
 
 
-def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
-    """One simulated tick, in place on the carry ``c``."""
+def _tick(cfg: SimConfig, args: dict, c: dict, clock: torch.Tensor) -> None:
+    """One simulated tick, in place on the carry ``c``: no carry tensor
+    changes identity or address.  ``clock`` is the int32 [2] device counter
+    (the tick, the tick's index in its window); the tick reads it on the
+    device and advances it at its end, so a CUDA graph of one tick replays
+    as the next tick."""
     fl_eg_dir, fl_eg_full = args["fl_eg_dir"], args["fl_eg_full"]
     svc_tab, eg_tab = args["svc_tab"], args["eg_tab"]
     ac_mask = args["ac_mask"]
@@ -309,7 +329,8 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
     A = svc_tab.shape[0]
     sw = cfg.shaping == SHAPING_SW
 
-    now = t * cfg.tick_cycles
+    # [1] int32 cycles, wrapping as the reference's traced int32 t does
+    now = clock[:1] * cfg.tick_cycles
     now_end = now + cfg.tick_cycles
 
     # -- 2. arrivals -> per-flow queues (single gather) ---------------------
@@ -337,11 +358,14 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
 
     # -- 1. token-bucket timers + 4. shaper + arbiter grants ---------------
     # one launch of the Hopper kernel a tick (the plain version on the CPU)
-    tb_ops.grant_tick(cfg, args, c, budget, t, t0)
+    tb_ops.grant_tick(cfg, args, c, budget, clock[1:])
 
     # -- 5. accelerator service (pass-major: iteration i serves i % A) ------
-    f_now, f_end = _f32(now), _f32(now_end)
-    grid_i0, grid_frac = args["grid"]
+    # int32 -> float32 rounds to nearest, as np.float32 of the tick's cycles
+    f_now, f_end = now.float(), now_end.float()
+    # the device's table (made once, never written: a graph reads it in
+    # place)
+    grid_i0, grid_frac = grid_position_table(svc_tab.device)
     for i in range(A * cfg.k_srv):
         a = i % A
         sa = slice(a, a + 1)
@@ -362,7 +386,7 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
         svc = grid_blend(svc_tab, a, i0, frac)
         esz = torch.where(fl_eg_full.gather(0, fl), szf,
                           grid_blend(eg_tab, a, i0, frac))
-        end = torch.clamp(lv, min=f_now) + svc
+        end = torch.maximum(lv, f_now) + svc
         lanes_a.scatter_(0, lane, torch.where(ok, end, lv))
         oki = ok.to(torch.int32)
         c["aq_head"][sa] = (c["aq_head"][sa] + oki) % cfg.aq_len
@@ -373,7 +397,7 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
             # accelerator iteration, busy or idle
             r = _lcg(c["rng"])
             if ac_mask[a]:
-                c["rng"] = r
+                c["rng"].copy_(r)
             u = torch.remainder(r.long().abs(), 65536).float() / 65536.0
             hostd = _host_delay(u, args["sw_jit"], args["sw_delay"])
             ready = (end + hostd).to(torch.int32)
@@ -410,14 +434,14 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
         pop = prev & (c["eq_cnt"] > 0) & (rd < now_end) & (bud3 > 0.0)
         prev = pop
         popi = pop.to(torch.int32)
-        c["eq_head"] = (c["eq_head"] + popi) % cfg.eq_len
+        c["eq_head"].add_(popi).remainder_(cfg.eq_len)
         c["eq_cnt"] -= popi
         budget = budget - torch.where(pop[:2], sz[:2].float() + ovh, 0.0)
         n_pop = popi.sum(dtype=torch.int32)
         c["credits_used"] -= n_pop
         # completion = transfer start + own serialization delay
         ser = torch.where(dirs < 2, sz.float() / args["bpc3"], 0.0)
-        comp_time = torch.clamp(rd, min=now) + ser.to(torch.int32)
+        comp_time = torch.maximum(rd, now) + ser.to(torch.int32)
         lat = comp_time - at
         # completion ring; non-pops all land in the scratch slot comp_cap,
         # which ends up holding the last non-pop's values (as an in-order
@@ -431,38 +455,197 @@ def _tick(cfg: SimConfig, args: dict, c: dict, t: int, t0: int) -> None:
         for k, v in (("comp_fl", fl), ("comp_lat", lat),
                      ("comp_t", comp_time), ("comp_sz", isz)):
             c[k].scatter_(0, idx, torch.where(pop, v, v.gather(0, last)))
-        c["comp_n"] = base + n_pop
+        c["comp_n"].add_(n_pop)
         # per-flow counters; integer adds commute, the float latency sum
         # is added direction by direction, in the reference's order
         fll = fl.long()
         c["c_done_msgs"].scatter_add_(0, fll, popi)
         lo = c["c_done_b_lo"].scatter_add(0, fll, torch.where(pop, isz, 0))
         c["c_done_b_hi"] += lo >> 20
-        c["c_done_b_lo"] = lo & 0xFFFFF
+        c["c_done_b_lo"].copy_(lo & 0xFFFFF)
         latf = torch.where(pop, lat.float(), 0.0)
         for d in range(3):
             c["c_lat_sum"].scatter_add_(0, fll[d:d + 1], latf[d:d + 1])
 
     # positive leftover budget is lost (a link cannot save idle time);
     # negative budget (serialization debt) carries
-    c["lres"] = torch.clamp(budget, max=0.0)
+    c["lres"].copy_(torch.clamp(budget, max=0.0))
+    clock.add_(1)
 
 
 # ---------------------------------------------------------------------------
-# Entry point
+# The window's body and the module-level compile cache
 # ---------------------------------------------------------------------------
 
 
-def run_window(flows: FlowSet, accels: AccelTable, link: LinkSpec,
-               cfg: SimConfig, tb_state: tb.TBState, arr_t, arr_sz,
-               stall_mask=None, *, t0_ticks: int = 0,
-               carry: dict | None = None, device=None) -> dict:
-    """Run one window of ``cfg.n_ticks`` ticks; returns the carry.
+def _run_core(cfg: SimConfig, args: dict, carry: dict,
+              clock: torch.Tensor) -> None:
+    """The window's eager body: ``cfg.n_ticks`` ticks from ``clock``."""
+    for _ in range(cfg.n_ticks):
+        _tick(cfg, args, carry, clock)
 
-    ``carry=None`` starts a fresh dataplane with ``tb_state`` as its bucket
-    state; a carry from an earlier window resumes it with ``tb_state``'s
-    registers written (tokens clamp to the new bucket size).  The carry is
-    updated in place — hand the returned one forward."""
+
+#: window arguments that are usually the same tensors window after window
+#: (``run_managed`` passes one full-horizon trace to every window): copied
+#: into an entry only when a window passes other tensors than its last
+#: one, or the same ones changed since
+_SHARED_KEYS = ("arr_t", "arr_sz")
+
+
+def _map(fn, x):
+    """``fn`` on every tensor of ``x`` (a tensor, a tuple or namedtuple of
+    them, or a dict of those); other values as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _map(fn, v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        out = [_map(fn, v) for v in x]
+        return type(x)(*out) if hasattr(x, "_fields") else tuple(out)
+    return x
+
+
+def _load(dst, src) -> None:
+    """Copy every tensor of ``src`` into the tensor at the same place in
+    ``dst``, which has the same structure, shapes and dtypes."""
+    if isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"run_window: a {tuple(src.shape)} {src.dtype}"
+                             f" tensor where the entry holds "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"run_window: keys {sorted(src)} where the "
+                             f"entry holds {sorted(dst)}")
+        for k, v in dst.items():
+            _load(v, src[k])
+    elif isinstance(dst, tuple):
+        for v, w in zip(dst, src, strict=True):
+            _load(v, w)
+
+
+def _args_sig(args: dict) -> tuple:
+    """What a window's graph bakes in beyond the config: every argument
+    tensor's shape, dtype and device, and every other argument's value (the
+    link's overhead and credits, the accelerator mask, the host-delay
+    constants).  The carry's shapes follow from these and the config."""
+    def sig(v):
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), v.dtype, v.device)
+        if isinstance(v, (tuple, list)):
+            return tuple(sig(y) for y in v)
+        return v
+    return tuple(sorted((k, sig(v)) for k, v in args.items()))
+
+
+class _Run:
+    """One compile-cache entry: the argument, carry and clock buffers a
+    tick reads and writes at fixed addresses, and on the card the CUDA
+    graph of one tick over them (captured at the entry's first window).
+
+    A window loads the caller's arguments and carry into the buffers, sets
+    the clock to ``(t0, 0)``, runs ``n_ticks`` ticks (graph replays on the
+    card, ``_run_core`` on the CPU) and stores the buffers back into the
+    caller's carry, so two dataplanes of one signature never share a
+    returned carry.  The ``_SHARED_KEYS`` arguments are copied in only
+    when they are not the tensors the last window passed.  Values that are
+    not tensors were fixed at the first window; the key holds them."""
+
+    def __init__(self, cfg: SimConfig, args: dict, carry: dict):
+        self.cfg = cfg
+        self.args = _map(torch.empty_like, args)
+        self.carry = _map(torch.empty_like, carry)
+        self.clock = torch.zeros(2, dtype=torch.int32,
+                                 device=carry["rng"].device)
+        self.graph = None
+        self.traces = 0
+        self._shared = None     # (the shared tensors last loaded, versions)
+
+    def _load_shared(self, args: dict) -> None:
+        src = [args[k] for k in _SHARED_KEYS]
+        versions = [x._version for x in src]
+        if self._shared is not None and versions == self._shared[1] and all(
+                a is b for a, b in zip(src, self._shared[0])):
+            return
+        for k in _SHARED_KEYS:
+            _load(self.args[k], args[k])
+        self._shared = (src, versions)
+
+    def _body(self) -> None:
+        _tick(self.cfg, self.args, self.carry, self.clock)
+
+    def _warmup(self) -> None:
+        """One tick on copies of the carry and the clock: loads every
+        kernel and makes the device's grid table before the capture, and
+        leaves the dataplane where it was."""
+        _tick(self.cfg, self.args, _map(torch.clone, self.carry),
+              self.clock.clone())
+
+    def __call__(self, carry: dict, args: dict, t0: int) -> dict:
+        _load({k: v for k, v in self.args.items() if k not in _SHARED_KEYS},
+              {k: v for k, v in args.items() if k not in _SHARED_KEYS})
+        self._load_shared(args)
+        _load(self.carry, carry)
+        self.clock[0] = t0
+        self.clock[1] = 0
+        if self.clock.is_cuda:
+            if self.graph is None:
+                tb_ops._grant_launcher()     # the kernel library, loaded
+                self.graph = cuda_graph.Captured(self._body, self._warmup)
+                self.traces += 1
+            for _ in range(self.cfg.n_ticks):
+                self.graph.replay()
+        else:
+            # the CPU runs the same buffers through the eager body; its
+            # first window stands for the capture
+            self.traces = 1
+            _run_core(self.cfg, self.args, self.carry, self.clock)
+        _load(carry, self.carry)
+        return carry
+
+
+_RUN_CACHE: dict[Any, _Run] = {}
+_CACHE_MAX = 64     # profiler sweeps can touch many context shapes; evict
+                    # the oldest entries (FIFO) so a long-lived control
+                    # plane does not accumulate graphs and buffers
+
+
+def _get_run(key, builder) -> _Run:
+    run = _RUN_CACHE.get(key)
+    if run is None:
+        if len(_RUN_CACHE) >= _CACHE_MAX:
+            _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
+        run = builder()
+        _RUN_CACHE[key] = run
+    return run
+
+
+def cache_info() -> dict[str, int]:
+    """Compile-cache stats: distinct window signatures and captures.
+
+    ``traces`` counts the CUDA graphs captured across the cached entries
+    (on the CPU, one for each entry that has run a window): a steady value
+    across repeated ``simulate()`` / ``run_managed`` windows proves that
+    no window captured again."""
+    return {"entries": len(_RUN_CACHE),
+            "traces": sum(r.traces for r in _RUN_CACHE.values())}
+
+
+def cache_clear() -> None:
+    _RUN_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _prepare(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+             cfg: SimConfig, tb_state: tb.TBState, arr_t, arr_sz,
+             stall_mask, t0_ticks, carry, device) -> tuple[dict, dict]:
+    """A window's arguments and its carry (fresh, or ``carry`` with
+    ``tb_state``'s registers written)."""
     dev = resolve_device(device)
     args = _pack_args(flows, accels, link, cfg, arr_t, arr_sz, stall_mask,
                       t0_ticks, dev)
@@ -473,7 +656,39 @@ def run_window(flows: FlowSet, accels: AccelTable, link: LinkSpec,
         carry = init_carry(flows, accels, cfg, tb_state, device=dev)
     else:
         carry = reconfigure_carry(carry, tb_state)
-    t0 = int(t0_ticks)
-    for t in range(t0, t0 + cfg.n_ticks):
-        _tick(cfg, args, carry, t, t0)
+    return args, carry
+
+
+def run_window(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+               cfg: SimConfig, tb_state: tb.TBState, arr_t, arr_sz,
+               stall_mask=None, *, t0_ticks: int = 0,
+               carry: dict | None = None, device=None) -> dict:
+    """Run one window of ``cfg.n_ticks`` ticks through the compile cache;
+    returns the carry.
+
+    ``carry=None`` starts a fresh dataplane with ``tb_state`` as its bucket
+    state; a carry from an earlier window resumes it with ``tb_state``'s
+    registers written (tokens clamp to the new bucket size).  The carry is
+    updated in place — hand the returned one forward.  On the card the
+    window replays its entry's CUDA graph ``n_ticks`` times (a capture or
+    replay that fails raises); on the CPU the entry runs the eager body."""
+    args, carry = _prepare(flows, accels, link, cfg, tb_state, arr_t,
+                           arr_sz, stall_mask, t0_ticks, carry, device)
+    key = ("single", cfg, _args_sig(args))
+    run = _get_run(key, lambda: _Run(cfg, args, carry))
+    return run(carry, args, int(t0_ticks))
+
+
+def _run_window_eager(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+                      cfg: SimConfig, tb_state: tb.TBState, arr_t, arr_sz,
+                      stall_mask=None, *, t0_ticks: int = 0,
+                      carry: dict | None = None, device=None) -> dict:
+    """``run_window``'s eager body on the caller's carry, outside the
+    compile cache: for the tests and the smoke's graph-against-eager
+    comparisons only."""
+    args, carry = _prepare(flows, accels, link, cfg, tb_state, arr_t,
+                           arr_sz, stall_mask, t0_ticks, carry, device)
+    clock = torch.tensor([int(t0_ticks), 0], dtype=torch.int32,
+                         device=carry["rng"].device)
+    _run_core(cfg, args, carry, clock)
     return carry

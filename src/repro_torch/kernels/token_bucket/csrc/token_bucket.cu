@@ -149,8 +149,10 @@ extern "C" int tb_step_launch(int n, const int* tokens, const int* cyc,
 
 // The argument block, field for field as ops.GrantTickArgs (a ctypes
 // Structure; tests/test_torch_token_bucket.py parses this declaration):
-// pointers into the carry and the window's tables, then the tick's scalars.
-// The carry's tensors are read and written in place.
+// pointers into the carry and the window's tables, then the window's
+// scalars.  The carry's tensors are read and written in place; the tick's
+// index is read through a pointer, so one argument block serves every tick
+// of a window (the launch a CUDA graph holds).
 struct GrantTickArgs {
   int* tokens;                // [N] bucket state (tokens, cyc read/written)
   int* cyc;
@@ -181,6 +183,9 @@ struct GrantTickArgs {
   int* c_adm_b_lo;
   int* c_adm_b_hi;
   const bool* stall;          // [n_ticks] the window's stall mask
+  const int* t_idx;           // [1] the tick's index in the window, read
+                              // on the card (a CUDA graph replays the
+                              // launch; the engine advances the counter)
   int n;
   int qlen;
   int aq_len;
@@ -190,7 +195,6 @@ struct GrantTickArgs {
   int tick_cycles;
   int shaping;
   int arbiter;
-  int t_idx;                  // the tick's index in the window (stall[t_idx])
   float ovh;                  // per-message fabric overhead (bytes)
 };
 
@@ -241,7 +245,7 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
   const int n = a.n;
   const bool sw = a.shaping == SHAPING_SW;
   const bool shaped = a.shaping != SHAPING_NONE;
-  const bool stall = sw && a.stall[a.t_idx];
+  const bool stall = sw && a.stall[*a.t_idx];
   const bool by_vft = a.arbiter == ARB_WRR || a.arbiter == ARB_WFQ;
 
   // per-flow registers (flow f = tid + k * T)

@@ -222,12 +222,13 @@ def put_at(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor, ok, v):
     x.view(-1).scatter_(0, flat, torch.where(ok, v, old))
 
 
-def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
-                     t0: int) -> None:
-    """Stages 1 and 4 of tick ``t`` of a window that starts at ``t0``, in
-    plain PyTorch ops (any device), in place on the carry ``c`` and the [2]
-    link ``budget``: every flow's token-bucket timers, then ``k_grant``
-    sequential grants.
+def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
+                     t_idx: torch.Tensor) -> None:
+    """Stages 1 and 4 of the tick whose index in its window is ``t_idx``
+    (a [1] int32 tensor on the carry's device, read there), in plain
+    PyTorch ops (any device), in place on the carry ``c`` and the [2] link
+    ``budget``: every flow's token-bucket timers, then ``k_grant``
+    sequential grants.  No carry tensor changes identity or address.
 
     The refill may run after stages 2 and 3 (as here): they read neither
     the bucket state nor ``sw_pend``.  A grant charges its cost as
@@ -241,7 +242,8 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
     sw = cfg.shaping == SHAPING_SW
     shaped = cfg.shaping != SHAPING_NONE
     arb = cfg.arbiter
-    is_stall = args["stall"][t - t0] if sw else None
+    # [1]: the tick's stall bit, gathered on the device
+    is_stall = args["stall"].gather(0, t_idx.long()) if sw else None
 
     # -- 1. token-bucket timers ---------------------------------------------
     # host descheduled (software shaping): refills deferred, catch up on
@@ -249,12 +251,14 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
     if sw:
         pend = c["sw_pend"] + cfg.tick_cycles
         elapsed = torch.where(is_stall, 0, pend)
-        c["sw_pend"] = torch.where(is_stall, pend, 0)
+        c["sw_pend"].copy_(torch.where(is_stall, pend, 0))
     else:
         elapsed = args["e_tick"]
         c["sw_pend"].zero_()
-    st, _ = token_bucket_step_plain(c["tb"], elapsed)
-    c["tb"] = st
+    st = c["tb"]
+    new, _ = token_bucket_step_plain(st, elapsed)
+    st.tokens.copy_(new.tokens)
+    st.cyc.copy_(new.cyc)
 
     # -- 4. shaper + arbiter grants (sequential argmin loop) ----------------
     b = budget
@@ -272,7 +276,7 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
                    <= cfg.aq_byte_cap)
                 & (c["credits_used"] < credits))
         if shaped:
-            elig &= c["tb"].tokens >= cost
+            elig &= st.tokens >= cost
         # a message may start whenever the link has *any* budget left; it
         # then drives the budget negative (its serialization time)
         bud_f = torch.where(args["fl_in_off"], BIG,
@@ -296,10 +300,9 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
         szf = sz.float()
         # consume tokens (transparent unshaped)
         if shaped:
-            c["tb"] = c["tb"]._replace(
-                tokens=c["tb"].tokens - torch.where(onehot, cost, 0))
+            st.tokens.sub_(torch.where(onehot, cost, 0))
         # pop flow queue
-        c["q_head"] = (c["q_head"] + onehot_i) % cfg.qlen
+        c["q_head"].add_(onehot_i).remainder_(cfg.qlen)
         c["q_cnt"] -= onehot_i
         # link budget + credits (per-message fabric overhead included)
         spend = torch.where((fl_in_dir.gather(0, g) != 2) & ok, szf + ovh,
@@ -317,30 +320,31 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
         c["aq_cnt"].scatter_add_(0, a, ok_i)
         c["aq_bytes"].scatter_add_(0, a, torch.where(ok, sz, 0))
         # arbiter state (WRR message-granular, WFQ byte-granular)
-        c["rr_ptr"] = torch.where(ok, g_i, c["rr_ptr"]).view(())
+        c["rr_ptr"].copy_(torch.where(ok, g_i, c["rr_ptr"]).view(()))
         vft_inc = vft_unit if arb == ARB_WRR else szf / args["fl_w"]
-        c["vft"] = c["vft"] + torch.where(onehot, vft_inc, 0.0)
+        c["vft"].add_(torch.where(onehot, vft_inc, 0.0))
         # counters
         c["c_adm_msgs"] += onehot_i
         lo = c["c_adm_b_lo"] + torch.where(onehot, sz, 0)
         c["c_adm_b_hi"] += lo >> 20
-        c["c_adm_b_lo"] = lo & 0xFFFFF
+        c["c_adm_b_lo"].copy_(lo & 0xFFFFF)
     budget.copy_(b)
 
 
 class GrantTickArgs(ctypes.Structure):
     """The kernel's argument block, field for field as ``struct
     GrantTickArgs`` in ``csrc/token_bucket.cu``: pointers to the carry's
-    and the window's tensors, then the tick's scalars."""
+    and the window's tensors (the tick's index among them, so that one
+    block serves every tick of a window), then the window's scalars."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "tokens", "cyc", "refill", "bkt", "interval", "mode", "sw_pend",
         "q_head", "q_cnt", "q_sz", "q_at", "vft", "fl_w", "fl_prio",
         "fl_accel", "fl_in_dir", "rr_ptr", "credits_used", "budget",
         "aq_head", "aq_cnt", "aq_bytes", "aq_sz", "aq_fl", "aq_at",
-        "c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "stall")] + [
+        "c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "stall", "t_idx")] + [
         (name, ctypes.c_int) for name in (
             "n", "qlen", "aq_len", "aq_byte_cap", "credits", "k_grant",
-            "tick_cycles", "shaping", "arbiter", "t_idx")] + [
+            "tick_cycles", "shaping", "arbiter")] + [
         ("ovh", ctypes.c_float)]
 
 
@@ -355,7 +359,7 @@ def _grant_launcher():
 
 
 def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
-                  t_idx: int) -> GrantTickArgs:
+                  t_idx: torch.Tensor) -> GrantTickArgs:
     """The checked argument block of one launch."""
     st = c["tb"]
     dev = st.tokens.device
@@ -382,34 +386,34 @@ def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
         c_adm_msgs=(c["c_adm_msgs"], (N,), i32),
         c_adm_b_lo=(c["c_adm_b_lo"], (N,), i32),
         c_adm_b_hi=(c["c_adm_b_hi"], (N,), i32),
-        stall=(args["stall"], args["stall"].shape, torch.bool))
+        stall=(args["stall"], args["stall"].shape, torch.bool),
+        t_idx=(t_idx, (1,), i32))
     s = GrantTickArgs()
     for name, (x, shape, dtype) in shapes.items():
         _check(name, x, shape, dtype, dev, "grant_tick")
         setattr(s, name, x.data_ptr())
-    if cfg.shaping == SHAPING_SW and not 0 <= t_idx < args["stall"].shape[0]:
-        raise ValueError(f"grant_tick: tick {t_idx} of the window is past "
-                         f"its stall mask ({args['stall'].shape[0]} ticks)")
     s.n, s.qlen, s.aq_len = N, cfg.qlen, cfg.aq_len
     s.aq_byte_cap, s.credits = cfg.aq_byte_cap, args["credits"]
     s.k_grant, s.tick_cycles = cfg.k_grant, cfg.tick_cycles
-    s.shaping, s.arbiter, s.t_idx = cfg.shaping, cfg.arbiter, t_idx
+    s.shaping, s.arbiter = cfg.shaping, cfg.arbiter
     s.ovh = args["ovh"]
     return s
 
 
-def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
-               t0: int) -> None:
-    """Stages 1 and 4 of tick ``t`` (window start ``t0``) in place on the
-    carry ``c`` and the [2] float32 link ``budget``.
+def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor,
+               t_idx: torch.Tensor) -> None:
+    """Stages 1 and 4 of the tick whose index in its window is ``t_idx``
+    ([1] int32 on the carry's device) in place on the carry ``c`` and the
+    [2] float32 link ``budget``.
 
     On a CUDA carry: one launch of ``tb_grant_tick_kernel`` on the current
-    stream (no host sync, no allocation), or an error; the tick index
-    reaches the kernel as ``t - t0``, which reads the stall mask itself.
-    On a CPU carry: ``grant_tick_plain``."""
+    stream (no host sync, no allocation, legal under stream capture), or
+    an error; the kernel reads ``t_idx`` and ``stall[t_idx]`` on the card.
+    The caller keeps ``t_idx`` inside the stall mask (the engine checks it
+    once a window).  On a CPU carry: ``grant_tick_plain``."""
     dev = c["tb"].tokens.device
     if dev.type == "cpu":
-        grant_tick_plain(cfg, args, c, budget, t, t0)
+        grant_tick_plain(cfg, args, c, budget, t_idx)
         return
     if dev.type != "cuda":
         raise ValueError(f"grant_tick: unsupported device {dev}")
@@ -418,7 +422,7 @@ def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor, t: int,
         raise ValueError(f"grant_tick: {N} flows; the kernel holds 1.."
                          f"{MAX_GRANT_FLOWS}")
     global LAUNCHES
-    s = _grant_struct(cfg, args, c, budget, t - t0)
+    s = _grant_struct(cfg, args, c, budget, t_idx)
     err = _grant_launcher()(ctypes.byref(s),
                             torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:

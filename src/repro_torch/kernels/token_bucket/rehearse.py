@@ -45,7 +45,8 @@ def random_grant_inputs(n: int, seed: int, device, *, shaping: int,
                         arbiter: int, k_grant: int, n_accel: int = 3,
                         qlen: int = 16, aq_len: int = 32, n_ticks: int = 8):
     """A random valid tick for ``grant_tick``: ``(cfg, args, carry, budget,
-    t, t0)`` with the grant's carry leaves only.  Every eligibility test
+    t_idx)`` with the grant's carry leaves only, ``t_idx`` the tick's index
+    in its window ([1] int32 on ``device``).  Every eligibility test
     fails for some flows (empty queues, short buckets, a full accelerator
     queue, a link in debt, credits running out, stalled ticks), arbiter
     keys tie (coarse virtual finish times and priorities), and a quarter
@@ -97,8 +98,8 @@ def random_grant_inputs(n: int, seed: int, device, *, shaping: int,
         c_adm_b_lo=i32(rng.integers(0, 1 << 20, n)),
         c_adm_b_hi=i32(rng.integers(0, 100, n)))
     budget = f32(rng.integers(-2000, 60000, 2))
-    t0 = int(rng.integers(0, 1000))
-    return cfg, args, carry, budget, t0 + int(rng.integers(0, n_ticks)), t0
+    t_idx = i32([rng.integers(0, n_ticks)])
+    return cfg, args, carry, budget, t_idx
 
 
 def copy_inputs(carry: dict, budget: torch.Tensor):
@@ -133,16 +134,16 @@ def check_case(case, dev, seed: int | None = None) -> dict:
     """``grant_tick`` on the card against ``grant_tick_plain`` on the same
     inputs; returns the grants made and any differing leaves."""
     n, shaping, arbiter, k = case
-    cfg, args, carry, budget, t, t0 = random_grant_inputs(
+    cfg, args, carry, budget, t_idx = random_grant_inputs(
         n, n * 100 + shaping * 10 + arbiter + k * 1000
         if seed is None else seed, dev, shaping=shaping, arbiter=arbiter,
         k_grant=k)
     ck, bk = copy_inputs(carry, budget)
     cp, bp = copy_inputs(carry, budget)
     before = ops.LAUNCHES_BY_PATH["grant_tick"]
-    ops.grant_tick(cfg, args, ck, bk, t, t0)
+    ops.grant_tick(cfg, args, ck, bk, t_idx)
     launched = ops.LAUNCHES_BY_PATH["grant_tick"] - before
-    ops.grant_tick_plain(cfg, args, cp, bp, t, t0)
+    ops.grant_tick_plain(cfg, args, cp, bp, t_idx)
     return dict(case=list(case), launches=launched,
                 grants=grants_made(carry, cp),
                 differ=differing_leaves(ck, bk, cp, bp))
@@ -157,10 +158,10 @@ def grant_bound_ms(n: int, n_accel: int, grants: int,
     vft, counters: 36 B), its head entry read (8 B), each grant's next
     entry read (8 B) and accelerator-queue entry written (12 B), each
     accelerator's head, count and bytes read (12 B) and count and bytes
-    written (8 B), the budgets, credits and RR pointer (24 B) and the stall
-    word.  Operations: about 30 a flow per grant iteration, against the
+    written (8 B), the budgets, credits and RR pointer (24 B), the tick's
+    index (4 B) and its stall word.  Operations: about 30 a flow per grant iteration, against the
     67 TFLOP/s rate of the cores outside the tensor cores."""
-    n_bytes = n * (72 + 36 + 8) + grants * (8 + 12) + n_accel * 20 + 25
+    n_bytes = n * (72 + 36 + 8) + grants * (8 + 12) + n_accel * 20 + 29
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = 30 * n * max(k_grant, 1) / 67e12
     return (max(t_bytes, t_ops) * 1e3,
@@ -176,10 +177,10 @@ def time_grant_tick(n: int, dev, calls: int = 200) -> dict:
     with the bound of that first tick."""
     from torch.profiler import ProfilerActivity, profile
     for seed in range(100):        # the first carry whose tick grants 4
-        cfg, args, carry, budget, t, t0 = random_grant_inputs(
+        cfg, args, carry, budget, t_idx = random_grant_inputs(
             n, seed, dev, shaping=ops.SHAPING_HW, arbiter=0, k_grant=4)
         c, b = copy_inputs(carry, budget)
-        ops.grant_tick(cfg, args, c, b, t, t0)
+        ops.grant_tick(cfg, args, c, b, t_idx)
         grants = grants_made(carry, c)
         if grants == 4:
             break
@@ -197,14 +198,14 @@ def time_grant_tick(n: int, dev, calls: int = 200) -> dict:
         _finish_or_exit("timing")
         return start.elapsed_time(stop) / calls
     c, b = copy_inputs(carry, budget)
-    ms = event_ms(lambda: ops.grant_tick(cfg, args, c, b, t, t0))
+    ms = event_ms(lambda: ops.grant_tick(cfg, args, c, b, t_idx))
     c, b = copy_inputs(carry, budget)
-    plain_ms = event_ms(lambda: ops.grant_tick_plain(cfg, args, c, b, t, t0))
+    plain_ms = event_ms(lambda: ops.grant_tick_plain(cfg, args, c, b, t_idx))
     fresh = [copy_inputs(carry, budget) for _ in range(50)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for c, b in fresh:
-            ops.grant_tick(cfg, args, c, b, t, t0)
+            ops.grant_tick(cfg, args, c, b, t_idx)
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA

@@ -113,8 +113,10 @@ def rope_tables(positions: torch.Tensor, head_dim: int, *, theta: float,
     half = rot // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # torch.full (a fill on the device), not torch.tensor (a host copy): a
+    # CUDA graph of the decode step captures this
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions[..., None, None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
 

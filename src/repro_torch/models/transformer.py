@@ -194,8 +194,8 @@ class Transformer(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed[tokens]
         if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+            x = x * torch.full((), self.cfg.d_model ** 0.5, dtype=x.dtype,
+                               device=x.device)
         return x.to(L.torch_dtype(self.cfg.dtype))
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:

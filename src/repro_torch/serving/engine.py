@@ -14,6 +14,12 @@ with token 0 and their stale length, as the reference does.  The cache is
 updated in place.  The engine runs on the card unless ``device="cpu"`` is
 passed; ``plain_kernels=True`` runs the model kernels' plain versions
 (attention and the SSD scan) on the card too, for parity checks only.
+
+The reference jits the decode step; on the card the port captures it as a
+CUDA graph once per engine (``_DecodeGraph``, over the engine's own cache)
+and every ``step`` replays it.  The CPU runs the eager body,
+``_decode_eager``; prefill stays eager on both (``admit`` prefills into a
+per-slot view of the cache, whose addresses change with the slot).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.cuda_graph import Captured
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
@@ -51,10 +58,16 @@ class ServingEngine:
         self.active = np.zeros(self.max_batch, bool)
         self.requests: dict[int, Request] = {}
         plain = self.plain_kernels
-        self._decode = lambda tok, ln, cache: T.decode_step(
-            self.params, tok, ln, cache, plain=plain)
         self._prefill = lambda tok, cache: T.prefill(
             self.params, tok, cache, plain=plain)
+        self._decode = _DecodeGraph(self) if self.device.type == "cuda" \
+            else self._decode_eager
+
+    def _decode_eager(self, tokens, lengths, cache):
+        """The decode step's eager body: ``_decode`` on the CPU; on the card
+        for the tests' and the smoke's comparisons only."""
+        return T.decode_step(self.params, tokens, lengths, cache,
+                             plain=self.plain_kernels)
 
     # ------------------------------------------------------------------
     def free_slots(self) -> list[int]:
@@ -110,3 +123,39 @@ class ServingEngine:
     @property
     def active_count(self) -> int:
         return int(self.active.sum())
+
+
+class _DecodeGraph:
+    """``T.decode_step`` over an engine's cache as a CUDA graph, captured
+    when the engine is made: a call copies its tokens [B, 1] and lengths
+    [B] into static buffers, replays the graph (which writes the cache in
+    place) and returns a copy of the logits.  The warm-up before the
+    capture runs one step on the engine's still empty cache and zeroes it
+    again, so the first request meets the cache ``init_cache`` made."""
+
+    def __init__(self, engine: ServingEngine):
+        dev, B = engine.device, engine.max_batch
+        self.cache = engine.cache
+        self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        self.lengths = torch.zeros(B, dtype=torch.int32, device=dev)
+        params, plain, cache = engine.params, engine.plain_kernels, self.cache
+
+        def body():
+            return T.decode_step(params, self.tokens, self.lengths, cache,
+                                 plain=plain)
+
+        def warmup():
+            body()
+            for layer in cache:
+                for t in layer:
+                    t.zero_()
+        self.graph = Captured(body, warmup)
+
+    def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                 cache) -> torch.Tensor:
+        if cache is not self.cache:
+            raise ValueError("the decode graph steps its engine's own cache")
+        self.tokens.copy_(tokens)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        return self.graph.out.clone()

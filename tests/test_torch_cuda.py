@@ -10,6 +10,8 @@ run them with
 
 This file imports torch and the port only (no JAX), so it also runs where
 JAX is not installed."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -141,10 +143,87 @@ def test_grant_tick_one_launch_a_tick(dev):
         step=before[1]["step"], grant_tick=before[1]["grant_tick"] + 50)
 
 
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_engine_case_graph_matches_eager(dev, case):
+    """Every engine parity case as two CUDA windows through the entry's
+    graph, the second resumed at t0 > 0 with a register write, equals the
+    same windows through the eager body bitwise on every carry leaf; the
+    graph's replays count one grant-tick launch a tick, and the resumed
+    window captures nothing new."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(**ENGINE_CASES[case])
+    n = cfg.n_ticks // 2
+    win = dataclasses.replace(cfg, n_ticks=n)
+    regs = tb.pack([tb.params_for_gbps(4.0 * (i + 1))
+                    for i in range(flows.n)])
+
+    def run(fn):
+        carry = None
+        for t0, st in ((0, tbs), (n, regs)):
+            carry = fn(flows, atab, LinkSpec(), win, st, *arr, stall,
+                       t0_ticks=t0, carry=carry, device=dev)
+            yield te.cache_info()
+        yield te.carry_to_numpy(carry)
+    before = ops.LAUNCHES_BY_PATH["grant_tick"]
+    te.cache_clear()
+    *infos, got = run(te.run_window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_PATH["grant_tick"] - before == 2 * n
+    assert infos == [{"entries": 1, "traces": 1}] * 2
+    *_, want = run(te._run_window_eager)
+    assert int(want["c_adm_msgs"].sum()) > 0
+    for k, v in want.items():
+        for a, b in zip(v if k == "tb" else (v,),
+                        got[k] if k == "tb" else (got[k],)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m"])
+def test_captured_decode_matches_eager(dev, arch):
+    """The reduced config's decode step through the engine's CUDA graph
+    gives the eager body's logits (and so tokens) and cache bitwise, each
+    step against the eager body on a copy of the cache it started from;
+    each replay counts one decode-attention launch an attention layer."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = get_reduced_config(arch, dtype="bfloat16")
+    if arch == "mamba2-780m":
+        cfg = dc.replace(cfg, d_ff=0)
+    model = T.init_model(0, cfg, device=dev)
+    n_attn = cfg.n_layers - cfg.layer_kinds().count("ssd")
+    eng = ServingEngine(cfg, model, max_batch=4, max_len=128, device=dev)
+    graph, rows = eng._decode, []
+
+    def decode(tok, ln, cache):
+        snap = [tuple(t.clone() for t in kv) for kv in cache]
+        n0 = da_ops.LAUNCHES
+        out = graph(tok, ln, cache)
+        launched = da_ops.LAUNCHES - n0
+        want = eng._decode_eager(tok, ln, snap)
+        rows.append((out, want, launched, [
+            torch.equal(a, b) for kv, sv in zip(cache, snap)
+            for a, b in zip(kv, sv)]))
+        return out
+    eng._decode = decode
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((80, 12, 40)):
+        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12))
+    for _ in range(10):
+        eng.step()
+    assert len(rows) == 10
+    for out, want, launched, same_cache in rows:
+        assert torch.equal(out, want)
+        assert all(same_cache)
+        assert launched == n_attn
+
+
 def test_grant_tick_rejects_bad_inputs(dev):
     """A CUDA carry with a wrong dtype, shape or layout raises before any
-    launch; so does a stall index past the mask."""
-    cfg, args, carry, budget, t, t0 = tb_rehearse.random_grant_inputs(
+    launch; so does a tick index that is not a [1] int32 tensor (the
+    engine checks the stall mask's length once a window)."""
+    cfg, args, carry, budget, t_idx = tb_rehearse.random_grant_inputs(
         5, 0, dev, shaping=2, arbiter=0, k_grant=4)
     before = ops.LAUNCHES
     for key, bad in (("vft", carry["vft"].double()),
@@ -153,11 +232,11 @@ def test_grant_tick_rejects_bad_inputs(dev):
                      ("rr_ptr", carry["rr_ptr"].view(1))):
         c = dict(carry, **{key: bad})
         with pytest.raises(ValueError, match=key):
-            ops.grant_tick(cfg, args, c, budget, t, t0)
+            ops.grant_tick(cfg, args, c, budget, t_idx)
     with pytest.raises(ValueError, match="budget"):
-        ops.grant_tick(cfg, args, carry, budget.double(), t, t0)
-    with pytest.raises(ValueError, match="stall"):
-        ops.grant_tick(cfg, args, carry, budget, t0 + cfg.n_ticks, t0)
+        ops.grant_tick(cfg, args, carry, budget.double(), t_idx)
+    with pytest.raises(ValueError, match="t_idx"):
+        ops.grant_tick(cfg, args, carry, budget, t_idx.long())
     assert ops.LAUNCHES == before
 
 
@@ -349,8 +428,9 @@ def test_attention_kernels_reject_bad_inputs(dev):
 
 
 def _engine_logits(cfg, model, dev, plain: bool) -> torch.Tensor:
-    """Three prompts admitted, then 10 decode steps; after each step the
-    logits of one more decode of a copy of the cache."""
+    """Three prompts admitted, then 10 decode steps (the engine's decode
+    graph); after each step the logits of one more decode of a copy of the
+    cache (the eager body: the graph steps the engine's own cache)."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(0)
@@ -362,7 +442,7 @@ def _engine_logits(cfg, model, dev, plain: bool) -> torch.Tensor:
         eng.admit(Request(i, 0, p, 12))
     for _ in range(10):
         eng.step()
-        logits.append(eng._decode(
+        logits.append(eng._decode_eager(
             torch.zeros((4, 1), dtype=torch.long, device=dev),
             torch.as_tensor(eng.lengths, device=dev),
             [tuple(t.clone() for t in kv) for kv in eng.cache]))

@@ -212,3 +212,107 @@ def test_arbiter_key_matches_compiled_reference(arb):
     assert_bitwise(want, got, f"arbiter {arb}")
     if arb in (ARB_WRR, ARB_WFQ):
         assert (vft + np.float32(1e-6) * rr_key != want).any()
+
+
+# --- the compile cache: buffers, keys and the device clock ------------------
+
+
+def _leaves(carry):
+    return {f"{k}.{i}" if k == "tb" else k: x for k, v in carry.items()
+            for i, x in (enumerate(v) if k == "tb" else [(0, v)])}
+
+
+@pytest.mark.parametrize("case", ["hw_rr", "sw_stall"])
+def test_tick_keeps_every_carry_tensor_in_place(case):
+    """A tick changes no carry tensor's identity or address and adds no
+    key (a CUDA graph of it reads and writes fixed buffers), and advances
+    the device clock by one."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(**CASES[case])
+    args, carry = te._prepare(flows, atab, tic.LinkSpec(), cfg, tbs, *arr,
+                              stall, 0, None, "cpu")
+    before = _leaves(carry)
+    ptrs = {k: x.data_ptr() for k, x in before.items()}
+    clock = torch.tensor([7, 0], dtype=torch.int32)
+    for _ in range(cfg.n_ticks):
+        te._tick(cfg, args, carry, clock)
+    after = _leaves(carry)
+    assert after.keys() == before.keys()
+    assert all(after[k] is x for k, x in before.items())
+    assert {k: x.data_ptr() for k, x in after.items()} == ptrs
+    assert clock.tolist() == [7 + cfg.n_ticks, cfg.n_ticks]
+    assert int(carry["c_adm_msgs"].sum()) > 0
+
+
+def _two_port_windows(case, tbs2=None, link=None, n=80):
+    """The arguments of two windows of ``n`` ticks of a case, the second
+    resumed with ``tbs2``'s registers written."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(**CASES[case],
+                                                      n_ticks=2 * n)
+    cfg = dataclasses.replace(cfg, n_ticks=n)
+    link = link or tic.LinkSpec()
+    return [((flows, atab, link, cfg, regs, *arr, stall), t0)
+             for t0, regs in ((0, tbs), (n, tbs if tbs2 is None else tbs2))]
+
+
+def _step(run, window, carry):
+    """One window through ``run`` (``run_window`` or the eager body)."""
+    args, t0 = window
+    return run(*args, t0_ticks=t0, carry=carry, device="cpu")
+
+
+def _solo(run, windows) -> dict:
+    carry = None
+    for w in windows:
+        carry = _step(run, w, carry)
+    return te.carry_to_numpy(carry)
+
+
+def _assert_same(want: dict, got: dict) -> None:
+    """Two port carries (``carry_to_numpy``) equal bit for bit."""
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        for i, (a, b) in enumerate(zip(v, got[k]) if k == "tb"
+                                   else [(v, got[k])]):
+            assert_bitwise(a, b, f"{k}.{i}")
+
+
+def test_two_dataplanes_of_one_signature_interleaved():
+    """Two dataplanes of one signature (other registers), run window by
+    window in turn through one cache entry, each equal their solo runs
+    bitwise: a returned carry never aliases the other's."""
+    regs = ttb.pack([ttb.params_for_gbps(3.0), ttb.params_for_gbps(30.0)])
+    wins = [_two_port_windows("hw_rr"), _two_port_windows("hw_rr", regs)]
+    te.cache_clear()
+    carries = [None, None]
+    for pair in zip(*wins):
+        carries = [_step(te.run_window, w, c) for w, c in zip(pair, carries)]
+    assert te.cache_info() == {"entries": 1, "traces": 1}
+    both = [te.carry_to_numpy(c) for c in carries]
+    for got, w in zip(both, wins):
+        _assert_same(_solo(te.run_window, w), got)
+    assert both[0]["tb"][0].tobytes() != both[1]["tb"][0].tobytes()
+
+
+@pytest.mark.parametrize("field, value", [("credits", 2),
+                                          ("msg_overhead_bytes", 900)])
+def test_link_values_take_their_own_entries(field, value):
+    """Windows that differ only in a value the tick bakes in (the link's
+    credits or per-message overhead) take two entries, and each equals the
+    eager body's run of its own link."""
+    wins = [_two_port_windows("hw_rr", link=lk)
+            for lk in (tic.LinkSpec(), tic.LinkSpec(**{field: value}))]
+    te.cache_clear()
+    got = [_solo(te.run_window, w) for w in wins]
+    assert te.cache_info() == {"entries": 2, "traces": 2}
+    for g, w in zip(got, wins):
+        _assert_same(_solo(te._run_window_eager, w), g)
+    assert got[0]["c_adm_msgs"].tobytes() != got[1]["c_adm_msgs"].tobytes()
+
+
+def test_short_stall_mask_raises():
+    """The stall mask must cover the window (the card reads stall[t_idx]
+    without a check)."""
+    flows, atab, cfg, tbs, arr, stall = port_scenario(**CASES["sw_stall"])
+    with pytest.raises(ValueError, match="stall mask"):
+        te.run_window(flows, atab, tic.LinkSpec(), cfg, tbs, *arr,
+                      stall[:-1], t0_ticks=1, device="cpu")

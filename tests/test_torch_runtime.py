@@ -16,7 +16,7 @@ from repro.core.accelerator import CATALOG
 from repro.core.profiler import ProfileTable
 from repro.core.runtime import ArcusRuntime
 from repro_torch.core import accelerator as tacc, profiler as tprof
-from repro_torch.core import runtime as trt, sim as tsim
+from repro_torch.core import engine as te, runtime as trt, sim as tsim
 
 PROFILE_TICKS = 600
 TOTAL, WINDOW = 800, 200
@@ -204,3 +204,31 @@ def test_capacity_entry_compat_surface(kw):
     with pytest.raises(TypeError, match="requires capacity"), \
             pytest.warns(DeprecationWarning):
         tprof.CapacityEntry(per_flow_gbps=[1.0])
+
+
+def test_managed_windows_reuse_one_cache_entry(runs, monkeypatch):
+    """After ``cache_clear()``, every window of ``run_managed`` on the CPU
+    leaves ``cache_info()`` at one entry and one trace, and so does a
+    second managed run: its windows reuse the entry, never capturing again
+    (the port's analogue of the reference's ``test_runtime`` and
+    ``test_engine`` cache tests)."""
+    (_, _), (t_rt, _) = runs
+    rt = trt.ArcusRuntime([tacc.CATALOG["ipsec32"]],
+                          profile_table=copy.deepcopy(t_rt.profile),
+                          device="cpu")
+    for s in _specs()[:2]:
+        rt.register(port_spec(s))
+    seen = []
+    simulate = trt.simulate
+
+    def counted(*a, **k):
+        out = simulate(*a, **k)
+        seen.append(te.cache_info())
+        return out
+    monkeypatch.setattr(trt, "simulate", counted)
+    te.cache_clear()
+    for _ in range(2):
+        _, reports = rt.run_managed(total_ticks=300, window_ticks=100,
+                                    load_ref_gbps=LOAD_REF)
+        assert len(reports) == 3
+    assert seen == [{"entries": 1, "traces": 1}] * 6

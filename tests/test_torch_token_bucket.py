@@ -207,13 +207,13 @@ def test_grant_tick_on_cpu_runs_plain_version():
     nothing."""
     before = (tops.LAUNCHES, dict(tops.LAUNCHES_BY_PATH))
     for arbiter in (tic.ARB_RR, tic.ARB_WFQ):
-        cfg, args, carry, budget, t, t0 = rehearse.random_grant_inputs(
+        cfg, args, carry, budget, t_idx = rehearse.random_grant_inputs(
             33, arbiter, "cpu", shaping=tops.SHAPING_HW, arbiter=arbiter,
             k_grant=4)
         c1, b1 = rehearse.copy_inputs(carry, budget)
         c2, b2 = rehearse.copy_inputs(carry, budget)
-        tops.grant_tick(cfg, args, c1, b1, t, t0)
-        tops.grant_tick_plain(cfg, args, c2, b2, t, t0)
+        tops.grant_tick(cfg, args, c1, b1, t_idx)
+        tops.grant_tick_plain(cfg, args, c2, b2, t_idx)
         assert rehearse.differing_leaves(c1, b1, c2, b2) == []
         assert rehearse.grants_made(carry, c1) > 0
     assert (tops.LAUNCHES, tops.LAUNCHES_BY_PATH) == before
@@ -231,11 +231,11 @@ def test_random_grant_inputs_reach_every_kernel_path():
         n, shaping, arbiter, k = case
         if n > 33:
             continue
-        cfg, args, carry, budget, t, t0 = rehearse.random_grant_inputs(
+        cfg, args, carry, budget, t_idx = rehearse.random_grant_inputs(
             n, n * 100 + shaping * 10 + arbiter + k * 1000, "cpu",
             shaping=shaping, arbiter=arbiter, k_grant=k)
         c, b = rehearse.copy_inputs(carry, budget)
-        tops.grant_tick_plain(cfg, args, c, b, t, t0)
+        tops.grant_tick_plain(cfg, args, c, b, t_idx)
         per_flow = c["c_adm_msgs"] - carry["c_adm_msgs"]
         grants[shaping, arbiter] = grants.get((shaping, arbiter), 0) + \
             int(per_flow.sum())
