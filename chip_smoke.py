@@ -7,6 +7,16 @@ Builds the port's CUDA kernels from this checkout (one ``nvcc`` each, all
 at once), holds each against its plain PyTorch version on the card, and
 drives the port's paths through the kernels:
 
+  * the batched dataplane (``run_window_batch`` -> ``simulate_batch`` ->
+    ``run_system_batch`` / ``profile_contexts``, one grant-tick launch a
+    tick with one CTA an element): the batched kernel against its plain
+    version at B = 1, 6 and 64; a ragged mixed-mode batch of four
+    (``batch_parity``) CUDA against CPU, graph against eager body, and each
+    element against its serial run; Fig. 6 / Table 3's six elements
+    (three systems, two load points) as one ``run_system_batch`` of 60,000
+    ticks held against a digest of the JAX reference's run
+    (``fig6_batch``); sim_perf's eight heterogeneous profiler contexts
+    against eight serial ``profile_context`` calls (``profile_batch8``);
   * the dataplane (the quickstart server: ``ArcusRuntime`` admission +
     ``run_managed``, Algorithm 1), one token-bucket grant-tick launch a
     simulated tick, every window a replay of its compile-cache entry's
@@ -37,7 +47,8 @@ that every flash-prefill and SSD-scan launch took the tensor-core path.
 
 Cuts against earlier versions of this script: none; the mamba2 paths run
 more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that
-their mixes reach 3 s of virtual time.
+their mixes reach 3 s of virtual time.  ``fig6_batch`` runs fig6's quick
+tick count (60,000; the benchmark's full run is 400,000).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The last three lines are the kernel table, the card's
@@ -1012,7 +1023,10 @@ def _window_row(p: dict, n: int) -> dict:
 
 def phase_profile(dev) -> dict:
     """Where one window's time goes, through the entry's graph and through
-    the eager body, and a check that the tick never makes the host wait:
+    the eager body, and through the batch entry's graph at fig6's
+    configuration with B = 1 and BATCH_PROFILE_SIZES elements (kernels and
+    device µs a tick as B grows; one grant-tick launch a tick each), and a
+    check that the tick never makes the host wait:
     graph windows of PROFILE_WINDOW and 2 x PROFILE_WINDOW ticks must show
     the same host waits (the window's setup and result copies).  Also the
     launch floor: the device time of the smallest kernel the card runs (a
@@ -1027,10 +1041,15 @@ def phase_profile(dev) -> dict:
     floor_ms = device_ms_per_launch(lambda: one.add_(1), "elementwise", 200)
     grown = {k: (p1["waits"].get(k, 0), v) for k, v in p2["waits"].items()
              if v > p1["waits"].get(k, 0)}
+    batched = [_profile_batch_window(dev, B, n)
+               for B in (1, *BATCH_PROFILE_SIZES)]
     emit("profile", ticks=n, **_window_row(p1, n),
          eager=_window_row(pe, n), launch_floor_ms=floor_ms,
          host_waits_per_window={str(n): p1["waits"], str(2 * n): p2["waits"]},
-         cache_info=engine.cache_info())
+         batched_fig6_config=batched, cache_info=engine.cache_info())
+    for row in batched:
+        if row["token_bucket_launches"] != n:
+            raise AssertionError(f"batched profile window: {row}")
     if not p1["waits"]:
         raise AssertionError("profiler recorded no host wait at all (the "
                              "window's result copy is one): cannot check")
@@ -1039,7 +1058,463 @@ def phase_profile(dev) -> dict:
     if not p1["tb_launches"]:
         raise AssertionError("profiled window shows no token-bucket kernel")
     return dict(tb_device_ms_per_launch=p1["tb_us"] / p1["tb_launches"]
-                / 1e3, launch_floor_ms=floor_ms)
+                / 1e3, launch_floor_ms=floor_ms, batched=batched)
+
+
+# ---------------------------------------------------------------------------
+# the batched dataplane: run_window_batch -> simulate_batch ->
+# run_system_batch / profile_contexts
+# ---------------------------------------------------------------------------
+
+# Fig. 6 / Table 3 (benchmarks/fig6_throughput_cdf.py:48-87), rebuilt from
+# the port: two 4096 B Poisson users at SLOs of 300K / 200K IOPS on
+# nvme_raid0, Arcus and the two software shapers at load points 1.5 and
+# 0.9 (B = 6), LinkSpec(credits=256), seed 3, the benchmark's overrides;
+# 60,000 ticks is its quick setting (quick=False runs 400,000)
+FIG6_TICKS = 60_000
+FIG6_SERIAL_TICKS = 2_000
+FIG6_B = 6
+FIG6_SYSTEMS = ("Arcus", "Host_TS_reflex", "Host_TS_firecracker")
+FIG6_LOADS = (1.5, 0.9)
+FIG6_SLOS = (300_000.0, 200_000.0)
+FIG6_OVERRIDES = dict(tick_cycles=64, comp_cap=1 << 17, k_grant=8, k_srv=8,
+                      k_eg=8, qlen=512, lmax=64)
+# result_digest of each element of the JAX reference's run of this batch on
+# the CPU at FIG6_TICKS (tests/_torch_parity.fig6_batch_digests)
+FIG6_DIGESTS = [
+    "9e0b084bcf369c24d7197a02ed34a4a412aa3840178be9cc0715b727a74df3ab",
+    "596ed6b4f18b86451e20e8bcb8cca7fb99e9c0047759e3a11d669c3594c3dce3",
+    "005ffd88655190d6821e8e8c351d46ad049df82e1588cfed0b68a31aefd44935",
+    "0f6e5f494874af72adee08c82d5cfbe1b984e8275be502e908c083483cc10857",
+    "1e1b5f410f126e3e31d49ce2fa0a6e234d98530402a153d3d912e88f8519aa68",
+    "f45997bc8431b8f7ce8107033e24b741c9b4bd728620c2d2bb8e016f0492275f",
+]
+# benchmarks/sim_perf.py:180-211: the profiler's eight heterogeneous
+# contexts, entries held against serial profile_context calls at the quick
+# setting, the batched call timed alone at the full one
+PROFILE8_TICKS = (6_000, 30_000)
+# batch_parity: windows of the ragged B = 4 batch
+BATCH_PARITY_TICKS = 300
+# the profile phase's batched rows (fig6's configuration)
+BATCH_PROFILE_SIZES = (6, 64)
+
+
+def result_digest(res) -> str:
+    """sha256 of one SimResult's counters (by sorted key) and completion
+    ring (flow, latency, time, size), each array's bytes in turn (as
+    tests/_torch_parity.result_digest)."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for k in sorted(res.counters):
+        h.update(np.ascontiguousarray(res.counters[k]).tobytes())
+    for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
+        h.update(np.ascontiguousarray(getattr(res, k)).tobytes())
+    return h.hexdigest()
+
+
+def phase_kernel_grant_tick_batch(dev) -> dict:
+    """The batched grant tick (one launch, one CTA an element) against its
+    plain version on fresh copies, bitwise on every leaf it writes, at
+    B = 1, 6 and 64 (``rehearse.batch_case``: ragged flows 1..33 with
+    mid-table holes, every shaping mode and arbiter, stalls), with
+    per-element and shared stall rows; then its device ms a launch
+    (``torch.profiler``) and bound at each B."""
+    from repro_torch.kernels.token_bucket import rehearse
+    rows = []
+    for B in rehearse.BATCH_SIZES:
+        for shared in (False, True):
+            row = rehearse.check_batch(B, dev, shared_stall=shared)
+            if row["launches"] != 1 or row["differ"] or row["hole_grants"]:
+                raise AssertionError(f"batched grant tick != plain: {row}")
+            rows.append(row)
+    times = {B: rehearse.time_grant_tick_batch(B, dev)
+             for B in rehearse.BATCH_SIZES}
+    emit("kernel_grant_tick_batch", name="token_bucket/grant_tick",
+         bitwise=True, cases=[{k: r[k] for k in ("batch", "shared_stall",
+                                                 "grants")} for r in rows],
+         times={str(k): v for k, v in times.items()})
+    return dict(times=times)
+
+
+def _batch_elements(n_ticks: int):
+    """batch_parity's ragged batch, B = 4, built with the port as the CPU
+    tests build it (``tests/_engine_cases.BATCH_ELEMENTS``): flows 1-3,
+    accelerators 1-2; HW + RR, SW + WFQ with stalls, NONE + PRIORITY, HW +
+    WRR.  (flows, tables, configs, registers, traces, stall masks, the
+    second window's registers)."""
+    import numpy as np
+    from repro_torch.core import baselines as bl, token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
+                                       TrafficPattern)
+    from repro_torch.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ,
+                                               ARB_WRR)
+    from repro_torch.core.sim import (SHAPING_HW, SHAPING_NONE, SHAPING_SW,
+                                      SimConfig, gen_arrivals,
+                                      gen_stall_mask, stack_arrivals)
+    system = {SHAPING_NONE: bl.HOST_NO_TS, SHAPING_HW: bl.ARCUS,
+              SHAPING_SW: bl.HOST_TS_REFLEX}
+    els = [(SHAPING_HW, ARB_RR, 1, ("ipsec32",)),
+           (SHAPING_SW, ARB_WFQ, 3, ("ipsec32", "aes256")),
+           (SHAPING_NONE, ARB_PRIORITY, 2, ("ipsec32",)),
+           (SHAPING_HW, ARB_WRR, 3, ("synthetic50", "sha3_512"))]
+    paths = (Path.FUNCTION_CALL, Path.INLINE_NIC_RX)
+    out = [[] for _ in range(7)]
+    for shaping, arb, n, accels in els:
+        slos = [SLO.gbps(8.0 * (i + 1)) for i in range(n)]
+        flows = FlowSet.build([
+            FlowSpec(i, i, paths[i % 2], i % len(accels),
+                     TrafficPattern(1500, load=0.9, process="poisson"),
+                     slos[i], priority=i, weight=1.0 + i)
+            for i in range(n)])
+        sw = dict(sw_host_delay_cycles=100, sw_jitter_cycles=800) \
+            if shaping == SHAPING_SW else {}
+        cfg = SimConfig(n_ticks=n_ticks, shaping=shaping, arbiter=arb, **sw)
+        stall = (gen_stall_mask(cfg, seed=1, stall_rate_hz=500_000.0,
+                                stall_us=(0.2, 1.0))
+                 if shaping == SHAPING_SW else np.zeros(n_ticks, bool))
+        for lst, v in zip(out, (
+                flows, AccelTable.build([CATALOG[a] for a in accels]), cfg,
+                bl.make_tb_state(system[shaping], [
+                    tb.params_for_gbps(s.target) for s in slos]),
+                gen_arrivals(flows, cfg, seed=3,
+                             load_ref_gbps={i: 40.0 for i in range(n)}),
+                stall,
+                bl.make_tb_state(system[shaping], [
+                    tb.params_for_gbps(4.0 * (i + 1)) for i in range(n)]))):
+            lst.append(v)
+    flows, tabs, cfgs, regs, arrs, stalls, regs2 = out
+    return (flows, tabs, cfgs, regs, stack_arrivals(arrs), np.stack(stalls),
+            regs2)
+
+
+def phase_batch_parity(dev) -> None:
+    """The ragged B = 4 batch three ways, bitwise on every carry leaf or
+    result: (1) three windows through the batch entry's CUDA graph against
+    the same windows on the CPU: a first window with a mid-table
+    ``fl_masks`` hole; a resumed window with a recycled lane and register
+    writes; a resumed window after a released lane with
+    ``tb_states=None``; (2) the same three windows through the eager body
+    on the card against the graph's; (3) each element of a
+    ``simulate_batch`` window on the card against its own serial
+    ``simulate`` on the card."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import engine
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.sim import simulate, simulate_batch
+    from repro_torch.kernels.token_bucket import ops
+    n = BATCH_PARITY_TICKS
+    flows, tabs, cfgs, regs, arr, stall, regs2 = _batch_elements(3 * n)
+    wins = [dataclasses.replace(c, n_ticks=n) for c in cfgs]
+    masks = [np.arange(3) < f.n for f in flows]
+    masks[3][1] = False                 # the hole
+    steps = [(None, [m.copy() for m in masks], regs),
+             ("recycle", [np.arange(3) < f.n for f in flows], regs2),
+             ("release", [np.arange(3) < f.n for f in flows], None)]
+    steps[2][1][1][2] = False
+
+    def run(fn, device) -> list:
+        carry, out = None, []
+        for w, (surgery, m, r) in enumerate(steps):
+            if surgery == "recycle":
+                carry = engine.recycle_flow_lane(carry, 3, 1)
+            elif surgery == "release":
+                carry = engine.release_flow_lane(carry, 1, 2)
+            carry = fn(flows, tabs, LinkSpec(), wins, r, *arr, stall,
+                       t0_ticks=w * n, carry=carry, fl_masks=m,
+                       device=device)
+            out.append(engine.carry_to_numpy(carry))
+        return out
+
+    engine.cache_clear()
+    n0 = ops.LAUNCHES_BY_PATH["grant_tick"]
+    graph = run(engine.run_window_batch, dev)
+    launched = ops.LAUNCHES_BY_PATH["grant_tick"] - n0
+    info = engine.cache_info()
+    cpu = run(engine.run_window_batch, "cpu")
+    eager = run(engine._run_window_batch_eager, dev)
+    for w, (g, c, e) in enumerate(zip(graph, cpu, eager)):
+        for k, v in c.items():
+            for a, b, x in zip(*((t[k] if k == "tb" else (t[k],))
+                                 for t in (c, g, e))):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError(f"batch_parity window {w}: CUDA "
+                                         f"graph != CPU on {k}")
+                if b.tobytes() != x.tobytes():
+                    raise AssertionError(f"batch_parity window {w}: graph "
+                                         f"!= eager body on {k}")
+    if launched != 3 * n or info != {"entries": 1, "traces": 1}:
+        raise AssertionError(f"batch_parity: {launched} grant-tick launches "
+                             f"for {3 * n} ticks, cache {info}")
+    batch = simulate_batch(flows, tabs, LinkSpec(), wins, regs, *arr,
+                           stall, device=dev)
+    for b, f in enumerate(flows):
+        serial = simulate(f, tabs[b], LinkSpec(), wins[b], regs[b],
+                          arr[0][b, :f.n], arr[1][b, :f.n], stall[b],
+                          device=dev)
+        _results_equal(f"batch_parity element {b} vs serial", serial,
+                       batch[b])
+    last = cpu[-1]
+    emit("batch_parity", batch=len(flows), ticks=n, windows=3,
+         flows=[f.n for f in flows], accelerators=[t.n for t in tabs],
+         modes=[[c.shaping, c.arbiter] for c in cfgs],
+         admitted=last["c_adm_msgs"].tolist(),
+         completions=last["comp_n"].tolist(), cache_info=info,
+         grant_tick_launches=launched, cuda_vs_cpu_bitwise=True,
+         graph_vs_eager_bitwise=True, elements_vs_serial_bitwise=True)
+    if not (last["comp_n"] > 0).all():
+        raise AssertionError(f"batch_parity: an element completed nothing: "
+                             f"{last['comp_n']}")
+
+
+def fig6_inputs(n_ticks: int, B: int = 6):
+    """fig6's batch with the port: ``run_system_batch``'s arguments for
+    Arcus, Host_TS_reflex and Host_TS_firecracker at load points 1.5 and
+    0.9 (element 2 s + l), cycled to ``B`` elements."""
+    from repro_torch.core import baselines as bl, token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
+                                       TrafficPattern)
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.sim import gen_arrivals
+
+    def flows(load_x):
+        return FlowSet.build([
+            FlowSpec(i, i, Path.FUNCTION_CALL, 0,
+                     TrafficPattern(4096, rate_mps=slo * load_x,
+                                    process="poisson"), SLO.iops(slo))
+            for i, slo in enumerate(FIG6_SLOS)])
+    cfg0 = bl.make_sim_config(bl.ALL[FIG6_SYSTEMS[0]], n_ticks,
+                              **FIG6_OVERRIDES)
+    arrs_lp = [gen_arrivals(flows(x), cfg0, seed=3) for x in FIG6_LOADS]
+    plans = [tb.params_for_iops(s) for s in FIG6_SLOS]
+    six = [(bl.ALL[name], a) for name in FIG6_SYSTEMS for a in arrs_lp]
+    els = [six[b % len(six)] for b in range(B)]
+    return dict(systems=[s for s, _ in els], flows=flows(1.0),
+                accels=AccelTable.build([CATALOG["nvme_raid0"]]),
+                link=LinkSpec(credits=256),
+                tb_states=[bl.make_tb_state(s, plans) for s, _ in els],
+                arr=[a for _, a in els])
+
+
+def deviation_percentiles(res, flow_id: int, target: float,
+                          window: int = 500) -> dict:
+    """Table 3's p25/p50/p75/p99 throughput deviation from the SLO, in
+    percent (benchmarks/fig6_throughput_cdf.py:90-99)."""
+    import numpy as np
+    samp = res.throughput_samples(flow_id, window_msgs=window, kind="iops",
+                                  warmup_s=0.15 * res.seconds)
+    if len(samp) == 0:
+        return {}
+    qs = {q: float(np.percentile(samp, q)) for q in (25, 50, 75, 99)}
+    return {f"p{q}_dev_pct": 100 * (v - target) / target
+            for q, v in qs.items()}
+
+
+def phase_fig6_batch(dev) -> dict:
+    """The slice's path at full size: fig6's six elements (three systems,
+    two load points, mixed shaping modes and stall masks) as ONE
+    ``run_system_batch`` of FIG6_TICKS ticks, every tick one replay of the
+    batch entry's graph with one grant-tick launch; each element's counters
+    and completion ring against the JAX reference's digest; µs a batched
+    tick and element-ticks a second, beside one element's serial µs a tick
+    (FIG6_SERIAL_TICKS through its graph); Table 3's deviations."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines as bl, engine
+    from repro_torch.core.sim import simulate
+    from repro_torch.kernels.token_bucket import ops
+    inp = fig6_inputs(FIG6_TICKS)
+    B = len(inp["systems"])
+    engine.cache_clear()
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bl.run_system_batch(
+        inp["systems"], inp["flows"], inp["accels"], inp["link"],
+        FIG6_TICKS, tb_states=inp["tb_states"], arr=inp["arr"],
+        cfg_overrides=FIG6_OVERRIDES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_path = ops.LAUNCHES, dict(ops.LAUNCHES_BY_PATH)
+    info = engine.cache_info()
+    digests = [result_digest(r) for r in res]
+    # one element (Arcus, load 1.5) alone through its serial graph
+    cfg = bl.make_sim_config(inp["systems"][0], FIG6_SERIAL_TICKS,
+                             **FIG6_OVERRIDES)
+    sargs = (inp["flows"], inp["accels"], inp["link"], cfg,
+             inp["tb_states"][0], *inp["arr"][0])
+    simulate(*sargs, device=dev)                  # captures its graph
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    simulate(*sargs, device=dev)
+    torch.cuda.synchronize()
+    serial_us = (time.perf_counter() - t1) / FIG6_SERIAL_TICKS * 1e6
+    batch_us = wall / FIG6_TICKS * 1e6
+    table3 = {}
+    for i, r in enumerate(res):
+        name = f"{inp['systems'][i].name}@{FIG6_LOADS[i % 2]}"
+        table3[name] = {f"user{u + 1}": deviation_percentiles(r, u, slo)
+                        for u, slo in enumerate(FIG6_SLOS)}
+    emit("fig6_batch", batch=B, ticks=FIG6_TICKS,
+         reduced=dict(ticks=[FIG6_TICKS, 400_000]),
+         systems=[s.name for s in inp["systems"]], loads=list(FIG6_LOADS),
+         wall_s=wall, us_per_batched_tick=batch_us,
+         element_ticks_per_s=B * FIG6_TICKS / wall,
+         serial_us_per_tick=serial_us, serial_ticks=FIG6_SERIAL_TICKS,
+         serial_element_ticks_per_s=1e6 / serial_us,
+         grant_tick_launches=launches, launches_by_path=by_path,
+         cache_info=info, completions=[int(len(r.comp_flow)) for r in res],
+         admitted=[r.counters["c_adm_msgs"].tolist() for r in res],
+         digests_match_reference=digests == FIG6_DIGESTS,
+         table3_deviation_pct=table3)
+    if digests != FIG6_DIGESTS:
+        bad = [i for i, (a, b) in enumerate(zip(digests, FIG6_DIGESTS))
+               if a != b]
+        raise AssertionError(f"fig6_batch: elements {bad} differ from the "
+                             f"JAX reference's run: {digests}")
+    if launches != FIG6_TICKS or by_path != dict(step=0,
+                                                 grant_tick=FIG6_TICKS):
+        raise AssertionError(f"fig6_batch: token-bucket launches {by_path} "
+                             f"!= {FIG6_TICKS} grant ticks")
+    if info != {"entries": 1, "traces": 1}:
+        raise AssertionError(f"fig6_batch: cache {info}")
+    if not all(len(r.comp_flow) and math.isfinite(
+            float(np.sum(r.counters["c_lat_sum"]))) for r in res):
+        raise AssertionError("fig6_batch: an element completed nothing")
+    return dict(launches=launches, by_path=by_path)
+
+
+def _profile8_contexts():
+    from repro_torch.core.accelerator import CATALOG
+    from repro_torch.core.flow import Path
+    fc, rx = Path.FUNCTION_CALL, Path.INLINE_NIC_RX
+    return [
+        (CATALOG["ipsec32"], [(fc, 64, 0.9)]),
+        (CATALOG["ipsec32"], [(fc, 1500, 0.9)] * 2),
+        (CATALOG["ipsec32"], [(fc, 64, 0.9), (fc, 1500, 0.9)]),
+        (CATALOG["synthetic50"], [(fc, 512, 0.9)] * 3),
+        (CATALOG["synthetic50"], [(fc, 4096, 0.9)]),
+        (CATALOG["aes256"], [(fc, 1024, 0.9)] * 2),
+        (CATALOG["sha3_512"], [(rx, 256, 0.9)] * 2),
+        (CATALOG["compress"], [(fc, 4096, 0.9), (fc, 64, 0.9),
+                               (fc, 1024, 0.9)])]
+
+
+def phase_profile_batch8(dev) -> dict:
+    """sim_perf's eight heterogeneous contexts (ragged 1-3 flows on
+    ipsec32 / synthetic50 / aes256 / sha3_512 / compress) through
+    ``ProfileTable.profile_contexts``: at PROFILE8_TICKS[0], entries equal
+    to eight serial ``profile_context`` calls on the card and exactly one
+    new batch entry; at PROFILE8_TICKS[1], the batched call timed alone
+    with its launches counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import engine, profiler
+    from repro_torch.kernels.token_bucket import ops
+    ctxs = _profile8_contexts()
+    quick, full = PROFILE8_TICKS
+    engine.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [profiler.ProfileTable(n_ticks=quick, device=dev)
+              .profile_context(a, f) for a, f in ctxs]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    before = engine.cache_info()["entries"]
+    profiler.profiling_stats_clear()
+    batch = profiler.ProfileTable(n_ticks=quick, device=dev) \
+        .profile_contexts(ctxs)
+    new_entries = engine.cache_info()["entries"] - before
+    same = [dataclasses.asdict(e) for e in serial] == \
+        [dataclasses.asdict(e) for e in batch]
+    stats = profiler.profiling_stats()
+    engine.cache_clear()
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t1 = time.perf_counter()
+    full_entries = profiler.ProfileTable(n_ticks=full, device=dev) \
+        .profile_contexts(ctxs)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    launches, by_path = ops.LAUNCHES, dict(ops.LAUNCHES_BY_PATH)
+    emit("profile_batch8", contexts=len(ctxs),
+         flows=[len(f) for _, f in ctxs], ticks=[quick, full],
+         entries_match_serial=same, new_batch_entries=new_entries,
+         profiling_stats=stats, serial_wall_s=serial_s,
+         batched_wall_s=full_s,
+         us_per_batched_tick=full_s / full * 1e6,
+         element_ticks_per_s=len(ctxs) * full / full_s,
+         grant_tick_launches=launches,
+         capacity_gbps=[e.capacity_gbps for e in full_entries])
+    if not same:
+        raise AssertionError("profile_batch8: batched entries != serial "
+                             "profile_context entries")
+    if new_entries != 1 or stats["sim_batches"] != 1:
+        raise AssertionError(f"profile_batch8: {new_entries} new entries, "
+                             f"stats {stats}")
+    if launches != full or by_path != dict(step=0, grant_tick=full):
+        raise AssertionError(f"profile_batch8: token-bucket launches "
+                             f"{by_path} != {full} grant ticks")
+    return dict(launches=launches, by_path=by_path)
+
+
+def _profile_batch_window(dev, B: int, n_ticks: int) -> dict:
+    """One window of ``n_ticks`` ticks of fig6's batch cycled to ``B``
+    elements through the batch entry's graph (a first window captures it):
+    timed alone (µs a tick, element-ticks a second), then under
+    torch.profiler as ``_profile_window`` does for the serial one (a trace
+    that misses a grant-tick launch is taken again, up to three times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import baselines as bl
+    inp = fig6_inputs(n_ticks, B)
+
+    def window():
+        bl.run_system_batch(
+            inp["systems"], inp["flows"], inp["accels"], inp["link"],
+            n_ticks, tb_states=inp["tb_states"], arr=inp["arr"],
+            cfg_overrides=FIG6_OVERRIDES, device=dev)
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    for _ in range(3):          # a trace that misses a grant tick: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us = kernels = tb_us = tb_n = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev_us += e.time_range.elapsed_us()
+                kernels += 1
+                if any(pat in e.name
+                       for pat in KERNEL_KINDS["token_bucket"]):
+                    tb_us += e.time_range.elapsed_us()
+                    tb_n += 1
+        if tb_n == n_ticks:
+            break
+    return dict(batch=B, us_per_tick=unprofiled / n_ticks * 1e6,
+                element_ticks_per_s_unprofiled=B * n_ticks / unprofiled,
+                host_us_per_tick=wall / n_ticks * 1e6,
+                device_busy_us_per_tick=dev_us / n_ticks,
+                device_kernels_per_tick=kernels / n_ticks,
+                device_idle_share=max(0.0, 1.0 - dev_us / (wall * 1e6)),
+                element_ticks_per_s=B * n_ticks / wall,
+                token_bucket_launches=tb_n,
+                token_bucket_device_us_per_launch=tb_us / max(tb_n, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -1554,6 +2029,7 @@ def main() -> int:
                 for k, v in _build.PTXAS_INFO.items()})
     k = phase_kernel(dev)
     gt = phase_kernel_grant_tick(dev)
+    gtb = phase_kernel_grant_tick_batch(dev)
     da = phase_kernel_decode_attention(dev)
     fp = phase_kernel_flash_prefill(dev)
     ssd = phase_kernel_ssd_scan(dev)
@@ -1561,6 +2037,9 @@ def main() -> int:
     main = phase_main_path(dev)
     phase_parity(dev)
     phase_graph_parity(dev)
+    phase_batch_parity(dev)
+    fig6 = phase_fig6_batch(dev)
+    prof8 = phase_profile_batch8(dev)
     prof = phase_profile(dev)
     model, serve, _ = phase_serve(dev)
     long = phase_serve_long(dev, model)
@@ -1583,8 +2062,10 @@ def main() -> int:
                for name in serve["launches"]}
     # the token bucket's by kernel: the dataplane's grant ticks, the
     # serving scheduler's steps
-    by_path["token_bucket"] = dict(main_path=main["by_path"], **{
-        p: r["token_bucket_paths"] for p, r in runs.items()})
+    by_path["token_bucket"] = dict(
+        main_path=main["by_path"], fig6_batch=fig6["by_path"],
+        profile_batch8=prof8["by_path"],
+        **{p: r["token_bucket_paths"] for p, r in runs.items()})
     tb_src = "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu"
     step = k["times"][n_main]
     rows = [{
@@ -1601,8 +2082,30 @@ def main() -> int:
         "device_ms_per_launch_alone": t["device_ms"],
         "launch_floor_ms": prof["launch_floor_ms"],
         "grant_tick_times": {str(n): v for n, v in gt["times"].items()},
+        "batched_fig6_config": [
+            {k: r[k] for k in ("batch", "token_bucket_device_us_per_launch",
+                               "device_kernels_per_tick",
+                               "device_busy_us_per_tick", "us_per_tick")}
+            for r in prof["batched"]],
         "step": dict(step, shape=f"[{n_main}] flows (admission call)"),
-        "launches_by_path": by_path["token_bucket"]}]
+        "launches_by_path": by_path["token_bucket"]}, {
+        # the same kernel launched over a grid of batch elements: its
+        # numbers at fig6's batch size, its launches on fig6_batch
+        "name": "token_bucket/grant_tick_batch", "route": "cuda",
+        "source": f"{tb_src}::tb_grant_tick_kernel",
+        "replaces": "src/repro/kernels/token_bucket/kernel.py:41",
+        "launches": fig6["launches"], "max_abs_err": 0,
+        **{k: gtb["times"][FIG6_B][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": f"grant tick over {FIG6_B} ragged elements "
+                 f"({gtb['times'][FIG6_B]['flows']} flows), k_grant 4",
+        "device_ms_per_launch": gtb["times"][FIG6_B]["device_ms"],
+        "by_batch": {str(B): {k: v[k] for k in (
+            "flows", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
+            for B, v in gtb["times"].items()},
+        "launches_by_path": dict(fig6_batch=fig6["launches"],
+                                 profile_batch8=prof8["launches"])}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,
              "src/repro_torch/kernels/decode_attention/csrc/"

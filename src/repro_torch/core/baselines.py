@@ -14,8 +14,7 @@ the same dataplane, exactly as the paper builds them on the same testbed:
                          weighted-fair queuing, reactive, no shaping.
 * Arcus                — hardware per-flow token buckets + RR, proactive.
 
-Port of ``src/repro/core/baselines.py``; ``run_system_batch`` waits for the
-port's batched engine.
+Port of ``src/repro/core/baselines.py``.
 """
 from __future__ import annotations
 
@@ -26,7 +25,8 @@ import numpy as np
 from repro_torch.core import token_bucket as tb
 from repro_torch.core.interconnect import ARB_PRIORITY, ARB_RR, ARB_WRR
 from repro_torch.core.sim import (SHAPING_HW, SHAPING_NONE, SHAPING_SW,
-                                  SimConfig, gen_stall_mask)
+                                  SimConfig, gen_stall_mask, simulate_batch,
+                                  stack_arrivals)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,40 @@ def make_stall_mask(sys_cfg: SystemConfig, cfg: SimConfig, *, seed: int = 1,
     base = dataclasses.replace(cfg, n_ticks=n)
     return gen_stall_mask(base, seed=seed, stall_rate_hz=sys_cfg.stall_rate_hz,
                           stall_us=sys_cfg.stall_us)
+
+
+def run_system_batch(systems, flows, accels, link, n_ticks: int, *,
+                     tb_states, arr, stall_seed: int = 1,
+                     cfg_overrides: dict | None = None, device=None):
+    """Run several baseline *systems* over the same scenario as ONE batch
+    of the engine (``sim.simulate_batch``) on ``device`` (default
+    ``"cuda"``).
+
+    Shaping mode, arbiter and the software-delay model are per-element
+    engine inputs, so Arcus and its Host/Bypassed baselines (Sec. 5.1) —
+    which differ only in those knobs — run as elements of one batch.
+
+    * ``systems``: sequence of SystemConfig (or names into ``ALL``);
+    * ``tb_states``: per-system TBState registers;
+    * ``arr``: one shared (times, sizes) trace, or a per-system sequence;
+    * SW systems get their stall process generated here ([B, T] mask).
+
+    Returns ``list[SimResult]``, one per system, each bitwise-identical to
+    a serial run of that system."""
+    systems = [ALL[s] if isinstance(s, str) else s for s in systems]
+    cfgs = [make_sim_config(s, n_ticks, **(cfg_overrides or {}))
+            for s in systems]
+    arrs = list(arr) if isinstance(arr, (list, tuple)) \
+        and isinstance(arr[0], (list, tuple)) else [arr] * len(systems)
+    stall = None
+    masks = [make_stall_mask(s, c, seed=stall_seed)
+             for s, c in zip(systems, cfgs)]
+    if any(m is not None for m in masks):
+        stall = np.stack([m if m is not None else np.zeros(n_ticks, bool)
+                          for m in masks])
+    return simulate_batch(flows, accels, link, cfgs, list(tb_states),
+                          *stack_arrivals(arrs), stall_mask=stall,
+                          device=device)
 
 
 def make_tb_state(sys_cfg: SystemConfig, plans: list[tb.TBParams],

@@ -11,17 +11,22 @@ dataplane simulation and records the aggregate achievable capacity and the
 per-flow split.  Entries carry a 1-bit SLO-Friendly / SLO-Violating tag,
 evaluated against a concrete SLO vector at query time.
 
-Port of ``src/repro/core/profiler.py``: contexts are profiled one
-``simulate`` at a time on the table's device; the batched
-``profile_contexts`` / ``sweep`` / ``profile_contexts_multi`` wait for the
-port's batched engine.  Tables written by the reference load with
-``from_json`` (same schema, same keys).
+Port of ``src/repro/core/profiler.py``.  ``profile_context`` profiles one
+context with ``simulate`` on the table's device; ``profile_contexts``
+batches many heterogeneous contexts — different flow counts, different
+accelerators — into one ragged ``simulate_batch``, and
+``profile_contexts_multi`` does so across several ProfileTables (one per
+client server), one batch per profiling config.  Entries are bitwise what
+serial ``profile_context`` calls give.  Tables written by the reference
+load with ``from_json`` (same schema, same keys).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import warnings
+from typing import Sequence
 
 import numpy as np
 
@@ -31,7 +36,7 @@ from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
                                    TrafficPattern)
 from repro_torch.core.interconnect import ARB_RR, RES_LINK, LinkSpec
 from repro_torch.core.sim import (SHAPING_NONE, SimConfig, gen_arrivals,
-                                  simulate)
+                                  simulate, simulate_batch, stack_arrivals)
 from repro_torch.device import resolve_device
 
 
@@ -282,6 +287,35 @@ class ProfileTable:
                        device=self.device)
         return self._entry_from_result(key, res, len(specs))
 
+    def profile_contexts(self,
+                         contexts: Sequence[tuple[AcceleratorSpec,
+                                                  list[tuple[Path, int,
+                                                             float]]]],
+                         *, seed: int = 0) -> list[CapacityEntry]:
+        """Profile many heterogeneous contexts in ONE batch of the engine.
+
+        ``contexts`` is a sequence of (accelerator, flows) pairs; flow
+        counts may differ (the engine pads + flow-masks the batch) and each
+        element carries its own accelerator table.  Already-profiled or
+        duplicate contexts are deduplicated against the cache, so only the
+        misses are simulated — as one ragged ``simulate_batch``.  Entries
+        are bitwise-identical to what serial ``profile_context`` calls
+        produce."""
+        return profile_contexts_multi([(self, a, f) for a, f in contexts],
+                                      seed=seed)
+
+    def sweep(self, accel: AcceleratorSpec, *, paths=(Path.FUNCTION_CALL,),
+              msg_sizes=(64, 512, 4096), loads=(0.9,),
+              n_flows=(1, 2)) -> None:
+        """Offline sweep: "all contention cases are swept and recorded" —
+        executed as one batched ragged engine call across every context."""
+        contexts = []
+        for n in n_flows:
+            combos = itertools.combinations_with_replacement(
+                itertools.product(paths, msg_sizes, loads), n)
+            contexts.extend((accel, list(combo)) for combo in combos)
+        self.profile_contexts(contexts)
+
     # -- queries --------------------------------------------------------
     def lookup(self, accel_name: str,
                flows: list[tuple[Path, int, float]]) -> CapacityEntry | None:
@@ -324,3 +358,79 @@ class ProfileTable:
 
     #: alias — the control-plane callers name the operation "load"
     load_json = from_json
+
+
+#: running counters over batched profiling: ``calls`` = invocations of
+#: ``profile_contexts_multi``, ``sim_batches`` = ``simulate_batch`` calls
+#: it issued (0 when every context was a cache hit), ``contexts`` =
+#: cache-missing contexts actually simulated.  ``score_hits`` /
+#: ``score_misses`` are the reference's placement score-cache counters
+#: (its ``placement.ScoreCache``, not ported yet: they stay 0 here).
+_PROFILING_STATS = {"calls": 0, "sim_batches": 0, "contexts": 0,
+                    "score_hits": 0, "score_misses": 0}
+
+
+def profiling_stats() -> dict[str, int]:
+    """Snapshot of the batched-profiling counters (see above)."""
+    return dict(_PROFILING_STATS)
+
+
+def profiling_stats_clear() -> None:
+    for k in _PROFILING_STATS:
+        _PROFILING_STATS[k] = 0
+
+
+def profile_contexts_multi(jobs: Sequence[tuple["ProfileTable",
+                                                AcceleratorSpec,
+                                                list[tuple[Path, int,
+                                                           float]]]],
+                           *, seed: int = 0) -> list[CapacityEntry]:
+    """Fleet-aware batched profiling across MULTIPLE ProfileTables.
+
+    ``jobs`` is a sequence of (table, accelerator, flows-context) triples —
+    typically one per client server in a fleet, each server holding its own
+    ProfileTable (possibly with its own LinkSpec).  All cache-missing
+    contexts, deduplicated per table, run as ONE ragged ``simulate_batch``
+    per profiling config (tables sharing ``n_ticks``/``tick_cycles``/
+    ``clock_hz`` and device share the call; per-table links ride the
+    batch's link axis).  Entries are bitwise-identical to serial
+    ``profile_context`` runs and are written into each job's own table.
+    Returns entries aligned with ``jobs``."""
+    _PROFILING_STATS["calls"] += 1
+    keys = [context_key(a.name, f) for _, a, f in jobs]
+    todo: dict[tuple[int, str], tuple["ProfileTable", str, AcceleratorSpec,
+                                      list]] = {}
+    for (table, accel, flows), key in zip(jobs, keys):
+        tk = (id(table), key)
+        if key not in table.entries and tk not in todo:
+            todo[tk] = (table, key, accel, flows)
+    groups: dict[tuple, list] = {}
+    for item in todo.values():
+        table = item[0]
+        groups.setdefault((table.n_ticks, table.tick_cycles, table.clock_hz,
+                           str(table.device)), []).append(item)
+    for items in groups.values():
+        _PROFILING_STATS["sim_batches"] += 1
+        _PROFILING_STATS["contexts"] += len(items)
+        cfg = items[0][0]._cfg()
+        fsets, atabs, tbss, arrs, ns, links = [], [], [], [], [], []
+        for table, key, accel, flows in items:
+            specs = _context_specs(flows)
+            fset = FlowSet.build(specs)
+            ref = {i: accel.peak_gbps for i in range(len(specs))}
+            fsets.append(fset)
+            atabs.append(AccelTable.build([accel], table.clock_hz))
+            tbss.append(baselines.make_tb_state(
+                baselines.HOST_NO_TS,
+                [tb.TBParams(1, 1, 1)] * len(specs)))
+            arrs.append(gen_arrivals(fset, cfg, seed=seed,
+                                     load_ref_gbps=ref))
+            ns.append(len(specs))
+            links.append(table.link)
+        link_arg = links[0] if all(ln is links[0] for ln in links) else links
+        results = simulate_batch(fsets, atabs, link_arg, cfg, tbss,
+                                 *stack_arrivals(arrs),
+                                 device=items[0][0].device)
+        for (table, key, _a, _f), res, n in zip(items, results, ns):
+            table._entry_from_result(key, res, n)
+    return [t.entries[k] for (t, _, _), k in zip(jobs, keys)]

@@ -10,8 +10,10 @@ Port of ``src/repro/core/sim.py``.  It executes the Arcus dataplane protocol
 vectorized over flows, stepped over time (1 tick = `tick_cycles` FPGA
 cycles at 250 MHz).  The tick loop lives in ``repro_torch.core.engine``;
 this module keeps trace generation (the reference's numpy code, verbatim,
-so same-seed traces are byte-identical), result collection and
-``simulate``.  ``simulate_batch`` is not ported yet.
+so same-seed traces are byte-identical), result collection, ``simulate``
+and its batched form ``simulate_batch`` (with ``stack_arrivals``): B
+independent simulations as one batch of the engine, each element's result
+bitwise what a serial ``simulate`` of it gives.
 
 Shaping modes:
   SHAPING_NONE — no traffic shaping (Host_noTS / Bypassed_noTS_panic)
@@ -206,6 +208,24 @@ def gen_arrivals(flows: FlowSet, cfg: SimConfig, *, seed: int = 0,
     return times, szs
 
 
+def stack_arrivals(arrs: list[tuple[np.ndarray, np.ndarray]]
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a list of (times, sizes) traces to common flow-count and trace
+    length and stack to [B, N_max, M] for ``simulate_batch``.
+
+    Ragged flow counts pad with empty lanes (arrival time INF, size 0):
+    a padded lane never receives a message, so the engine's ``fl_mask``
+    keeps it inert."""
+    N = max(t.shape[0] for t, _ in arrs)
+    M = max(t.shape[1] for t, _ in arrs)
+    times = np.full((len(arrs), N, M), INF_I32, np.int32)
+    sizes = np.zeros_like(times)
+    for b, (t, s) in enumerate(arrs):
+        times[b, :t.shape[0], :t.shape[1]] = t
+        sizes[b, :s.shape[0], :s.shape[1]] = s
+    return times, sizes
+
+
 def gen_stall_mask(cfg: SimConfig, *, seed: int = 1,
                    stall_rate_hz: float = 2000.0,
                    stall_us: tuple[float, float] = (2.0, 40.0)) -> np.ndarray:
@@ -338,7 +358,7 @@ def _collect_result(host: dict, cfg: SimConfig, t0_ticks: int) -> SimResult:
 
 
 # ---------------------------------------------------------------------------
-# Entry point
+# Entry points
 # ---------------------------------------------------------------------------
 
 
@@ -363,3 +383,50 @@ def simulate(flows: FlowSet, accels: AccelTable, link: LinkSpec,
     if return_carry:
         return result, raw
     return result
+
+
+#: per-flow counter keys: ragged batch elements are sliced back to their
+#: unpadded flow count before result collection
+_PER_FLOW_KEYS = ("c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "c_done_msgs",
+                  "c_done_b_lo", "c_done_b_hi", "c_drops", "c_lat_sum")
+
+
+def simulate_batch(flows, accels, link, cfg, tb_states,
+                   arr_t: np.ndarray, arr_sz: np.ndarray,
+                   stall_mask: np.ndarray | None = None,
+                   *, t0_ticks: int = 0, device=None) -> list[SimResult]:
+    """Run B independent simulations as one batch of the engine
+    (``engine.run_window_batch``) on ``device`` (default ``"cuda"``).
+
+    * ``tb_states``: sequence of B TBStates (per-element shaping registers);
+    * ``arr_t`` / ``arr_sz``: [B, N_max, M] stacked traces
+      (``stack_arrivals`` — it pads ragged flow counts);
+    * ``flows``: one shared FlowSet, or a sequence of B FlowSets which may
+      have *different flow counts* (padded + flow-masked in the engine);
+    * ``cfg``: one shared SimConfig, or a sequence of B that differ only in
+      the traced system fields (shaping mode, arbiter, software-delay
+      model) — heterogeneous baseline systems batch into one call;
+    * ``accels`` / ``link``: one shared value, or sequences of B for
+      per-element accelerator tables / link specs; accelerator tables may
+      have *different accelerator counts* (padded and ``ac_mask``-masked
+      in the engine — padded rows are inert);
+    * ``stall_mask``: shared [T] mask or per-element [B, T].
+
+    Returns one SimResult per batch element, each — counters included —
+    bitwise-identical to what a serial ``simulate()`` call with the same
+    (unpadded) inputs produces."""
+    raw = engine.run_window_batch(flows, accels, link, cfg, tb_states,
+                                  arr_t, arr_sz, stall_mask,
+                                  t0_ticks=t0_ticks, device=device)
+    host = {k: raw[k].to("cpu", copy=True).numpy() for k in _RESULT_KEYS}
+    B = host["comp_n"].shape[0]
+    flows_l = flows if isinstance(flows, (list, tuple)) else [flows] * B
+    cfg_l = cfg if isinstance(cfg, (list, tuple)) else [cfg] * B
+    out = []
+    for b in range(B):
+        el = {k: v[b] for k, v in host.items()}
+        n_b = flows_l[b].n
+        for k in _PER_FLOW_KEYS:
+            el[k] = el[k][:n_b]
+        out.append(_collect_result(el, cfg_l[b], t0_ticks))
+    return out

@@ -39,7 +39,11 @@
 //    credits, accelerator-queue push, arbiter state, admission counters).
 //    Bitwise the plain version, ops.grant_tick_plain.
 //
-// Design.  One CTA (one server's dataplane).  Thread i owns flows
+// Design.  One CTA a batch element (one server's dataplane): the batched
+// engine (run_window_batch, the reference's jax.vmap) launches a grid of B
+// CTAs, each on its element's rows of every array, with the element's own
+// shaping mode, arbiter, credits, overhead, active-flow mask and stall row;
+// the serial engine launches the same kernel with B = 1.  Thread i owns flows
 // i, i + T, ... (T threads, FPT <= 8 flows a thread, N <= 8192) and holds
 // their state in registers for the whole tick: the bucket, queue head and
 // count, vft, weight, priority, accelerator and ingress direction, its
@@ -61,7 +65,8 @@
 // Bound: the tick reads each flow's state and KPF queue entries once and
 // writes its state once (tens of bytes a flow), so at a handful of flows
 // its bound is nanoseconds, and what it costs is the launch plus k_grant
-// dependent block reductions: latency, which no bandwidth removes.
+// dependent block reductions: latency, which no bandwidth removes.  Up to
+// 132 elements (one CTA an SM) run side by side in that latency.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,59 +154,66 @@ extern "C" int tb_step_launch(int n, const int* tokens, const int* cyc,
 
 // The argument block, field for field as ops.GrantTickArgs (a ctypes
 // Structure; tests/test_torch_token_bucket.py parses this declaration):
-// pointers into the carry and the window's tables, then the window's
-// scalars.  The carry's tensors are read and written in place; the tick's
-// index is read through a pointer, so one argument block serves every tick
-// of a window (the launch a CUDA graph holds).
+// pointers into the batched carry and the window's tables, then the
+// window's shapes.  Every per-element array has a leading batch axis of B
+// elements (B = 1 for the serial engine); element b's rows start at b
+// times the array's per-element size.  The carry's tensors are read and
+// written in place; the tick's index is read through a pointer, so one
+// argument block serves every tick of a window (the launch a CUDA graph
+// holds).
 struct GrantTickArgs {
-  int* tokens;                // [N] bucket state (tokens, cyc read/written)
+  int* tokens;                // [B, N] bucket state (tokens, cyc read/written)
   int* cyc;
-  const int* refill;          // [N] registers
+  const int* refill;          // [B, N] registers
   const int* bkt;
   const int* interval;
   const int* mode;
-  int* sw_pend;               // [N] deferred refill cycles (software shaping)
-  int* q_head;                // [N] flow queues
+  int* sw_pend;               // [B, N] deferred refill cycles (software shaping)
+  int* q_head;                // [B, N] flow queues
   int* q_cnt;
-  const int* q_sz;            // [N, qlen]
+  const int* q_sz;            // [B, N, qlen]
   const int* q_at;
-  float* vft;                 // [N] virtual finish times
-  const float* fl_w;          // [N] weights (>= 1e-3)
-  const float* fl_prio;       // [N] priorities
-  const long long* fl_accel;  // [N] accelerator of each flow
-  const int* fl_in_dir;       // [N] ingress direction (0 h2d, 1 d2h, 2 off)
-  int* rr_ptr;                // [] last granted flow
-  int* credits_used;          // [] root-complex credits in use
-  float* budget;              // [2] this tick's link budgets (bytes)
-  const int* aq_head;         // [A] accelerator queues
+  float* vft;                 // [B, N] virtual finish times
+  const float* fl_w;          // [B, N] weights (>= 1e-3)
+  const float* fl_prio;       // [B, N] priorities
+  const long long* fl_accel;  // [B, N] accelerator of each flow
+  const int* fl_in_dir;       // [B, N] ingress direction (0 h2d, 1 d2h, 2 off)
+  const bool* fl_mask;        // [B, N] active lanes (padding and holes false)
+  int* rr_ptr;                // [B] last granted flow
+  int* credits_used;          // [B] root-complex credits in use
+  float* budget;              // [B, 2] this tick's link budgets (bytes)
+  const int* aq_head;         // [B, A] accelerator queues
   int* aq_cnt;
   int* aq_bytes;
-  int* aq_sz;                 // [A, aq_len]
+  int* aq_sz;                 // [B, A, aq_len]
   int* aq_fl;
   int* aq_at;
-  int* c_adm_msgs;            // [N] admission counters (bytes as hi:lo20)
+  int* c_adm_msgs;            // [B, N] admission counters (bytes as hi:lo20)
   int* c_adm_b_lo;
   int* c_adm_b_hi;
-  const bool* stall;          // [n_ticks] the window's stall mask
+  const int* shaping;         // [B] shaping mode words
+  const int* arbiter;         // [B] arbiter words
+  const int* credits;         // [B] root-complex credits
+  const float* ovh;           // [B] per-message fabric overhead (bytes)
+  const bool* stall;          // [B or 1, n_ticks] the window's stall masks
   const int* t_idx;           // [1] the tick's index in the window, read
                               // on the card (a CUDA graph replays the
                               // launch; the engine advances the counter)
-  int n;
+  int n;                      // N, flows an element (padded)
+  int n_accel;                // A, accelerators an element (padded)
   int qlen;
   int aq_len;
   int aq_byte_cap;
-  int credits;
   int k_grant;
   int tick_cycles;
-  int shaping;
-  int arbiter;
-  float ovh;                  // per-message fabric overhead (bytes)
+  int stall_stride;           // n_ticks, or 0: one mask for every element
 };
 
 namespace {
 
 constexpr int SHAPING_NONE = 0;
 constexpr int SHAPING_SW = 2;
+constexpr int ARB_RR = 0;
 constexpr int ARB_WRR = 1;
 constexpr int ARB_PRIORITY = 2;
 constexpr int ARB_WFQ = 3;
@@ -243,15 +255,30 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n = a.n;
-  const bool sw = a.shaping == SHAPING_SW;
-  const bool shaped = a.shaping != SHAPING_NONE;
-  const bool stall = sw && a.stall[*a.t_idx];
-  const bool by_vft = a.arbiter == ARB_WRR || a.arbiter == ARB_WFQ;
+  // this CTA's batch element: its rows of every per-element array
+  const int b = blockIdx.x;
+  const int64_t fo = static_cast<int64_t>(b) * n;             // [B, N]
+  const int64_t ao = static_cast<int64_t>(b) * a.n_accel;     // [B, A]
+  const int64_t qo = fo * a.qlen;                             // [B, N, qlen]
+  const int64_t aqo = ao * a.aq_len;                          // [B, A, aq_len]
+  const int shaping = a.shaping[b];
+  const int arbiter = a.arbiter[b];
+  const int credits = a.credits[b];
+  const float ovh = a.ovh[b];
+  const bool sw = shaping == SHAPING_SW;
+  const bool shaped = shaping != SHAPING_NONE;
+  // loaded whatever the mode (the engine's mask covers every tick), so
+  // that the load does not wait for the mode word's
+  const bool stall_bit =
+      a.stall[static_cast<int64_t>(b) * a.stall_stride + *a.t_idx];
+  const bool stall = sw && stall_bit;
+  const bool by_vft = arbiter == ARB_WRR || arbiter == ARB_WFQ;
 
   // per-flow registers (flow f = tid + k * T)
   int tok[FPT], qh[FPT], qc[FPT], info[FPT], aqh[FPT], aqc[FPT], aqb[FPT];
   int msgs[FPT], lo[FPT], hi[FPT];
   float vft[FPT], w[FPT], prio[FPT];
+  bool act[FPT];
   int psz[FPT][KPF], pat[FPT][KPF];
 
   // -- stage 1: token-bucket timers, and the loads of the tick ------------
@@ -261,41 +288,43 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     tok[k] = qh[k] = qc[k] = info[k] = aqh[k] = aqc[k] = aqb[k] = 0;
     msgs[k] = lo[k] = hi[k] = 0;
     vft[k] = w[k] = prio[k] = 0.0f;
+    act[k] = f < n && a.fl_mask[fo + f];
 #pragma unroll
     for (int j = 0; j < KPF; ++j) psz[k][j] = pat[k][j] = 0;
     if (f >= n) continue;
+    const int64_t g = fo + f;
     // software shaping: a descheduled host defers refills and catches up
     // on wakeup; hardware shaping and unshaped systems tick every cycle
     int e = a.tick_cycles;
     int pend_out = 0;
     if (sw) {
-      const int pend = wrap_add(a.sw_pend[f], a.tick_cycles);
+      const int pend = wrap_add(a.sw_pend[g], a.tick_cycles);
       e = stall ? 0 : pend;
       pend_out = stall ? pend : 0;
     }
-    a.sw_pend[f] = pend_out;
-    const int iv = max(a.interval[f], 1);
-    const int b = a.bkt[f];
-    const int r = a.refill[f];
-    const int total = wrap_add(a.cyc[f], e);
+    a.sw_pend[g] = pend_out;
+    const int iv = max(a.interval[g], 1);
+    const int bk = a.bkt[g];
+    const int r = a.refill[g];
+    const int total = wrap_add(a.cyc[g], e);
     int kk = floor_div(total, iv);
-    a.cyc[f] = floor_mod(total, iv);
-    kk = min(kk, wrap_add(floor_div(b, max(r, 1)), 1));
-    tok[k] = min(wrap_add(a.tokens[f], wrap_mul(kk, r)), b);
-    const int acc = static_cast<int>(a.fl_accel[f]);
-    info[k] = (acc << 3) | (a.fl_in_dir[f] << 1) | (a.mode[f] == 0 ? 1 : 0);
-    qh[k] = a.q_head[f];
-    qc[k] = a.q_cnt[f];
-    vft[k] = a.vft[f];
-    w[k] = a.fl_w[f];
-    prio[k] = a.fl_prio[f];
-    aqh[k] = a.aq_head[acc];
-    aqc[k] = a.aq_cnt[acc];
-    aqb[k] = a.aq_bytes[acc];
-    msgs[k] = a.c_adm_msgs[f];
-    lo[k] = a.c_adm_b_lo[f];
-    hi[k] = a.c_adm_b_hi[f];
-    const int64_t row = static_cast<int64_t>(f) * a.qlen;
+    a.cyc[g] = floor_mod(total, iv);
+    kk = min(kk, wrap_add(floor_div(bk, max(r, 1)), 1));
+    tok[k] = min(wrap_add(a.tokens[g], wrap_mul(kk, r)), bk);
+    const int acc = static_cast<int>(a.fl_accel[g]);
+    info[k] = (acc << 3) | (a.fl_in_dir[g] << 1) | (a.mode[g] == 0 ? 1 : 0);
+    qh[k] = a.q_head[g];
+    qc[k] = a.q_cnt[g];
+    vft[k] = a.vft[g];
+    w[k] = a.fl_w[g];
+    prio[k] = a.fl_prio[g];
+    aqh[k] = a.aq_head[ao + acc];
+    aqc[k] = a.aq_cnt[ao + acc];
+    aqb[k] = a.aq_bytes[ao + acc];
+    msgs[k] = a.c_adm_msgs[g];
+    lo[k] = a.c_adm_b_lo[g];
+    hi[k] = a.c_adm_b_hi[g];
+    const int64_t row = qo + static_cast<int64_t>(f) * a.qlen;
 #pragma unroll
     for (int j = 0; j < KPF; ++j) {
       const int s = floor_mod(qh[k] + j, a.qlen);
@@ -303,9 +332,20 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
       pat[k][j] = a.q_at[row + s];
     }
   }
-  float b0 = a.budget[0], b1 = a.budget[1];
-  int cred = *a.credits_used;
-  int rr = *a.rr_ptr;
+  // round robin cycles lanes modulo N (so a mid-table hole keeps every
+  // active lane's place); the other arbiters' tie-break term counts
+  // modulo the element's active flows, as an unpadded element's does (the
+  // arbiter word is the CTA's, so the barriers are uniform)
+  int n_key = n;
+  if (arbiter != ARB_RR) {
+    int n_act = 0;
+#pragma unroll
+    for (int k = 0; k < FPT; ++k) n_act += __syncthreads_count(act[k]);
+    n_key = max(n_act, 1);
+  }
+  float b0 = a.budget[2 * b], b1 = a.budget[2 * b + 1];
+  int cred = a.credits_used[b];
+  int rr = a.rr_ptr[b];
 
   // -- stage 4: k_grant sequential grants ---------------------------------
   for (int it = 0; it < a.k_grant; ++it) {
@@ -319,15 +359,19 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
       const int hs = psz[k][0];
       const int dir = (info[k] >> 1) & 3;
       bool e = qc[k] > 0 && aqc[k] < a.aq_len &&
-               wrap_add(aqb[k], hs) <= a.aq_byte_cap && cred < a.credits;
+               wrap_add(aqb[k], hs) <= a.aq_byte_cap && cred < credits;
       if (shaped) e = e && tok[k] >= ((info[k] & 1) ? hs : 1);
       // a message may start whenever its link has any budget left
       const float bf = dir == 2 ? BIG : (dir == 0 ? b0 : b1);
-      e = e && bf > 0.0f && !stall;
-      const float rk = __int2float_rn(floor_mod(f - rr - 1, n));
-      float key = rk;
-      if (a.arbiter == ARB_PRIORITY) key = __fmaf_rn(-prio[k], 1e6f, rk);
-      else if (by_vft) key = __fmaf_rn(1e-6f, rk, vft[k]);
+      e = e && bf > 0.0f && act[k] && !stall;
+      float key;
+      if (arbiter == ARB_RR) {
+        key = __int2float_rn(floor_mod(f - rr - 1, n));
+      } else {
+        const float rk = __int2float_rn(floor_mod(f - rr - 1, n_key));
+        key = arbiter == ARB_PRIORITY ? __fmaf_rn(-prio[k], 1e6f, rk)
+                                      : __fmaf_rn(1e-6f, rk, vft[k]);
+      }
       if (!e) key = BIG;
       if (key < bk) {                 // flows ascend: a tie keeps the lower
         bk = key;
@@ -366,7 +410,7 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     const int ga = ginfo >> 3;
     const int gdir = (ginfo >> 1) & 3;
     const float szf = __int2float_rn(gsz);
-    const float spend = (gdir != 2 && ok) ? __fadd_rn(szf, a.ovh) : 0.0f;
+    const float spend = (gdir != 2 && ok) ? __fadd_rn(szf, ovh) : 0.0f;
     b0 = __fsub_rn(b0, gdir == 0 ? spend : 0.0f);
     b1 = __fsub_rn(b1, gdir != 0 ? spend : 0.0f);
     cred += ok ? 1 : 0;
@@ -381,7 +425,7 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
         if (shaped) tok[k] = wrap_add(tok[k], -((info[k] & 1) ? gsz : 1));
         // accelerator queue push, at the count before this grant
         const int slot = floor_mod(wrap_add(aqh[k], aqc[k]), a.aq_len);
-        const int64_t o = static_cast<int64_t>(ga) * a.aq_len + slot;
+        const int64_t o = aqo + static_cast<int64_t>(ga) * a.aq_len + slot;
         a.aq_sz[o] = gsz;
         a.aq_fl[o] = g;
         a.aq_at[o] = pat[k][0];
@@ -394,7 +438,7 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
           psz[k][j] = psz[k][j + 1];
           pat[k][j] = pat[k][j + 1];
         }
-        const int64_t s = static_cast<int64_t>(f) * a.qlen +
+        const int64_t s = qo + static_cast<int64_t>(f) * a.qlen +
                           floor_mod(qh[k] + KPF - 1, a.qlen);
         psz[k][KPF - 1] = a.q_sz[s];
         pat[k][KPF - 1] = a.q_at[s];
@@ -403,8 +447,8 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
         hi[k] = wrap_add(hi[k], l >> 20);
         lo[k] = l & 0xFFFFF;
         // WRR is message-granular, the other arbiters byte-granular
-        inc = a.arbiter == ARB_WRR ? __fdiv_rn(1.0f, w[k])
-                                   : __fdiv_rn(szf, w[k]);
+        inc = arbiter == ARB_WRR ? __fdiv_rn(1.0f, w[k])
+                                 : __fdiv_rn(szf, w[k]);
       }
       vft[k] = __fadd_rn(vft[k], inc);
       if (ok && (info[k] >> 3) == ga) {
@@ -419,42 +463,46 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
   for (int k = 0; k < FPT; ++k) {
     const int f = tid + k * T;
     if (f >= n) continue;
-    a.tokens[f] = tok[k];
-    a.q_head[f] = qh[k];
-    a.q_cnt[f] = qc[k];
-    a.vft[f] = vft[k];
-    a.c_adm_msgs[f] = msgs[k];
-    a.c_adm_b_lo[f] = lo[k];
-    a.c_adm_b_hi[f] = hi[k];
+    const int64_t g = fo + f;
+    a.tokens[g] = tok[k];
+    a.q_head[g] = qh[k];
+    a.q_cnt[g] = qc[k];
+    a.vft[g] = vft[k];
+    a.c_adm_msgs[g] = msgs[k];
+    a.c_adm_b_lo[g] = lo[k];
+    a.c_adm_b_hi[g] = hi[k];
     // every flow of an accelerator holds the same count: equal stores
     const int acc = info[k] >> 3;
-    a.aq_cnt[acc] = aqc[k];
-    a.aq_bytes[acc] = aqb[k];
+    a.aq_cnt[ao + acc] = aqc[k];
+    a.aq_bytes[ao + acc] = aqb[k];
   }
   if (tid == 0) {
-    a.budget[0] = b0;
-    a.budget[1] = b1;
-    *a.credits_used = cred;
-    *a.rr_ptr = rr;
+    a.budget[2 * b] = b0;
+    a.budget[2 * b + 1] = b1;
+    a.credits_used[b] = cred;
+    a.rr_ptr[b] = rr;
   }
 }
 
 template <int FPT>
-cudaError_t launch_grant_tick(const GrantTickArgs& a, int threads,
+cudaError_t launch_grant_tick(const GrantTickArgs& a, int batch, int threads,
                               cudaStream_t stream) {
-  tb_grant_tick_kernel<FPT><<<1, threads, 0, stream>>>(a);
+  tb_grant_tick_kernel<FPT><<<batch, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes): one launch of the grant tick on
-// `stream` for a->n flows (1..8192), no sync, no allocation; returns
-// cudaGetLastError() of the launch.  The block has T = 32 * ceil(n / FPT
-// / 32) threads for the least FPT in {1, 2, 4, 8} with n <= 1024 * FPT.
-extern "C" int tb_grant_tick_launch(const GrantTickArgs* a, void* stream) {
+// `stream` for `batch` elements of a->n flows (1..8192) each, one CTA an
+// element, no sync, no allocation; returns cudaGetLastError() of the
+// launch.  A CTA has T = 32 * ceil(n / FPT / 32) threads for the least FPT
+// in {1, 2, 4, 8} with n <= 1024 * FPT.  The grid may exceed the card's
+// resident CTAs (132 SMs): the rest run in later waves.
+extern "C" int tb_grant_tick_launch(const GrantTickArgs* a, int batch,
+                                    void* stream) {
   const int n = a->n;
-  if (n <= 0 || n > 8 * MAX_THREADS)
+  if (n <= 0 || n > 8 * MAX_THREADS || batch <= 0 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int fpt = 1;
   while (n > fpt * MAX_THREADS) fpt *= 2;
@@ -462,10 +510,10 @@ extern "C" int tb_grant_tick_launch(const GrantTickArgs* a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (fpt) {
-    case 1: err = launch_grant_tick<1>(*a, threads, s); break;
-    case 2: err = launch_grant_tick<2>(*a, threads, s); break;
-    case 4: err = launch_grant_tick<4>(*a, threads, s); break;
-    default: err = launch_grant_tick<8>(*a, threads, s); break;
+    case 1: err = launch_grant_tick<1>(*a, batch, threads, s); break;
+    case 2: err = launch_grant_tick<2>(*a, batch, threads, s); break;
+    case 4: err = launch_grant_tick<4>(*a, batch, threads, s); break;
+    default: err = launch_grant_tick<8>(*a, batch, threads, s); break;
   }
   return static_cast<int>(err);
 }

@@ -7,6 +7,8 @@ JAX is not installed; ``port_scenario`` builds a scenario with the port's
 modules, and ``test_torch_engine._scenario`` the same one with the JAX
 package's.  ``system`` names a ``baselines`` system by its module
 attribute; ``paths`` are ``Path`` values (ints)."""
+import dataclasses
+
 import numpy as np
 
 from repro_torch.core import baselines as tb_sys, token_bucket as ttb
@@ -106,3 +108,61 @@ def port_scenario(shaping, arbiter, n_flows=2, system=None, load=0.9,
         assert np.asarray(stall).any()
     tab = AccelTable.build([CATALOG[a] for a in accels])
     return flows, tab, sim_cfg, tbs, arr, stall
+
+
+# --- the batched engine -------------------------------------------------------
+
+#: the batched engine's parity elements (one ``port_scenario`` /
+#: ``test_torch_engine._scenario`` each): flow counts 1-3, accelerator
+#: counts 1-2, every shaping mode and four arbiter pairs, with the software
+#: element's stall mask; ``BATCH_HOLE`` is a mid-table ``fl_masks`` hole
+BATCH_ELEMENTS = [
+    dict(shaping=SHAPING_HW, arbiter=ARB_RR, n_flows=1),
+    dict(shaping=SHAPING_SW, arbiter=ARB_WFQ, n_flows=3,
+         accels=("ipsec32", "aes256"),
+         cfg=dict(sw_host_delay_cycles=100, sw_jitter_cycles=800)),
+    dict(shaping=SHAPING_NONE, arbiter=ARB_PRIORITY, n_flows=2),
+    dict(shaping=SHAPING_HW, arbiter=ARB_WRR, n_flows=3,
+         accels=("synthetic50", "sha3_512")),
+]
+BATCH_HOLE = (3, 1)
+#: ticks of one batched window; the parity runs three from one trace
+BATCH_WINDOW = 100
+
+
+def batch_masks(hole=BATCH_HOLE) -> list:
+    """Per-element ``fl_masks`` of ``BATCH_ELEMENTS`` (padded to 3 lanes)
+    with lane ``hole[1]`` of element ``hole[0]`` inert (``hole=None``: the
+    default prefix masks)."""
+    masks = [np.arange(3) < e["n_flows"] for e in BATCH_ELEMENTS]
+    if hole is not None:
+        masks[hole[0]][hole[1]] = False
+    return masks
+
+
+def stack_stalls(stalls, n_ticks: int) -> np.ndarray:
+    """[B, n_ticks] stall masks (zeros where an element has none)."""
+    return np.stack([np.zeros(n_ticks, bool) if s is None else s
+                     for s in stalls])
+
+
+def port_batch(n_windows: int = 3):
+    """``BATCH_ELEMENTS`` built with the port over ``n_windows`` windows:
+    (flows, accel tables, window configs, registers, [B, N, M] traces,
+    [B, T] stall masks)."""
+    from repro_torch.core.sim import stack_arrivals
+    els = [port_scenario(**e, n_ticks=n_windows * BATCH_WINDOW)
+           for e in BATCH_ELEMENTS]
+    cfgs = [dataclasses.replace(e[2], n_ticks=BATCH_WINDOW) for e in els]
+    return ([e[0] for e in els], [e[1] for e in els], cfgs,
+            [e[3] for e in els], stack_arrivals([e[4] for e in els]),
+            stack_stalls([e[5] for e in els], n_windows * BATCH_WINDOW))
+
+
+def port_batch_registers(flows_l) -> list:
+    """Second-window registers of ``BATCH_ELEMENTS``: each element's system
+    registers for SLOs of ``4 (i + 1)`` Gbps."""
+    return [tb_sys.make_tb_state(
+        getattr(tb_sys, DEFAULT_SYSTEM[e["shaping"]]),
+        [ttb.params_for_gbps(4.0 * (i + 1)) for i in range(f.n)])
+        for e, f in zip(BATCH_ELEMENTS, flows_l)]

@@ -216,3 +216,65 @@ def launcher_report(argv: list) -> tuple:
                                                       **V5E))
     return buf.getvalue().rstrip("\n"), t_serve.report(sched, tenants, cfg,
                                                         args)
+
+
+# --- the reference digest of the smoke's fig6_batch phase --------------------
+
+
+def result_digest(res) -> str:
+    """sha256 of one SimResult's counters (by sorted key) and completion
+    ring (flow, latency, time, size), each array's bytes in turn;
+    ``chip_smoke.result_digest`` is the same function."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(res.counters):
+        h.update(np.ascontiguousarray(res.counters[k]).tobytes())
+    for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
+        h.update(np.ascontiguousarray(getattr(res, k)).tobytes())
+    return h.hexdigest()
+
+
+def fig6_batch_digests(n_ticks: int = 60_000) -> list:
+    """The JAX reference's run of ``chip_smoke.py``'s ``fig6_batch``
+    phase on the CPU (``benchmarks/fig6_throughput_cdf.py``'s experiment:
+    Arcus, Host_TS_reflex and Host_TS_firecracker at load points 1.5 and
+    0.9, seed 3, one ``run_system_batch``) and each element's
+    ``result_digest``, in the smoke's element order.  No tier-1 test calls
+    it; ``chip_smoke.FIG6_DIGESTS`` pins its output:
+
+        PYTHONPATH=src:tests JAX_PLATFORMS=cpu python -c \\
+            'import _torch_parity as p; print(p.fig6_batch_digests())'
+    """
+    from repro.core import baselines, token_bucket as jtb
+    from repro.core.accelerator import CATALOG, AccelTable
+    from repro.core.flow import SLO, FlowSet, FlowSpec, Path, TrafficPattern
+    from repro.core.interconnect import LinkSpec
+    from repro.core.sim import gen_arrivals
+    slo1, slo2 = 300_000.0, 200_000.0
+    overrides = dict(tick_cycles=64, comp_cap=1 << 17, k_grant=8, k_srv=8,
+                     k_eg=8, qlen=512, lmax=64)
+
+    def flows(load_x):
+        return FlowSet.build([
+            FlowSpec(0, 0, Path.FUNCTION_CALL, 0,
+                     TrafficPattern(4096, rate_mps=slo1 * load_x,
+                                    process="poisson"), SLO.iops(slo1)),
+            FlowSpec(1, 1, Path.FUNCTION_CALL, 0,
+                     TrafficPattern(4096, rate_mps=slo2 * load_x,
+                                    process="poisson"), SLO.iops(slo2))])
+    names = ("Arcus", "Host_TS_reflex", "Host_TS_firecracker")
+    cfg0 = baselines.make_sim_config(baselines.ALL[names[0]], n_ticks,
+                                     **overrides)
+    arrs_lp = [gen_arrivals(flows(x), cfg0, seed=3) for x in (1.5, 0.9)]
+    plans = [jtb.params_for_iops(slo1), jtb.params_for_iops(slo2)]
+    systems, arrs, tbss = [], [], []
+    for name in names:
+        for a in arrs_lp:
+            systems.append(baselines.ALL[name])
+            arrs.append(a)
+            tbss.append(baselines.make_tb_state(baselines.ALL[name], plans))
+    res = baselines.run_system_batch(
+        systems, flows(1.0), AccelTable.build([CATALOG["nvme_raid0"]]),
+        LinkSpec(credits=256), n_ticks, tb_states=tbss, arr=arrs,
+        cfg_overrides=overrides)
+    return [result_digest(r) for r in res]

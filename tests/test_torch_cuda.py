@@ -1,7 +1,8 @@
 """On-card tests of the port: the Hopper token-bucket (step and grant
-tick), decode-attention, flash-prefill and SSD-scan kernels against their
-plain versions, CUDA dataplane windows (every engine parity case) against
-the same windows on the CPU, and the serving engine
+tick, serial and over a batch), decode-attention, flash-prefill and
+SSD-scan kernels against their plain versions, CUDA dataplane windows
+(every engine parity case, and a ragged mixed-mode batch) against the same
+windows on the CPU, and the serving engine
 (gemma3 and mamba2) through the kernels against the same engine through the
 plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card
 run them with
@@ -16,13 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from _engine_cases import CASES as ENGINE_CASES, port_scenario
+from _engine_cases import (BATCH_HOLE, BATCH_WINDOW, CASES as ENGINE_CASES,
+                           batch_masks, port_batch, port_batch_registers,
+                           port_scenario)
 from repro_torch.core import engine as te, token_bucket as tb
 from repro_torch.core.accelerator import CATALOG, AccelTable
 from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
                                    TrafficPattern)
 from repro_torch.core.interconnect import LinkSpec
-from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
+from repro_torch.core.sim import (SimConfig, gen_arrivals, simulate,
+                                  simulate_batch)
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
@@ -177,6 +181,83 @@ def test_engine_case_graph_matches_eager(dev, case):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
 
 
+@pytest.mark.parametrize("shared_stall", [False, True])
+@pytest.mark.parametrize("batch", tb_rehearse.BATCH_SIZES)
+def test_grant_tick_batch_matches_plain_on_card(dev, batch, shared_stall):
+    """The batched grant tick (one launch, one CTA an element) equals
+    ``grant_tick_plain`` bitwise on ragged batches with mid-table holes,
+    mixed shaping modes and arbiters, per-element or shared stall rows."""
+    row = tb_rehearse.check_batch(batch, dev, shared_stall=shared_stall)
+    torch.cuda.synchronize()
+    assert row["launches"] == 1 and row["differ"] == [], row
+    assert row["grants"] > 0 and row["hole_grants"] == 0
+
+
+def _batch_windows(run, dev):
+    """``_engine_cases.port_batch`` over three windows through ``run``
+    (``run_window_batch`` or its eager body): a hole; a recycled lane and
+    new registers; a released lane resumed without registers.  The host
+    carry after each window."""
+    flows, tabs, cfgs, regs, arr, stall = port_batch()
+    masks = [batch_masks(), batch_masks(None), batch_masks(None)]
+    masks[2][1][2] = False
+    regs = [regs, port_batch_registers(flows), None]
+    carry, out = None, []
+    for w in range(3):
+        if w == 1:
+            carry = te.recycle_flow_lane(carry, *BATCH_HOLE)
+        if w == 2:
+            carry = te.release_flow_lane(carry, 1, 2)
+        carry = run(flows, tabs, LinkSpec(), cfgs, regs[w], *arr, stall,
+                    t0_ticks=w * BATCH_WINDOW, carry=carry,
+                    fl_masks=masks[w], device=dev)
+        out.append(te.carry_to_numpy(carry))
+    return out
+
+
+def _carries_equal(want: dict, got: dict) -> None:
+    for k, v in want.items():
+        for a, b in zip(v if k == "tb" else (v,),
+                        got[k] if k == "tb" else (got[k],)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+def test_batch_windows_on_card_match_cpu_and_eager(dev):
+    """A ragged mixed-mode batch (flows 1-3, accelerators 1-2, HW + RR, SW
+    + WFQ with stalls, NONE + PRIORITY, HW + WRR, a hole) over three
+    windows through the batch entry's CUDA graph equals the same windows on
+    the CPU and through the eager body on the card, bitwise on every carry
+    leaf; one grant-tick launch a tick and one batch entry."""
+    te.cache_clear()
+    before = ops.LAUNCHES_BY_PATH["grant_tick"]
+    graph = _batch_windows(te.run_window_batch, dev)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_PATH["grant_tick"] - before == 3 * BATCH_WINDOW
+    assert te.cache_info() == {"entries": 1, "traces": 1}
+    cpu = _batch_windows(te.run_window_batch, "cpu")
+    eager = _batch_windows(te._run_window_batch_eager, dev)
+    for g, c, e in zip(graph, cpu, eager):
+        assert int(c["c_adm_msgs"].sum()) > 0
+        _carries_equal(c, g)
+        _carries_equal(c, e)
+
+
+def test_batch_elements_match_serial_on_card(dev):
+    """Each element of one ``simulate_batch`` window on the card equals a
+    serial ``simulate`` of it on the card, bitwise."""
+    flows, tabs, cfgs, regs, (arr_t, arr_sz), stall = port_batch(1)
+    batch = simulate_batch(flows, tabs, LinkSpec(), cfgs, regs, arr_t,
+                           arr_sz, stall, device=dev)
+    for b, f in enumerate(flows):
+        serial = simulate(f, tabs[b], LinkSpec(), cfgs[b], regs[b],
+                          arr_t[b, :f.n], arr_sz[b, :f.n], stall[b],
+                          device=dev)
+        for k, v in serial.counters.items():
+            assert v.tobytes() == batch[b].counters[k].tobytes(), (b, k)
+        for k in ("comp_flow", "comp_lat_s", "comp_t_s", "comp_sz"):
+            assert np.array_equal(getattr(serial, k), getattr(batch[b], k))
+
+
 @pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m"])
 def test_captured_decode_matches_eager(dev, arch):
     """The reduced config's decode step through the engine's CUDA graph
@@ -228,8 +309,9 @@ def test_grant_tick_rejects_bad_inputs(dev):
     before = ops.LAUNCHES
     for key, bad in (("vft", carry["vft"].double()),
                      ("q_head", carry["q_head"].long()),
-                     ("q_sz", carry["q_sz"].t().contiguous().t()),
-                     ("rr_ptr", carry["rr_ptr"].view(1))):
+                     ("q_sz", carry["q_sz"].transpose(1, 2).contiguous()
+                      .transpose(1, 2)),
+                     ("rr_ptr", carry["rr_ptr"].view(1, 1))):
         c = dict(carry, **{key: bad})
         with pytest.raises(ValueError, match=key):
             ops.grant_tick(cfg, args, c, budget, t_idx)

@@ -296,14 +296,15 @@ def test_two_dataplanes_of_one_signature_interleaved():
 @pytest.mark.parametrize("field, value", [("credits", 2),
                                           ("msg_overhead_bytes", 900)])
 def test_link_values_take_their_own_entries(field, value):
-    """Windows that differ only in a value the tick bakes in (the link's
-    credits or per-message overhead) take two entries, and each equals the
-    eager body's run of its own link."""
+    """Windows that differ only in the link's credits or per-message
+    overhead (data the tick reads from the entry's buffers, as the
+    reference traces them) share one entry and one capture, and each
+    equals the eager body's run of its own link."""
     wins = [_two_port_windows("hw_rr", link=lk)
             for lk in (tic.LinkSpec(), tic.LinkSpec(**{field: value}))]
     te.cache_clear()
     got = [_solo(te.run_window, w) for w in wins]
-    assert te.cache_info() == {"entries": 2, "traces": 2}
+    assert te.cache_info() == {"entries": 1, "traces": 1}
     for g, w in zip(got, wins):
         _assert_same(_solo(te._run_window_eager, w), g)
     assert got[0]["c_adm_msgs"].tobytes() != got[1]["c_adm_msgs"].tobytes()

@@ -185,7 +185,7 @@ def test_grant_args_struct_matches_cuda_source():
                  {"int": ctypes.c_int, "float": ctypes.c_float}[m.group(2)])
         fields.append((m.group(4), ctype))
     assert fields == list(tops.GrantTickArgs._fields_)
-    assert len(fields) == 40
+    assert len(fields) == 43
 
 
 def test_grant_kernel_mode_words_match_python():
@@ -195,8 +195,8 @@ def test_grant_kernel_mode_words_match_python():
     words = dict(re.findall(r"constexpr int (SHAPING_\w+|ARB_\w+) = (\d+);",
                             src))
     expect = dict(SHAPING_NONE=tops.SHAPING_NONE, SHAPING_SW=tops.SHAPING_SW,
-                  ARB_WRR=tic.ARB_WRR, ARB_PRIORITY=tic.ARB_PRIORITY,
-                  ARB_WFQ=tic.ARB_WFQ)
+                  ARB_RR=tic.ARB_RR, ARB_WRR=tic.ARB_WRR,
+                  ARB_PRIORITY=tic.ARB_PRIORITY, ARB_WFQ=tic.ARB_WFQ)
     assert {k: int(v) for k, v in words.items()} == expect
     assert re.search(r"constexpr float BIG = 3e38f;", src)
     assert tops.BIG == float(np.float32(3e38))
@@ -240,7 +240,7 @@ def test_random_grant_inputs_reach_every_kernel_path():
         grants[shaping, arbiter] = grants.get((shaping, arbiter), 0) + \
             int(per_flow.sum())
         past_prefetch |= int(per_flow.max()) > 4
-        second_warp |= bool((per_flow[32:] > 0).any())
+        second_warp |= bool((per_flow[..., 32:] > 0).any())
         idle |= int(per_flow.sum()) < k
     assert all(v > 0 for v in grants.values()) and len(grants) == 12
     assert past_prefetch and second_warp and idle
