@@ -13,7 +13,7 @@ drives the port's paths through the kernels:
     version at B = 1, 6 and 64; a ragged mixed-mode batch of four
     (``batch_parity``) CUDA against CPU, graph against eager body, and each
     element against its serial run; Fig. 6 / Table 3's six elements
-    (three systems, two load points) as one ``run_system_batch`` of 60,000
+    (three systems, two load points) as one ``run_system_batch`` of 20,000
     ticks held against a digest of the JAX reference's run
     (``fig6_batch``); sim_perf's eight heterogeneous profiler contexts
     against eight serial ``profile_context`` calls (``profile_batch8``);
@@ -45,10 +45,21 @@ type: bf16 (what the models pass) on the tensor cores, float32 on the CUDA
 cores; their phases check each call's path, and the serving phases check
 that every flash-prefill and SSD-scan launch took the tensor-core path.
 
-Cuts against earlier versions of this script: none; the mamba2 paths run
-more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that
-their mixes reach 3 s of virtual time.  ``fig6_batch`` runs fig6's quick
-tick count (60,000; the benchmark's full run is 400,000).
+The fleet control plane runs the contention, churn and adaptive
+benchmarks' configurations uncut on the card (``resource_parity``,
+``contention``, ``churn``, ``adaptive_churn``): the grant tick gating on
+and charging the link's extra resource axes, placement, churn and the
+adaptive control loop through ``FleetController``.
+
+Cuts against earlier versions of this script, made to fit the fleet
+phases in the time limit: ``fig6_batch`` runs 20,000 ticks (60,000 before;
+fig6's quick run is 60,000 and its full run 400,000; its digests are the
+JAX reference's at 20,000), ``profile`` profiles windows of 50 ticks (100
+before), ``profile_batch8`` holds its entries at 3,000 ticks and times
+12,000 (6,000 and 30,000 before), and ``parity`` / ``graph_parity`` run
+1,000 / 250 ticks (2,000 / 500 before).  The mamba2 paths run more
+scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that their
+mixes reach 3 s of virtual time.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The last three lines are the kernel table, the card's
@@ -77,12 +88,12 @@ SRC = os.path.join(ROOT, "src")
 PROFILE_TICKS = 2_000
 TOTAL_TICKS = 6_000
 WINDOW_TICKS = 2_000
-PARITY_TICKS = 2_000
-PROFILE_WINDOW = 100
+PARITY_TICKS = 1_000
+PROFILE_WINDOW = 50
 # eager windows beside the graph's (``engine._run_window_eager``, about
 # 9 ms a tick): the main path's comparison window and graph_parity's
 EAGER_TICKS = 300
-GRAPH_PARITY_TICKS = 500
+GRAPH_PARITY_TICKS = 250
 # graph_parity's serving decode: steps after three prompts
 DECODE_PARITY_STEPS = 8
 
@@ -1070,8 +1081,8 @@ def phase_profile(dev) -> dict:
 # the port: two 4096 B Poisson users at SLOs of 300K / 200K IOPS on
 # nvme_raid0, Arcus and the two software shapers at load points 1.5 and
 # 0.9 (B = 6), LinkSpec(credits=256), seed 3, the benchmark's overrides;
-# 60,000 ticks is its quick setting (quick=False runs 400,000)
-FIG6_TICKS = 60_000
+# cut to 20,000 ticks (its quick setting is 60,000, quick=False 400,000)
+FIG6_TICKS = 20_000
 FIG6_SERIAL_TICKS = 2_000
 FIG6_B = 6
 FIG6_SYSTEMS = ("Arcus", "Host_TS_reflex", "Host_TS_firecracker")
@@ -1082,17 +1093,18 @@ FIG6_OVERRIDES = dict(tick_cycles=64, comp_cap=1 << 17, k_grant=8, k_srv=8,
 # result_digest of each element of the JAX reference's run of this batch on
 # the CPU at FIG6_TICKS (tests/_torch_parity.fig6_batch_digests)
 FIG6_DIGESTS = [
-    "9e0b084bcf369c24d7197a02ed34a4a412aa3840178be9cc0715b727a74df3ab",
-    "596ed6b4f18b86451e20e8bcb8cca7fb99e9c0047759e3a11d669c3594c3dce3",
-    "005ffd88655190d6821e8e8c351d46ad049df82e1588cfed0b68a31aefd44935",
-    "0f6e5f494874af72adee08c82d5cfbe1b984e8275be502e908c083483cc10857",
-    "1e1b5f410f126e3e31d49ce2fa0a6e234d98530402a153d3d912e88f8519aa68",
-    "f45997bc8431b8f7ce8107033e24b741c9b4bd728620c2d2bb8e016f0492275f",
+    "d372fcfc11dc68db5db64c803029eedc594bfebe61a0ec8716e76644f0ce77e9",
+    "ae0041921c60cc1803c48b5eef4db2b73c6c738aa75f64e440b0d9ac6aacf27b",
+    "3825f790be94c871c412c7713360a47f881359278f33e8db7ed6e19c04348dd0",
+    "aa57e6f6c515d32ab3e07c62f9f4c8e58e727196370c6c5493d11a1445d61f6e",
+    "9e9400a558e1a6b659c77cee1f7ab3232397731f12409b47b57828dd212fc51a",
+    "a5cd4ea804ef7d7794267862c95b242ccbbe521f7e24b2912fb93d7be8ff8830",
 ]
 # benchmarks/sim_perf.py:180-211: the profiler's eight heterogeneous
-# contexts, entries held against serial profile_context calls at the quick
-# setting, the batched call timed alone at the full one
-PROFILE8_TICKS = (6_000, 30_000)
+# contexts, entries held against serial profile_context calls at 3,000
+# ticks, the batched call timed alone at 12,000 (its quick and full
+# settings are 6,000 and 30,000)
+PROFILE8_TICKS = (3_000, 12_000)
 # batch_parity: windows of the ragged B = 4 batch
 BATCH_PARITY_TICKS = 300
 # the profile phase's batched rows (fig6's configuration)
@@ -1363,7 +1375,7 @@ def phase_fig6_batch(dev) -> dict:
         table3[name] = {f"user{u + 1}": deviation_percentiles(r, u, slo)
                         for u, slo in enumerate(FIG6_SLOS)}
     emit("fig6_batch", batch=B, ticks=FIG6_TICKS,
-         reduced=dict(ticks=[FIG6_TICKS, 400_000]),
+         reduced=dict(ticks=[FIG6_TICKS, 60_000, 400_000]),
          systems=[s.name for s in inp["systems"]], loads=list(FIG6_LOADS),
          wall_s=wall, us_per_batched_tick=batch_us,
          element_ticks_per_s=B * FIG6_TICKS / wall,
@@ -1470,10 +1482,8 @@ def _profile_batch_window(dev, B: int, n_ticks: int) -> dict:
     """One window of ``n_ticks`` ticks of fig6's batch cycled to ``B``
     elements through the batch entry's graph (a first window captures it):
     timed alone (µs a tick, element-ticks a second), then under
-    torch.profiler as ``_profile_window`` does for the serial one (a trace
-    that misses a grant-tick launch is taken again, up to three times)."""
+    torch.profiler (``_trace_window``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import baselines as bl
     inp = fig6_inputs(n_ticks, B)
 
@@ -1488,6 +1498,20 @@ def _profile_batch_window(dev, B: int, n_ticks: int) -> dict:
     window()
     torch.cuda.synchronize()
     unprofiled = time.perf_counter() - t0
+    t = _trace_window(window, n_ticks)
+    wall = t.pop("wall_s")
+    return dict(batch=B, us_per_tick=unprofiled / n_ticks * 1e6,
+                element_ticks_per_s_unprofiled=B * n_ticks / unprofiled,
+                element_ticks_per_s=B * n_ticks / wall, **t)
+
+
+def _trace_window(window, n_ticks: int) -> dict:
+    """``window()`` (its entry already captured) under torch.profiler: a
+    tick's host µs, device busy µs and device kernels, the device's idle
+    share, and the grant tick's launches and device µs a launch (a trace
+    that misses a grant-tick launch is taken again, up to three times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):          # a trace that misses a grant tick: again
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1506,15 +1530,622 @@ def _profile_batch_window(dev, B: int, n_ticks: int) -> dict:
                     tb_n += 1
         if tb_n == n_ticks:
             break
-    return dict(batch=B, us_per_tick=unprofiled / n_ticks * 1e6,
-                element_ticks_per_s_unprofiled=B * n_ticks / unprofiled,
-                host_us_per_tick=wall / n_ticks * 1e6,
+    return dict(wall_s=wall, host_us_per_tick=wall / n_ticks * 1e6,
                 device_busy_us_per_tick=dev_us / n_ticks,
                 device_kernels_per_tick=kernels / n_ticks,
                 device_idle_share=max(0.0, 1.0 - dev_us / (wall * 1e6)),
-                element_ticks_per_s=B * n_ticks / wall,
                 token_bucket_launches=tb_n,
                 token_bucket_device_us_per_launch=tb_us / max(tb_n, 1))
+
+
+# ---------------------------------------------------------------------------
+# the fleet control plane: resource axes, placement, churn, adaptive control
+# ---------------------------------------------------------------------------
+
+# resource_parity: ticks of its windows
+RESOURCE_TICKS = 400
+# benchmarks/contention.py:52-77, uncut: eight synthetic50 servers, 24
+# interleaved 5 Gbps tenants (odd ones with a 0.05 memory-bandwidth hint),
+# mem_bw(24) and host_dma(48), 6,000 profiling ticks, the dataplane at its
+# quick 10,000 ticks
+CONTENTION_B = 8
+CONTENTION_SLO = 5.0
+CONTENTION_MEM_GBPS = 24.0
+CONTENTION_DMA_GBPS = 48.0
+CONTENTION_PROFILE_TICKS = 6_000
+CONTENTION_TICKS = 10_000
+# the traced window of contention's dataplane, R = 2 beside R = 0
+CONTENTION_TRACE_TICKS = 50
+CONTENTION_HEADROOM = 1.05
+CONTENTION_FRIENDLY = 0.95
+# each arm's placement (benchmarks/results/contention.json, B8)
+CONTENTION_DECISIONS = {
+    "vector": [0, 1, 2, 3, 4, 5, 6, 7, 1, 3, 5, 7, 3, 0, 7, 2, 4, 6, 1, 0,
+               5, 2, 6, 0],
+    "axis0": [0, 1, 2, 3, 4, 5, 6, 7, 1, 3, 5, 7, 3, 0, 7, 2, 4, 6, 1, 0,
+              5, 2, 6, 0],
+    "mem_blind": [0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 2,
+                  3, 4, 5, 6, 7]}
+# the JAX package's run of the same arms at these ticks on the CPU
+CONTENTION_OUTCOMES = {
+    "vector": dict(admitted=24, slo_friendly=24, min_measured_gbps=5.3248),
+    "axis0": dict(admitted=24, slo_friendly=24, min_measured_gbps=5.3248),
+    "mem_blind": dict(admitted=24, slo_friendly=12,
+                      min_measured_gbps=3.9935999999999994)}
+# benchmarks/churn.py's B8 rate1 (its timeline is the same quick or full)
+CHURN_COMPLEMENTS = (["synthetic50"], ["synthetic50", "aes256"],
+                     ["synthetic50", "aes256", "ipsec32"])
+CHURN_PROFILE_TICKS = 8_000
+CHURN_WINDOW = 1_500
+CHURN_WINDOWS = 6
+# benchmarks/results/churn.json's B8 rate1 (the JAX package's fresh run on
+# the CPU gives the same)
+CHURN_REFERENCE = dict(
+    decisions=[["arrive", 0, 0], ["arrive", 1, 3], ["depart", 0, 0],
+               ["arrive", 2, 0], ["depart", 1, 3], ["arrive", 3, 3],
+               ["depart", 2, 0]],
+    moves=[[900, 0, 6]], ref_gbps_mean=9.774222222222221,
+    ref_dev_max_pct=0.9821753364860141, slo_violations=1)
+# benchmarks/adaptive.py's churn arm: B = 2, six windows of 1,500 ticks
+ADAPTIVE_B = 2
+# violation windows and reconfigurations (benchmarks/results/adaptive.json's
+# churn arm; the JAX package's fresh run on the CPU gives the same)
+ADAPTIVE_REFERENCE = {"static": dict(violations=3, reconfigs=3),
+                      "adaptive": dict(violations=1, reconfigs=16)}
+
+
+def _resource_window_inputs(n_ticks: int, n_flows: int = 4, seed: int = 0):
+    """A tight memory-bandwidth axis and a fabric-only host-DMA axis with a
+    burst; ``n_flows`` flows of 1024 + 300 i bytes (a fifth 64 B) on
+    synthetic50, the odd ones with a 0.05 memory hint, one off-fabric
+    (INLINE_NIC_RX)."""
+    from repro_torch.core import token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
+                                       TrafficPattern)
+    from repro_torch.core.interconnect import (RES_MEM_BW, LinkSpec,
+                                               host_dma, mem_bw)
+    from repro_torch.core.sim import SimConfig, gen_arrivals
+    specs = [FlowSpec(i, i, Path.FUNCTION_CALL if i % 3
+                      else Path.INLINE_NIC_RX, 0,
+                      TrafficPattern(1024 + 300 * i, load=0.45,
+                                     process="poisson", msg_bytes2=64,
+                                     p2=0.2), SLO.gbps(10.0 + 3 * i),
+                      res_demand=((RES_MEM_BW, 0.05, 0.05),) if i % 2
+                      else ())
+             for i in range(n_flows)]
+    flows = FlowSet.build(specs)
+    cfg = SimConfig(n_ticks=n_ticks)
+    arr = gen_arrivals(flows, cfg, seed=seed,
+                       load_ref_gbps={i: 40.0 for i in range(n_flows)})
+    tbs = tb.pack([tb.params_for_gbps(10.0 + 3 * i)
+                   for i in range(n_flows)])
+    link = LinkSpec(resources=(mem_bw(20.0), host_dma(37.3, 4096)))
+    return flows, AccelTable.build([CATALOG["synthetic50"]]), link, cfg, \
+        tbs, arr
+
+
+def _carries_equal(name: str, a: dict, b: dict) -> None:
+    for k in a:
+        for x, y in zip(*((t[k] if k == "tb" else (t[k],)) for t in (a, b))):
+            if x.tobytes() != y.tobytes():
+                raise AssertionError(f"{name}: carry leaf {k} differs")
+
+
+def phase_resource_parity(dev) -> dict:
+    """The resource vector on the card: the grant tick with R = 1-4 extra
+    axes (``rehearse.RES_CASES``: B = 1, 8 and 64, k_grant 4 and 8,
+    non-dyadic coefficients, egress-only demand, a fabric-only axis,
+    budgets around zero) against its plain version bitwise; a window on a
+    two-axis link with 0.05 hints through the entry's CUDA graph against
+    the CPU and against the eager body on the card (every carry leaf, the
+    axes' residue included), over two windows with a register write; a
+    ragged two-element batch on that link, CUDA against CPU."""
+    import dataclasses
+
+    from repro_torch.core import engine, token_bucket as tb
+    from repro_torch.core.sim import simulate_batch, stack_arrivals
+    from repro_torch.kernels.token_bucket import ops, rehearse
+    cases = []
+    for case in rehearse.RES_CASES:
+        row = rehearse.check_resources(case, dev)
+        if row["launches"] != 1 or row["differ"]:
+            raise AssertionError(f"resource grant tick != plain: {row}")
+        cases.append(row)
+    n = RESOURCE_TICKS
+    flows, atab, link, cfg, tbs, arr = _resource_window_inputs(2 * n)
+    win = dataclasses.replace(cfg, n_ticks=n)
+    tbs2 = tb.pack([tb.params_for_gbps(4.0 + i) for i in range(flows.n)])
+    out = {}
+    engine.cache_clear()
+    n0 = ops.LAUNCHES_BY_PATH["grant_tick"]
+    for name, fn, device in (("graph", engine.run_window, dev),
+                             ("cpu", engine.run_window, "cpu"),
+                             ("eager", engine._run_window_eager, dev)):
+        carry, wins = None, []
+        for w, regs in enumerate((tbs, tbs2)):
+            carry = fn(flows, atab, link, win, regs, *arr, t0_ticks=w * n,
+                       carry=carry, device=device)
+            wins.append(engine.carry_to_numpy(carry))
+        out[name] = wins
+        if name == "graph":
+            launched = ops.LAUNCHES_BY_PATH["grant_tick"] - n0
+            info = engine.cache_info()
+    for w in range(2):
+        _carries_equal(f"resource window {w}: graph vs CPU",
+                       out["graph"][w], out["cpu"][w])
+        _carries_equal(f"resource window {w}: graph vs eager",
+                       out["graph"][w], out["eager"][w])
+    res_res = out["cpu"][1]["res_res"]
+    if not (res_res != 0).any() or out["cpu"][1]["comp_n"] <= 0:
+        raise AssertionError(f"resource window: axes idle ({res_res})")
+    if launched != 2 * n or info != {"entries": 1, "traces": 1}:
+        raise AssertionError(f"resource window: {launched} launches, "
+                             f"cache {info}")
+    els = [_resource_window_inputs(n, k, seed=k) for k in (4, 3)]
+    batch = [simulate_batch([e[0] for e in els], atab, link, win,
+                            [e[4] for e in els],
+                            *stack_arrivals([e[5] for e in els]), device=d)
+             for d in (dev, "cpu")]
+    for b in range(2):
+        _results_equal(f"resource batch element {b}: CUDA vs CPU",
+                       batch[0][b], batch[1][b])
+    # the grant tick at contention's shape (B = 8, R = 2) and, on the same
+    # carry, with no axes: ms a call, device ms a launch, bound
+    times = rehearse.time_grant_tick_resources(dev)
+    emit("resource_parity", kernel_cases=len(cases),
+         kernel_cases_by_axes={str(r): sum(c["case"][1] == r for c in cases)
+                               for r in (1, 2, 3, 4)},
+         gated_budgets=sum(c["gated"] for c in cases),
+         window_ticks=n, windows=2, res_res=res_res.tolist(),
+         completions=int(out["cpu"][1]["comp_n"]),
+         graph_vs_cpu_bitwise=True, graph_vs_eager_bitwise=True,
+         batch_vs_cpu_bitwise=True, grant_tick_launches=launched,
+         cache_info=info, times=times)
+    return dict(launches=launched, times=times)
+
+
+def _contention_fleet(arm: str, dev):
+    """One control plane of benchmarks/contention.py over a fresh fleet:
+    (runtimes, policy); the memory-blind plane profiles the link alone."""
+    from repro_torch.core import placement
+    from repro_torch.core.accelerator import CATALOG
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.profiler import ProfileTable
+    from repro_torch.core.runtime import ArcusRuntime
+    link = LinkSpec() if arm == "mem_blind" else _contention_link()
+    profile = ProfileTable(link, n_ticks=CONTENTION_PROFILE_TICKS,
+                           device=dev)
+    rts = [ArcusRuntime([CATALOG["synthetic50"]], link=link,
+                        profile_table=profile, device=dev)
+           for _ in range(CONTENTION_B)]
+    pol = (placement.SLOAware(axis=0) if arm == "axis0"
+           else placement.SLOAware())
+    return rts, pol
+
+
+def _contention_link():
+    from repro_torch.core.interconnect import LinkSpec, host_dma, mem_bw
+    return LinkSpec(resources=(mem_bw(CONTENTION_MEM_GBPS),
+                               host_dma(CONTENTION_DMA_GBPS)))
+
+
+def _contention_tenants():
+    """The interleaved stream: bandwidth-bound on even ids (the default
+    1.0 / 1.0 demand), compute-bound on odd ids (the 0.05 hint)."""
+    from repro_torch.core.flow import SLO, FlowSpec, Path, TrafficPattern
+    from repro_torch.core.interconnect import RES_MEM_BW
+    return [FlowSpec(i, i, Path.FUNCTION_CALL, 0,
+                     TrafficPattern(1024, load=0.5, process="poisson"),
+                     SLO.gbps(CONTENTION_SLO),
+                     res_demand=() if i % 2 == 0
+                     else ((RES_MEM_BW, 0.05, 0.05),))
+            for i in range(3 * CONTENTION_B)]
+
+
+def _contention_inputs(per_server, n_ticks: int):
+    """The placed fleet's batched dataplane inputs at ``n_ticks``
+    (benchmarks/contention.py ``_run_dataplane``): (flow sets, accelerator
+    table, config, registers, stacked arrivals)."""
+    from repro_torch.core import token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import FlowSet
+    from repro_torch.core.sim import (SHAPING_HW, SimConfig, gen_arrivals,
+                                      stack_arrivals)
+    cfg = SimConfig(n_ticks=n_ticks, shaping=SHAPING_HW)
+    flows_l, tbs_l, arrs = [], [], []
+    for b, specs in enumerate(per_server):
+        flows = FlowSet.build(specs)
+        flows_l.append(flows)
+        tbs_l.append(tb.pack([tb.params_for_gbps(
+            CONTENTION_SLO * CONTENTION_HEADROOM) for _ in specs]))
+        arrs.append(gen_arrivals(flows, cfg, seed=b + 1, load_ref_gbps={
+            i: 32.0 for i in range(flows.n)}))
+    return (flows_l, AccelTable.build([CATALOG["synthetic50"]]), cfg, tbs_l,
+            stack_arrivals(arrs))
+
+
+def _contention_dataplane(per_server, dev):
+    """One batched window of CONTENTION_TICKS over the placed fleet on the
+    vector link: measured ingress Gbps by flow id."""
+    from repro_torch.core.sim import simulate_batch
+    flows_l, accels, cfg, tbs_l, arr = _contention_inputs(
+        per_server, CONTENTION_TICKS)
+    res = simulate_batch(flows_l, accels, _contention_link(), cfg, tbs_l,
+                         *arr, device=dev)
+    return {s.flow_id: float(res[b].mean_ingress_gbps(i, flows_l[b]))
+            for b, specs in enumerate(per_server)
+            for i, s in enumerate(specs)}
+
+
+def _contention_trace(per_server, dev) -> dict:
+    """The cost of the resource path: one window of CONTENTION_TRACE_TICKS
+    of the placed fleet's dataplane on the two-axis link (R = 2) and on
+    the default link (R = 0), each through its graph entry (a first window
+    captures it) under torch.profiler (``_trace_window``)."""
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.sim import simulate_batch
+    flows_l, accels, cfg, tbs_l, arr = _contention_inputs(
+        per_server, CONTENTION_TRACE_TICKS)
+    out = {}
+    for name, link in (("R2", _contention_link()), ("R0", LinkSpec())):
+        def window():
+            simulate_batch(flows_l, accels, link, cfg, tbs_l, *arr,
+                           device=dev)
+        window()
+        t = _trace_window(window, CONTENTION_TRACE_TICKS)
+        del t["wall_s"]
+        out[name] = t
+    return out
+
+
+def phase_contention(dev) -> dict:
+    """benchmarks/contention.py uncut on the card: the three control planes
+    (``vector``: ``SLOAware()`` on the resource-aware fleet; ``axis0``:
+    ``SLOAware(axis=0)``; ``mem_blind``: the link-only fleet) place the same
+    24 tenants through ``FleetController.place`` (every admission round one
+    batched profile of its cache-missing contexts, 6,000 ticks on the
+    card), then each placed fleet runs one ``simulate_batch`` of B = 8
+    servers on the two-axis link, alone on a cleared cache (one entry, one
+    capture, one grant-tick launch a tick).  Decisions against
+    contention.json; admitted, SLO-friendly and the least measured rate
+    against the JAX package's run; the degenerate gate (huge-capacity axes
+    equal the default link) bitwise on the card; one traced window of the
+    vector arm's dataplane at R = 2 beside R = 0.  Each placement and each
+    dataplane run reads its own launch counts, set to 0 just before it."""
+    import torch
+    from repro_torch.core import engine, profiler
+    from repro_torch.core.controller import FleetController
+    from repro_torch.kernels.token_bucket import ops
+    arms = {}
+    for arm in ("vector", "axis0", "mem_blind"):
+        rts, pol = _contention_fleet(arm, dev)
+        profiler.profiling_stats_clear()
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = FleetController(rts).place(_contention_tenants(),
+                                            policy=pol)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        place_paths = dict(ops.LAUNCHES_BY_PATH)
+        stats = profiler.profiling_stats()
+        per_server = [[rt.table[fid].spec for fid in sorted(rt.table)]
+                      for rt in rts]
+        engine.cache_clear()
+        _reset_launch_counts()
+        t1 = time.perf_counter()
+        measured = _contention_dataplane(per_server, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        by_path = dict(ops.LAUNCHES_BY_PATH)
+        info = engine.cache_info()
+        arms[arm] = dict(
+            admitted=sum(p.accepted for p in placed),
+            slo_friendly=sum(m >= CONTENTION_FRIENDLY * CONTENTION_SLO
+                             for m in measured.values()),
+            min_measured_gbps=min(measured.values()),
+            decisions=[p.server if p.accepted else -1 for p in placed],
+            tenants_per_server=[len(s) for s in per_server],
+            placement_s=place_s, profiling_calls=stats["calls"],
+            profiling_batches=stats["sim_batches"],
+            profiled_contexts=stats["contexts"],
+            score_hits=stats["score_hits"],
+            placement_launches_by_path=place_paths,
+            dataplane_wall_s=wall,
+            us_per_batched_tick=wall / CONTENTION_TICKS * 1e6,
+            element_ticks_per_s=CONTENTION_B * CONTENTION_TICKS / wall,
+            launches_by_path=by_path, cache_info=info,
+            per_server=per_server)
+    degenerate = _contention_degenerate(arms, dev)
+    engine.cache_clear()
+    trace = _contention_trace(arms["vector"].pop("per_server"), dev)
+    for d in arms.values():
+        d.pop("per_server", None)
+    emit("contention", servers=CONTENTION_B,
+         tenants=3 * CONTENTION_B, slo_gbps=CONTENTION_SLO,
+         mem_gbps=CONTENTION_MEM_GBPS, dma_gbps=CONTENTION_DMA_GBPS,
+         profile_ticks=CONTENTION_PROFILE_TICKS, ticks=CONTENTION_TICKS,
+         reduced=dict(ticks=[CONTENTION_TICKS, 25_000]), arms=arms,
+         degenerate_bitwise=degenerate, traced_window=dict(
+             ticks=CONTENTION_TRACE_TICKS, **trace))
+    for arm, d in arms.items():
+        if d["decisions"] != CONTENTION_DECISIONS[arm]:
+            raise AssertionError(f"contention {arm}: decisions "
+                                 f"{d['decisions']} != contention.json's")
+        got = {k: d[k] for k in CONTENTION_OUTCOMES[arm]}
+        if got != CONTENTION_OUTCOMES[arm]:
+            raise AssertionError(f"contention {arm}: {got} != the JAX "
+                                 f"reference's {CONTENTION_OUTCOMES[arm]}")
+        if d["cache_info"] != {"entries": 1, "traces": 1} or \
+                d["launches_by_path"] != dict(step=0,
+                                              grant_tick=CONTENTION_TICKS):
+            raise AssertionError(f"contention {arm}: cache "
+                                 f"{d['cache_info']}, launches "
+                                 f"{d['launches_by_path']} for "
+                                 f"{CONTENTION_TICKS} ticks")
+    for name, t in trace.items():
+        if t["token_bucket_launches"] != CONTENTION_TRACE_TICKS:
+            raise AssertionError(f"contention traced window {name}: {t}")
+    return {arm: d["launches_by_path"] for arm, d in arms.items()}
+
+
+def _contention_degenerate(arms: dict, dev) -> bool:
+    """Huge-capacity axes reproduce the default link bitwise on the card:
+    the vector arm's server 0 (benchmarks/contention.py
+    ``_degenerate_gate``)."""
+    from repro_torch.core import token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import FlowSet
+    from repro_torch.core.interconnect import LinkSpec, host_dma, mem_bw
+    from repro_torch.core.sim import SimConfig, gen_arrivals, simulate
+    tenants = _contention_tenants()
+    specs = [tenants[i] for i, b in enumerate(arms["vector"]["decisions"])
+             if b == 0]
+    flows = FlowSet.build(specs)
+    cfg = SimConfig(n_ticks=CONTENTION_TICKS)
+    accels = AccelTable.build([CATALOG["synthetic50"]])
+    tbs = tb.pack([tb.params_for_gbps(CONTENTION_SLO * CONTENTION_HEADROOM)
+                   for _ in specs])
+    arr = gen_arrivals(flows, cfg, seed=1,
+                       load_ref_gbps={i: 32.0 for i in range(flows.n)})
+    inert = LinkSpec(resources=(mem_bw(1e6), host_dma(1e6)))
+    r0 = simulate(flows, accels, LinkSpec(), cfg, tbs, *arr, device=dev)
+    r1 = simulate(flows, accels, inert, cfg, tbs, *arr, device=dev)
+    _results_equal("contention degenerate gate", r0, r1)
+    return True
+
+
+def _churn_controller(profile, dev):
+    """benchmarks/churn.py ``_build(8, profile)``: eight servers cycling
+    the three complements, each with its long-lived reference tenant."""
+    from repro_torch.core.accelerator import CATALOG
+    from repro_torch.core.controller import FleetController
+    from repro_torch.core.flow import SLO, FlowSpec, Path, TrafficPattern
+    from repro_torch.core.runtime import ArcusRuntime
+    rts = [ArcusRuntime([CATALOG[n] for n in
+                         CHURN_COMPLEMENTS[b % len(CHURN_COMPLEMENTS)]],
+                        profile_table=profile, device=dev)
+           for b in range(8)]
+    ctrl = FleetController(rts)
+    ref = [[FlowSpec(1000 + b, 1000 + b, Path.FUNCTION_CALL, 0,
+                     TrafficPattern(1024, load=0.35, process="poisson"),
+                     SLO.gbps(8.0))] for b in range(8)]
+    if not all(all(a) for a in ctrl.admit_fleet(ref)):
+        raise AssertionError("churn: reference-tenant admission rejected")
+    return ctrl
+
+
+def _churn_tenant(i: int):
+    from repro_torch.core.flow import SLO, FlowSpec, Path, TrafficPattern
+    return FlowSpec(i, i, Path.FUNCTION_CALL, 0,
+                    TrafficPattern(1024, load=0.4, process="poisson"),
+                    SLO.gbps(6.0))
+
+
+def _churn_timeline(rate: int, n_windows: int) -> list:
+    """benchmarks/churn.py ``_timeline``: ``rate`` arrivals a window from
+    window 1, each departing two windows after it arrived."""
+    from repro_torch.core.controller import TenantEvent
+    events, born, nid = [], {}, 0
+    for w in range(1, n_windows):
+        for fid, bw in sorted(born.items()):
+            if bw == w - 2:
+                events.append(TenantEvent.depart(w, tenant_id=fid))
+                del born[fid]
+        if w < n_windows - 1:
+            for _ in range(rate):
+                events.append(TenantEvent.arrive(
+                    w, _churn_tenant(nid), accel_name="synthetic50"))
+                born[nid] = w
+                nid += 1
+    return events
+
+
+def phase_churn(dev) -> dict:
+    """benchmarks/churn.py's B8 ``rate1`` on the card: eight heterogeneous
+    servers through ``FleetController.run`` over six windows of 1,500 ticks
+    with seven ARRIVE / DEPART events (placed fleet-wide by SLO-aware
+    scoring); a warm run on a throwaway clone sharing the ProfileTable
+    (8,000 ticks a context), then the timed run on a cleared cache: one
+    entry, one capture, no profiling; then a pinned two-tenant burst on
+    server 0 and ``rebalance``.  Decisions, moves, the reference tenants'
+    mean rate and deviation and the violations against churn.json.  The
+    timed run's launch counts are set to 0 just before it and read just
+    after: one grant-tick launch a tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, profiler
+    from repro_torch.core.profiler import ProfileTable
+    from repro_torch.kernels.token_bucket import ops
+    kw = dict(total_ticks=CHURN_WINDOW * CHURN_WINDOWS,
+              window_ticks=CHURN_WINDOW, seeds=list(range(8)),
+              load_ref_gbps=[{0: 32.0}] * 8,
+              events=_churn_timeline(1, CHURN_WINDOWS))
+    profile = ProfileTable(n_ticks=CHURN_PROFILE_TICKS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _churn_controller(profile, dev).run(**kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ctrl = _churn_controller(profile, dev)
+    p0 = profiler.profiling_stats()
+    engine.cache_clear()
+    _reset_launch_counts()
+    t1 = time.perf_counter()
+    _results, reports = ctrl.run(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    by_path = dict(ops.LAUNCHES_BY_PATH)
+    info = engine.cache_info()
+    p_run = profiler.profiling_stats()
+    _reset_launch_counts()
+    burst = ctrl.place([_churn_tenant(900 + i) for i in range(2)],
+                       pinned=[0, 0], accel_names=["synthetic50"] * 2)
+    t2 = time.perf_counter()
+    moves = ctrl.rebalance()
+    torch.cuda.synchronize()
+    rebalance_s = time.perf_counter() - t2
+    burst_paths = dict(ops.LAUNCHES_BY_PATH)
+    p1 = profiler.profiling_stats()
+    ref = np.array([np.mean([w.measured[1000 + b] for w in reports[b]])
+                    for b in range(8)])
+    got = dict(
+        decisions=[[e["kind"], e["tenant"],
+                    -1 if e["server"] is None else e["server"]]
+                   for e in ctrl.last_events],
+        moves=[[m["tenant"], m["src"], m["dst"]] for m in moves],
+        ref_gbps_mean=float(ref.mean()),
+        ref_dev_max_pct=float(np.max(np.abs(ref - ref.mean()) / ref.mean())
+                              * 100),
+        slo_violations=sum(len(w.violated) for rep in reports for w in rep))
+    ticks = CHURN_WINDOW * CHURN_WINDOWS
+    emit("churn", servers=8, rate=1, windows=CHURN_WINDOWS,
+         window_ticks=CHURN_WINDOW, events=len(kw["events"]),
+         profile_ticks=CHURN_PROFILE_TICKS, **got,
+         stats=dict(ctrl.stats), burst_accepted=[p.accepted for p in burst],
+         warm_run_s=warm_s, wall_s=wall, rebalance_s=rebalance_s,
+         us_per_batched_tick=wall / ticks * 1e6,
+         element_ticks_per_s=8 * ticks / wall,
+         cache_info=info,
+         timed_run_profiled_contexts=p_run["contexts"] - p0["contexts"],
+         score_hits=p1["score_hits"] - p0["score_hits"],
+         launches_by_path=by_path, burst_rebalance_launches=burst_paths)
+    if got != CHURN_REFERENCE:
+        raise AssertionError(f"churn: {got} != the reference's "
+                             f"{CHURN_REFERENCE}")
+    if info != {"entries": 1, "traces": 1} or \
+            by_path != dict(step=0, grant_tick=ticks):
+        raise AssertionError(f"churn: cache {info}, launches {by_path} "
+                             f"for {ticks} ticks")
+    if p_run["contexts"] != p0["contexts"] or not all(
+            p.accepted for p in burst):
+        raise AssertionError(f"churn: the timed run profiled "
+                             f"{p_run['contexts'] - p0['contexts']} "
+                             "contexts, or the burst was rejected")
+    return by_path
+
+
+def _adaptive_controller(profile, policy, dev):
+    """benchmarks/adaptive.py ``_churn_fleet``: two synthetic50 servers,
+    each a latency-critical 128 B tenant beside an 8 Gbps reference."""
+    from repro_torch.core.accelerator import CATALOG
+    from repro_torch.core.controller import FleetController
+    from repro_torch.core.flow import SLO, FlowSpec, Path, TrafficPattern
+    from repro_torch.core.runtime import ArcusRuntime
+    rts = [ArcusRuntime([CATALOG["synthetic50"]], profile_table=profile,
+                        device=dev) for _ in range(ADAPTIVE_B)]
+    ctrl = FleetController(rts, control=policy)
+    specs = [[FlowSpec(2000 + b, 2000 + b, Path.FUNCTION_CALL, 0,
+                       TrafficPattern(128, rate_mps=1.0e6,
+                                      process="poisson"),
+                       SLO.latency(4e-6)),
+              FlowSpec(1000 + b, 1000 + b, Path.FUNCTION_CALL, 0,
+                       TrafficPattern(1024, load=0.3, process="poisson"),
+                       SLO.gbps(8.0))] for b in range(ADAPTIVE_B)]
+    if not all(all(a) for a in ctrl.admit_fleet(specs)):
+        raise AssertionError("adaptive_churn: admission rejected")
+    return ctrl
+
+
+def _adaptive_events() -> list:
+    """benchmarks/adaptive.py ``_churn_events``: a bursty on / off tenant
+    per server arrives at window 1 and departs at 4, a second wave
+    arrives at 2."""
+    from repro_torch.core.controller import TenantEvent
+    from repro_torch.core.flow import SLO, FlowSpec, Path, TrafficPattern
+
+    def burster(i):
+        return FlowSpec(i, i, Path.FUNCTION_CALL, 0,
+                        TrafficPattern(1500, load=0.5, process="onoff",
+                                       burst_len=64, duty=0.3),
+                        SLO.gbps(6.0))
+    ev = []
+    for i in range(ADAPTIVE_B):
+        ev += [TenantEvent.arrive(1, burster(i), server=i),
+               TenantEvent.depart(4, tenant_id=i),
+               TenantEvent.arrive(2, burster(100 + i), server=i)]
+    return ev
+
+
+def phase_adaptive_churn(dev) -> dict:
+    """benchmarks/adaptive.py's churn arm on the card: ``StaticHold``
+    against ``GlobalRetarget(SlackAIMD(), period=3)`` on two servers over
+    six windows of 1,500 ticks with bursty churn; each policy warmed on a
+    throwaway clone sharing the ProfileTable, then timed on a cleared
+    cache (one entry, one capture, launch counts set to 0 just before the
+    run and read just after: one grant-tick launch a tick).  Violation
+    windows and reconfigurations against the reference's."""
+    import torch
+    from repro_torch.core import control, engine
+    from repro_torch.core.profiler import ProfileTable
+    from repro_torch.kernels.token_bucket import ops
+    kw = dict(total_ticks=CHURN_WINDOW * CHURN_WINDOWS,
+              window_ticks=CHURN_WINDOW, seeds=list(range(ADAPTIVE_B)),
+              load_ref_gbps=[{1: 32.0}] * ADAPTIVE_B)
+    profile = ProfileTable(n_ticks=CHURN_PROFILE_TICKS, device=dev)
+    policies = {"static": control.StaticHold,
+                "adaptive": lambda: control.GlobalRetarget(
+                    control.SlackAIMD(), period=3)}
+    for mk in policies.values():
+        _adaptive_controller(profile, mk(), dev).run(
+            events=_adaptive_events(), **kw)
+    arms = {}
+    for name, mk in policies.items():
+        ctrl = _adaptive_controller(profile, mk(), dev)
+        engine.cache_clear()
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        _res, reports = ctrl.run(events=_adaptive_events(), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path = dict(ops.LAUNCHES_BY_PATH)
+        arms[name] = dict(
+            violations=sum(m.violated for rep in reports for w in rep
+                           for m in w.metrics.values()),
+            reconfigs=sum(rt.table[f].reconfigs for rt in ctrl.runtimes
+                          for f in rt.table),
+            wall_s=wall, us_per_batched_tick=wall / kw["total_ticks"] * 1e6,
+            cache_info=engine.cache_info(), launches_by_path=by_path)
+    emit("adaptive_churn", servers=ADAPTIVE_B, windows=CHURN_WINDOWS,
+         window_ticks=CHURN_WINDOW, arms=arms)
+    for name, d in arms.items():
+        got = {k: d[k] for k in ("violations", "reconfigs")}
+        if got != ADAPTIVE_REFERENCE[name]:
+            raise AssertionError(f"adaptive_churn {name}: {got} != the "
+                                 f"reference's {ADAPTIVE_REFERENCE[name]}")
+        if d["cache_info"] != {"entries": 1, "traces": 1} or \
+                d["launches_by_path"] != dict(step=0,
+                                              grant_tick=kw["total_ticks"]):
+            raise AssertionError(f"adaptive_churn {name}: cache "
+                                 f"{d['cache_info']}, launches "
+                                 f"{d['launches_by_path']} for "
+                                 f"{kw['total_ticks']} ticks")
+    if arms["adaptive"]["violations"] >= arms["static"]["violations"]:
+        raise AssertionError("adaptive_churn: adaptive shaping did not "
+                             "reduce violations")
+    return {name: d["launches_by_path"] for name, d in arms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2030,6 +2661,7 @@ def main() -> int:
     k = phase_kernel(dev)
     gt = phase_kernel_grant_tick(dev)
     gtb = phase_kernel_grant_tick_batch(dev)
+    res = phase_resource_parity(dev)
     da = phase_kernel_decode_attention(dev)
     fp = phase_kernel_flash_prefill(dev)
     ssd = phase_kernel_ssd_scan(dev)
@@ -2041,6 +2673,9 @@ def main() -> int:
     fig6 = phase_fig6_batch(dev)
     prof8 = phase_profile_batch8(dev)
     prof = phase_profile(dev)
+    cont = phase_contention(dev)
+    churn = phase_churn(dev)
+    adapt = phase_adaptive_churn(dev)
     model, serve, _ = phase_serve(dev)
     long = phase_serve_long(dev, model)
     phase_serve_parity(dev, model)
@@ -2065,6 +2700,9 @@ def main() -> int:
     by_path["token_bucket"] = dict(
         main_path=main["by_path"], fig6_batch=fig6["by_path"],
         profile_batch8=prof8["by_path"],
+        **{f"contention.{arm}": v for arm, v in cont.items()},
+        churn=churn,
+        **{f"adaptive_churn.{arm}": v for arm, v in adapt.items()},
         **{p: r["token_bucket_paths"] for p, r in runs.items()})
     tb_src = "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu"
     step = k["times"][n_main]
@@ -2088,6 +2726,7 @@ def main() -> int:
                                "device_busy_us_per_tick", "us_per_tick")}
             for r in prof["batched"]],
         "step": dict(step, shape=f"[{n_main}] flows (admission call)"),
+        "resource_axes": res["times"],
         "launches_by_path": by_path["token_bucket"]}, {
         # the same kernel launched over a grid of batch elements: its
         # numbers at fig6's batch size, its launches on fig6_batch
@@ -2104,8 +2743,13 @@ def main() -> int:
         "by_batch": {str(B): {k: v[k] for k in (
             "flows", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
             for B, v in gtb["times"].items()},
-        "launches_by_path": dict(fig6_batch=fig6["launches"],
-                                 profile_batch8=prof8["launches"])}]
+        "launches_by_path": dict(
+            fig6_batch=fig6["launches"], profile_batch8=prof8["launches"],
+            **{f"contention.{arm}": v["grant_tick"]
+               for arm, v in cont.items()},
+            churn=churn["grant_tick"],
+            **{f"adaptive_churn.{arm}": v["grant_tick"]
+               for arm, v in adapt.items()})}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,
              "src/repro_torch/kernels/decode_attention/csrc/"

@@ -10,10 +10,17 @@ and every arbiter (RR / WRR / PRIORITY / WFQ):
     1. token-bucket timers      -> Hopper token-bucket kernel
                                    ``grant_tick``, one launch with stage 4
     2. arrivals -> flow queues
-    3. per-tick link budgets
+    3. per-tick link (and resource-axis) budgets
     4. shaper + arbiter grants  -> the same launch (``k_grant`` grants)
     5. accelerator service
     6. egress link + completions
+
+The link may carry R extra resource axes (``LinkSpec.resources``: device
+memory bandwidth, host DMA, ...), each a token bucket of bytes: a grant
+is gated on every axis its flow demands and charges its ingress demand, an
+egress pop charges its egress demand as debt, and unused budget carries up
+to the axis' burst depth.  R is a shape, so it is in an entry's key; with
+none the tick computes no resource op.
 
 Stages 1 and 4 run together, after 2 and 3 (which read neither the bucket
 state nor ``sw_pend``): ``kernels/token_bucket/ops.grant_tick`` refills
@@ -147,10 +154,11 @@ def _own_tb(tb_state: tb.TBState, device) -> tb.TBState:
 
 def init_carry(flows: FlowSet, accels: AccelTable, cfg: SimConfig,
                tb_state: tb.TBState, *, n_flows: int | None = None,
-               device=None) -> dict[str, Any]:
+               n_res: int = 0, device=None) -> dict[str, Any]:
     """A fresh dataplane's carry (one element: the reference's serial
     shapes); ``n_flows`` pads the flow axis for a ragged batch (with
-    ``tb_state`` padded to match, ``pad_tb_state``)."""
+    ``tb_state`` padded to match, ``pad_tb_state``); ``n_res`` is the
+    link's number of extra resource axes."""
     dev = resolve_device(device)
     N, A = (n_flows or flows.n), accels.n
     lanes_busy = np.zeros((A, cfg.lmax), np.float32)
@@ -166,7 +174,9 @@ def init_carry(flows: FlowSet, accels: AccelTable, cfg: SimConfig,
         tb=_own_tb(tb_state, dev), sw_pend=z(N),
         rr_ptr=z(), vft=z(N, dtype=torch.float32),
         lres=z(2, dtype=torch.float32),
-        res_res=z(0, dtype=torch.float32),   # no extra resource axes
+        # extra resource axes (token-bucket residue: unused budget up to
+        # each axis' burst_bytes, or the serialization debt when negative)
+        res_res=z(n_res, dtype=torch.float32),
         credits_used=z(),
         aq_sz=z(A, cfg.aq_len), aq_fl=z(A, cfg.aq_len),
         aq_at=z(A, cfg.aq_len), aq_head=z(A), aq_cnt=z(A), aq_bytes=z(A),
@@ -366,6 +376,60 @@ def _flow_args(flows: FlowSet, n_max: int) -> dict[str, np.ndarray]:
     )
 
 
+def _resource_tables(flows: FlowSet, accels: AccelTable, link: LinkSpec,
+                     n_max: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-flow demand coefficients on the extra resource axes.
+
+    Returns ``(w_in, w_eg)``, each ``[R, n_max]`` float32 for the link's R
+    extra axes: bytes charged on axis r per ingress byte granted / per
+    egress byte popped for flow i.
+    Resolution order: a flow's own ``res_demand`` hint, else its
+    accelerator's ``AcceleratorSpec.res_demand``, else 1.0/1.0 (every byte
+    crosses the axis).  ``fabric_only`` axes charge nothing for off-fabric
+    (dir == 2) stage directions.  Negative demand clamps to 0.  Padded flow
+    lanes keep 0 coefficients — they are never granted, so the value is
+    inert either way."""
+    rspecs = getattr(link, "resources", ())
+    R = len(rspecs)
+    w_in = np.zeros((R, n_max), np.float32)
+    w_eg = np.zeros((R, n_max), np.float32)
+    specs = getattr(flows, "specs", ())
+    for r, rs in enumerate(rspecs):
+        for i in range(flows.n):
+            sp = specs[i] if i < len(specs) else None
+            ic = ec = None
+            if sp is not None:
+                for nm, a, b in getattr(sp, "res_demand", ()):
+                    if nm == rs.name:
+                        ic, ec = float(a), float(b)
+                        break
+            if ic is None:
+                aspec = (accels.spec_of(int(flows.accel_id[i]))
+                         if hasattr(accels, "spec_of") else None)
+                ic, ec = (aspec.resource_demand(rs.name)
+                          if aspec is not None else (1.0, 1.0))
+            if rs.fabric_only:
+                if int(flows.ingress_dir[i]) == 2:
+                    ic = 0.0
+                if int(flows.egress_dir[i]) == 2:
+                    ec = 0.0
+            w_in[r, i] = max(ic, 0.0)
+            w_eg[r, i] = max(ec, 0.0)
+    return w_in, w_eg
+
+
+def _n_res(links_l: list) -> int:
+    """The batch's number of extra resource axes (every link the same)."""
+    n_res = len(getattr(links_l[0], "resources", ()))
+    if any(len(getattr(link, "resources", ())) != n_res
+           for link in links_l[1:]):
+        raise ValueError(
+            "batched LinkSpecs must all carry the same number of resource "
+            "axes (resource tables are a shared traced shape; a huge-"
+            "capacity axis is inert if an element needs fewer)")
+    return n_res
+
+
 # ---------------------------------------------------------------------------
 # Per-window arguments
 # ---------------------------------------------------------------------------
@@ -417,7 +481,10 @@ def _pack_args(flows_l: list, accels_l: list, links_l: list, cfgs_l: list,
     to the largest flow count (and masked), accelerator tables already
     padded to one count, links, mode words and software-delay models,
     ``[B, N, M]`` arrival traces and the window's ``[B or 1, n_ticks]``
-    stall masks.
+    stall masks.  A link with R extra resource axes adds their per-cycle
+    capacities and burst depths ([B, R]) and the flows' demand
+    coefficients ([B, R, N]; ``res_w_any``: the axes a flow charges in
+    either direction); with none the tick computes no resource op.
 
     Tensors are data a graph reads in place.  The values that are not
     tensors are what an entry bakes in (its key holds them): the shaping
@@ -425,10 +492,7 @@ def _pack_args(flows_l: list, accels_l: list, links_l: list, cfgs_l: list,
     each accelerator column's mask state."""
     for c in cfgs_l:
         _check_modes(c)
-    if any(getattr(link, "resources", ()) for link in links_l):
-        raise NotImplementedError(
-            "repro_torch: the shaped resource vector (LinkSpec.resources) "
-            "is not ported yet")
+    n_res = _n_res(links_l)
     B = len(flows_l)
     n_max = max(f.n for f in flows_l)
     per_el = [_flow_args(f, n_max) for f in flows_l]
@@ -474,6 +538,20 @@ def _pack_args(flows_l: list, accels_l: list, links_l: list, cfgs_l: list,
         bud_off=torch.full((B, 1), tb_ops.BIG, dtype=torch.float32,
                            device=dev),
     )
+    if n_res:
+        tabs = [_resource_tables(f, a, link, n_max)
+                for f, a, link in zip(flows_l, accels_l, links_l)]
+        w_in = np.stack([w for w, _ in tabs])
+        w_eg = np.stack([w for _, w in tabs])
+        args.update(
+            res_cap=t(np.stack([link.resource_caps_per_cycle()
+                                for link in links_l]), torch.float32),
+            res_burst=t(np.stack([link.resource_burst_bytes()
+                                  for link in links_l]), torch.float32),
+            res_w_in=t(w_in, torch.float32), res_w_eg=t(w_eg, torch.float32),
+            # a flow's grants stall while ANY axis it demands, in either
+            # direction, is in debt
+            res_w_any=t((w_in > 0.0) | (w_eg > 0.0), torch.bool))
     return args
 
 
@@ -560,11 +638,17 @@ def _tick(cfg: SimConfig, args: dict, c: dict, clock: torch.Tensor) -> None:
 
     # -- 3. per-tick link budgets ------------------------------------------
     budget = args["bpc"] * float(cfg.tick_cycles) + c["lres"]  # [B, 2] bytes
+    # extra resource axes: each a token bucket of [B, R] bytes.  R is a
+    # shape (in the entry's key): with none, no resource op is computed
+    res_w_eg = args.get("res_w_eg")
+    res_bud = None
+    if res_w_eg is not None:
+        res_bud = args["res_cap"] * float(cfg.tick_cycles) + c["res_res"]
 
     # -- 1. token-bucket timers + 4. shaper + arbiter grants ---------------
     # one launch of the Hopper kernel a tick, one CTA an element (the plain
-    # version on the CPU)
-    tb_ops.grant_tick(cfg, args, c, budget, clock[1:])
+    # version on the CPU); grants are gated on and charge the resource axes
+    tb_ops.grant_tick(cfg, args, c, budget, clock[1:], res_bud)
 
     # -- 5. accelerator service (pass-major: iteration i serves i % A) ------
     # int32 -> float32 rounds to nearest, as np.float32 of the tick's cycles
@@ -656,6 +740,18 @@ def _tick(cfg: SimConfig, args: dict, c: dict, clock: torch.Tensor) -> None:
         c["eq_cnt"] -= popi
         budget = budget - torch.where(pop[:, :2],
                                       sz[:, :2].float() + args["ovh"], 0.0)
+        if res_bud is not None:
+            # ungated debt charge of every axis: the three directions'
+            # products summed as the compiled reference contracts its
+            # reduction (a fused multiply-add chain from the first
+            # product), then subtracted
+            w = res_w_eg.gather(2, fl.long()[:, None, :].expand(
+                -1, res_w_eg.shape[1], -1))                     # [B, R, 3]
+            e = torch.where(pop, sz, 0).float()[:, None, :]
+            acc = w[:, :, 0] * e[:, :, 0]
+            acc = fma32(w[:, :, 1], e[:, :, 1], acc)
+            acc = fma32(w[:, :, 2], e[:, :, 2], acc)
+            res_bud = res_bud - acc
         n_pop = popi.sum(1, dtype=torch.int32)
         c["credits_used"] -= n_pop
         # completion = transfer start + own serialization delay
@@ -689,6 +785,11 @@ def _tick(cfg: SimConfig, args: dict, c: dict, clock: torch.Tensor) -> None:
     # positive leftover budget is lost (a link cannot save idle time);
     # negative budget (serialization debt) carries
     c["lres"].copy_(torch.clamp(budget, max=0.0))
+    if res_bud is not None:
+        # each axis is a token bucket: unused budget carries up to the
+        # axis' burst depth (0: idle capacity is lost, as on the link);
+        # debt always carries
+        c["res_res"].copy_(torch.minimum(res_bud, args["res_burst"]))
     clock.add_(1)
 
 
@@ -887,7 +988,9 @@ def _prepare(flows: FlowSet, accels: AccelTable, link: LinkSpec,
                       _as_i32(arr_t, dev)[None], _as_i32(arr_sz, dev)[None],
                       _window_stall(stall_mask, cfg, t0_ticks), dev)
     if carry is None:
-        carry = init_carry(flows, accels, cfg, tb_state, device=dev)
+        carry = init_carry(flows, accels, cfg, tb_state,
+                           n_res=len(getattr(link, "resources", ())),
+                           device=dev)
     else:
         carry = reconfigure_carry(carry, tb_state)
     return args, _one(carry)
@@ -967,6 +1070,7 @@ def _prepare_batch(flows, accels, link, cfg, tb_states, arr_t, arr_sz,
             f"{TRACED_CFG_FIELDS}")
     a_max = max(a.n for a in accels_l)
     padded_l = [pad_accel_table(a, a_max) for a in accels_l]
+    n_res = _n_res(links_l)
     n_max = max(f.n for f in flows_l)
     if arr_t.shape[1] != n_max:
         raise ValueError(
@@ -993,7 +1097,7 @@ def _prepare_batch(flows, accels, link, cfg, tb_states, arr_t, arr_sz,
     if carry is None:
         carry = _stack([init_carry(flows_l[b], padded_l[b], cfg0,
                                    pad_tb_state(tb_states[b], n_max),
-                                   n_flows=n_max, device=dev)
+                                   n_flows=n_max, n_res=n_res, device=dev)
                         for b in range(B)])
     elif tb_states is not None:
         # resumed fleet window: write only the per-element parameter

@@ -32,8 +32,8 @@ import numpy as np
 
 from repro_torch.core import baselines, token_bucket as tb
 from repro_torch.core.accelerator import AccelTable, AcceleratorSpec
-from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
-                                   TrafficPattern)
+from repro_torch.core.flow import (PATH_EGRESS_DIR, PATH_INGRESS_DIR, SLO,
+                                   FlowSet, FlowSpec, Path, TrafficPattern)
 from repro_torch.core.interconnect import ARB_RR, RES_LINK, LinkSpec
 from repro_torch.core.sim import (SHAPING_NONE, SimConfig, gen_arrivals,
                                   simulate, simulate_batch, stack_arrivals)
@@ -88,10 +88,11 @@ class CapacityEntry:
     Axis 0 is always the link: ``capacity[0]`` is the measured aggregate
     ingress goodput and ``per_flow[0]`` the measured per-flow split under
     fair arbitration.  Each extra axis r >= 1 mirrors one
-    ``LinkSpec.resources`` entry of the reference (``capacity[r]`` its
-    shaped capacity, ``per_flow[r][i]`` the flow's demand coefficient);
-    the port profiles the link axis only, and reads extra axes from
-    tables the reference wrote.  Scalar positional arguments (the
+    ``LinkSpec.resources`` entry: ``capacity[r]`` is that axis' shaped
+    capacity in Gbps and ``per_flow[r][i]`` the flow's *demand
+    coefficient* — Gbps charged on the axis per Gbps of ingress goodput
+    (ingress coefficient plus the egress coefficient scaled by the
+    device's egress/ingress byte ratio).  Scalar positional arguments (the
     pre-vector schema) are promoted to R=1 vectors; the pre-vector
     ``capacity_gbps`` / ``per_flow_gbps`` names remain readable as
     properties and construct entries through a ``DeprecationWarning``
@@ -259,12 +260,48 @@ class ProfileTable:
                          clock_hz=self.clock_hz,
                          shaping=SHAPING_NONE, arbiter=ARB_RR)
 
-    def _entry_from_result(self, key: str, res, n: int) -> CapacityEntry:
-        """The link-axis entry (the engine rejects extra resource axes)."""
+    def _entry_from_result(self, key: str, res, n: int,
+                           accel: AcceleratorSpec | None = None,
+                           ctx: list | None = None) -> CapacityEntry:
+        """The entry of a profiled context: the measured link axis, then
+        one column per extra resource axis of the table's link."""
         per = [res.mean_ingress_gbps(i, None) for i in range(n)]
         x = np.asarray(per)
         fair = float((x.sum() ** 2) / (len(x) * (x ** 2).sum() + 1e-12))
-        entry = CapacityEntry([float(x.sum())], [per], fair, key, [RES_LINK])
+        caps = [float(x.sum())]
+        pflows = [per]
+        names = [RES_LINK]
+        # extra axes: shaped capacity is the axis' static cap; the per-flow
+        # column is the demand coefficient the engine charges (ingress
+        # coefficient + egress coefficient x the device's egress/ingress
+        # byte ratio, with fabric_only axes skipping off-fabric directions)
+        for rs in getattr(self.link, "resources", ()):
+            coefs = []
+            for t in canonical_context(ctx or []):
+                p, m = Path(t[0]), float(t[1])
+                hint = t[3] if len(t) > 3 else ()
+                ic = ec = None
+                for nm, a, b in hint:
+                    if nm == rs.name:
+                        ic, ec = float(a), float(b)
+                        break
+                if ic is None:
+                    ic, ec = (accel.resource_demand(rs.name)
+                              if accel is not None else (1.0, 1.0))
+                if rs.fabric_only:
+                    if PATH_INGRESS_DIR[p] == 2:
+                        ic = 0.0
+                    if PATH_EGRESS_DIR[p] == 2:
+                        ec = 0.0
+                if p == Path.INLINE_NIC_RX or accel is None:
+                    ratio = 1.0   # full payload delivered to the host
+                else:
+                    ratio = float(accel.egress_bytes(m)) / max(m, 1.0)
+                coefs.append(max(ic, 0.0) + ratio * max(ec, 0.0))
+            caps.append(float(rs.capacity_gbps))
+            pflows.append(coefs)
+            names.append(rs.name)
+        entry = CapacityEntry(caps, pflows, fair, key, names)
         self.entries[key] = entry
         return entry
 
@@ -285,7 +322,7 @@ class ProfileTable:
                                       [tb.TBParams(1, 1, 1)] * len(specs))
         res = simulate(fset, atab, self.link, cfg, tbs, arr_t, arr_sz,
                        device=self.device)
-        return self._entry_from_result(key, res, len(specs))
+        return self._entry_from_result(key, res, len(specs), accel, flows)
 
     def profile_contexts(self,
                          contexts: Sequence[tuple[AcceleratorSpec,
@@ -364,8 +401,8 @@ class ProfileTable:
 #: ``profile_contexts_multi``, ``sim_batches`` = ``simulate_batch`` calls
 #: it issued (0 when every context was a cache hit), ``contexts`` =
 #: cache-missing contexts actually simulated.  ``score_hits`` /
-#: ``score_misses`` are the reference's placement score-cache counters
-#: (its ``placement.ScoreCache``, not ported yet: they stay 0 here).
+#: ``score_misses`` count ``placement.ScoreCache`` candidate-score reuse (a
+#: hit skips rebuilding and re-querying the candidate's would-be context).
 _PROFILING_STATS = {"calls": 0, "sim_batches": 0, "contexts": 0,
                     "score_hits": 0, "score_misses": 0}
 
@@ -431,6 +468,6 @@ def profile_contexts_multi(jobs: Sequence[tuple["ProfileTable",
         results = simulate_batch(fsets, atabs, link_arg, cfg, tbss,
                                  *stack_arrivals(arrs),
                                  device=items[0][0].device)
-        for (table, key, _a, _f), res, n in zip(items, results, ns):
-            table._entry_from_result(key, res, n)
+        for (table, key, a, f), res, n in zip(items, results, ns):
+            table._entry_from_result(key, res, n, a, f)
     return [t.entries[k] for (t, _, _), k in zip(jobs, keys)]

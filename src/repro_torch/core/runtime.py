@@ -9,19 +9,27 @@ Runs on every client server; periodically:
 
 The dataplane is the torch simulator (`repro_torch.core.sim`) on the
 runtime's device; register writes are the carry's TBState parameter
-fields — the MMIO analogue.  Port of ``src/repro/core/runtime.py``: the
-per-server ``ArcusRuntime`` and ``WindowReport``; the deprecated fleet
-shims wait for the port's fleet controller.
+fields — the MMIO analogue.
+
+Fleet scale: the tenant-lifecycle controller
+(``repro_torch.core.controller.FleetController``) drives B client servers'
+managed dataplanes as one batch and owns admission placement, departure
+and rebalancing.  The module-level ``register_fleet`` / ``place_fleet`` /
+``run_managed_batch`` entry points remain as thin deprecation shims
+delegating to it; this module keeps the per-server primitives the
+controller composes.  Port of ``src/repro/core/runtime.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import itertools
+import warnings
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import telemetry
+from repro_torch.core import placement, telemetry
 from repro_torch.core import token_bucket as tb
 from repro_torch.core.accelerator import AccelTable, AcceleratorSpec
 from repro_torch.core.flow import (PATH_INGRESS_DIR, FlowSet, FlowSpec, Path,
@@ -31,6 +39,9 @@ from repro_torch.core.profiler import ProfileTable, canonical_order
 from repro_torch.core.shaper import reshape_decision
 from repro_torch.core.sim import SHAPING_HW, SimConfig, gen_arrivals, simulate
 from repro_torch.device import resolve_device
+
+#: process-unique ArcusRuntime ids (never reused, unlike ``id()``)
+_RUNTIME_UID = itertools.count()
 
 
 @dataclasses.dataclass
@@ -118,9 +129,12 @@ class ArcusRuntime:
         self.alt_paths = alt_paths or {}
         self.table: dict[int, FlowStatus] = {}   # PerFlowStatusTable
         self._prev_counters: dict[str, np.ndarray] | None = None
+        self._uid = next(_RUNTIME_UID)   # process-unique identity for
+                                         # ScoreCache guards (id() can be
+                                         # reused after gc; this cannot)
         self._version = 0        # bumped on register/deregister/path
-                                 # changes (the reference's ScoreCache
-                                 # invalidation guard)
+                                 # changes — the placement.ScoreCache
+                                 # invalidation guard
 
     # ------------------------------------------------------------------
     # Registration path (Algorithm 1 lines 7-10)
@@ -143,7 +157,9 @@ class ArcusRuntime:
         admission's would-be context no longer includes the tenant, so an
         admit→depart→admit of the same spec reproduces the original
         decision from the same cached profile entries).  Raises
-        ``KeyError`` for an unknown flow."""
+        ``KeyError`` for an unknown flow.  Callers running a live fleet
+        should go through ``FleetController.depart`` — it also frees the
+        tenant's dataplane lane."""
         st = self.table.pop(flow_id)
         self._version += 1
         return st
@@ -151,7 +167,8 @@ class ArcusRuntime:
     @property
     def lifecycle_version(self) -> int:
         """Monotonic counter of membership changes (register/deregister
-        and path changes)."""
+        and path changes); ``placement.ScoreCache`` entries are valid only
+        while the version they were scored at still matches."""
         return self._version
 
     def _admission_context(self, spec: FlowSpec
@@ -159,7 +176,8 @@ class ArcusRuntime:
                                       list[tuple[Path, int, float]]]:
         """The would-be CapacityPlanning context if ``spec`` registered:
         (accelerator, peer specs incl. the candidate, profiler context).
-        Single source of truth for what admission profiles."""
+        Single source of truth — fleet admission pre-profiles exactly this
+        context, so its cache warming always matches admission."""
         accel = self.accel_specs[spec.accel_id]
         peers = [s.spec for s in self.table.values()
                  if s.spec.accel_id == spec.accel_id] + [spec]
@@ -174,7 +192,10 @@ class ArcusRuntime:
     def _admission_check(self, spec: FlowSpec, _context=None):
         """CapacityPlanning(CHECK) with its evidence: (SLO-Friendly?,
         CapacityEntry, canonical-order SLO vector, slo_margin, per-axis
-        slo_margins)."""
+        slo_margins).  Placement scores candidates with exactly this tuple
+        — and passes back the (accel, peers, ctx) triple it already built
+        for profiling — so a feasible candidate is by construction one
+        ``register`` will accept."""
         accel, peers, ctx = (_context if _context is not None
                              else self._admission_context(spec))
         entry = self.profile.capacity(accel, ctx)
@@ -392,3 +413,89 @@ class ArcusRuntime:
             d = PATH_INGRESS_DIR[st.spec.path]
             by_dir[d] += b
         return np.array([by_dir[0] / h2d_bps, by_dir[1] / d2h_bps, 0.0])
+
+
+# ---------------------------------------------------------------------------
+# Fleet-scale managed execution: deprecated shims over FleetController
+# ---------------------------------------------------------------------------
+
+
+def run_managed_batch(runtimes: Sequence[ArcusRuntime], *,
+                      total_ticks: int, window_ticks: int,
+                      tick_cycles: int = 8,
+                      seeds: Sequence[int] | None = None,
+                      arrivals: Sequence[tuple[np.ndarray, np.ndarray]]
+                      | None = None,
+                      load_ref_gbps: Sequence[dict[int, float] | None]
+                      | dict[int, float] | None = None,
+                      sim_kwargs: dict[str, Any] | None = None,
+                      _force_rebuild: bool = False):
+    """Deprecated shim — use ``FleetController(runtimes).run(...)``.
+
+    Runs B client servers' managed dataplanes as one batch via the
+    lifecycle controller's window loop (static tenant set: no churn
+    events).  Counters, WindowReports and post-run control state are
+    bitwise-equal to B serial ``run_managed(seed=seeds[b], ...)`` calls."""
+    warnings.warn(
+        "runtime.run_managed_batch is deprecated; use "
+        "repro_torch.core.controller.FleetController(runtimes).run(...)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.core.controller import FleetController
+    return FleetController(runtimes).run(
+        total_ticks=total_ticks, window_ticks=window_ticks,
+        tick_cycles=tick_cycles, seeds=seeds, arrivals=arrivals,
+        load_ref_gbps=load_ref_gbps, sim_kwargs=sim_kwargs,
+        _force_rebuild=_force_rebuild)
+
+
+def register_fleet(runtimes: Sequence[ArcusRuntime],
+                   fleet_specs: Sequence[Sequence[FlowSpec]]
+                   ) -> list[list[bool]]:
+    """Deprecated shim — use ``FleetController(runtimes).admit_fleet``.
+
+    Registers per-server FlowSpec lists across a fleet, batching each
+    admission round's CapacityPlanning profiling into one engine batch;
+    accept/reject decisions are identical to serial registration."""
+    warnings.warn(
+        "runtime.register_fleet is deprecated; use "
+        "repro_torch.core.controller.FleetController(runtimes)"
+        ".admit_fleet(...)", DeprecationWarning, stacklevel=2)
+    from repro_torch.core.controller import FleetController
+    return FleetController(runtimes).admit_fleet(fleet_specs)
+
+
+def _compatible_accels(rt: ArcusRuntime, spec: FlowSpec,
+                       accel_name: str | None) -> list[int]:
+    """Accelerator indices on ``rt`` the spec may land on: every
+    complement member with the required accelerator name when one is
+    given, else the spec's own positional ``accel_id`` (the per-server
+    interpretation ``register_fleet`` uses)."""
+    if accel_name is None:
+        return ([spec.accel_id]
+                if 0 <= spec.accel_id < len(rt.accel_specs) else [])
+    return [a for a, s in enumerate(rt.accel_specs) if s.name == accel_name]
+
+
+def place_fleet(runtimes: Sequence[ArcusRuntime],
+                specs: Sequence[FlowSpec], *,
+                policy: placement.PlacementPolicy | None = None,
+                pinned: Sequence[int | None] | None = None,
+                accel_names: Sequence[str | None] | None = None,
+                score_cache: "placement.ScoreCache | None" = None
+                ) -> list[placement.Placement]:
+    """Deprecated shim — use ``FleetController(runtimes).place(...)``.
+
+    Fleet-level admission placement: one admission round per tenant, the
+    round's whole cross-server candidate set profiled through one batched
+    ``profile_contexts_multi`` call, the winner registered via the
+    ordinary per-server path.  Pinned first-fit reproduces
+    ``register_fleet`` decisions exactly."""
+    warnings.warn(
+        "runtime.place_fleet is deprecated; use "
+        "repro_torch.core.controller.FleetController(runtimes).place(...)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.core.controller import FleetController
+    return FleetController(runtimes,
+                           policy=policy or placement.FirstFit()).place(
+        specs, pinned=pinned, accel_names=accel_names,
+        score_cache=score_cache)

@@ -10,12 +10,14 @@ heterogeneity profile, pick (a) the token-bucket parameters for the target
 rate (with ingress-rate inflation when the accelerator's egress/ingress
 ratio R != 1) and (b) an optimal message size for the accelerator curve.
 
-Port of ``src/repro/core/shaper.py`` (pure Python and numpy, copied).
+Port of ``src/repro/core/shaper.py`` (pure Python and numpy, copied),
+``reshape_trace`` included.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 
 from repro_torch.core import token_bucket as tb
 from repro_torch.core.accelerator import AcceleratorSpec, size_grid
@@ -92,3 +94,25 @@ def reshape_decision(accel: AcceleratorSpec, slo: SLO, msg_bytes: int,
         params = _dc.replace(
             params, bkt_size=max(params.refill_rate, 4 * resize))
     return ShapeDecision(params, resize, "; ".join(note))
+
+
+def reshape_trace(times: np.ndarray, sizes: np.ndarray, max_bytes: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Split oversized messages in an arrival trace (payload split +
+    duplicated header).  Host-side helper mirroring what the hardware does
+    on the fly."""
+    out_t, out_s = [], []
+    for t, s in zip(times.ravel(), sizes.ravel()):
+        if s <= 0:
+            continue
+        if s <= max_bytes:
+            out_t.append(t)
+            out_s.append(s)
+        else:
+            k = int(np.ceil(s / max_bytes))
+            for j in range(k):
+                out_t.append(t)
+                out_s.append(min(max_bytes, s - j * max_bytes))
+    order = np.argsort(np.asarray(out_t), kind="stable")
+    return (np.asarray(out_t)[order].astype(np.int32),
+            np.asarray(out_s)[order].astype(np.int32))

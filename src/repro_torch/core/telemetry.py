@@ -1,16 +1,20 @@
 """Window telemetry: counter deltas -> per-tenant metrics.
 
-The measurement layer of the control loop.  Every window the runtime reads
-the cumulative hardware counters off the engine carry and derives, per
+The measurement layer of the control loop.  Every window the control plane
+reads the cumulative hardware counters off the engine carry — the fleet
+reads ``FLEET_POLL_KEYS``, a few ``[B, n_max]`` tensors, in one host copy
+(the MMIO poll; completion rings stay on the device) — and derives, per
 tenant, the measured rate in its SLO unit, fractional SLO slack, the
 violation streak, mean completion latency (``c_lat_sum`` accumulates each
 completion's latency in cycles, so a window's mean is a counter-delta
-ratio) and link utilization.  Latency-SLO violations feed only
+ratio) and the utilization of every shaped resource axis (the link, then
+each ``LinkSpec.resources`` entry).  Latency-SLO violations feed only
 ``WindowMetrics``; ``WindowReport.violated`` keeps its rate-SLO-only
-semantics.
+semantics.  The helpers are elementwise float64, so one server's row is
+bitwise the same whether computed serially ([n]) or as a fleet slab
+([B, n_max]).
 
-Port of ``src/repro/core/telemetry.py`` (numpy, copied) for the serial
-runtime; the fleet helpers and the extra resource axes are not ported yet.
+Port of ``src/repro/core/telemetry.py`` (numpy, copied).
 """
 from __future__ import annotations
 
@@ -18,7 +22,26 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.flow import PATH_INGRESS_DIR, SLOKind
+from repro_torch.core import sim
+from repro_torch.core.flow import PATH_EGRESS_DIR, PATH_INGRESS_DIR, SLOKind
+
+#: per-window counter reads (the fleet MMIO poll) — the completion rings
+#: stay on the device until the final window, so the control plane's
+#: per-window host copy is a few [B, n_max] arrays, not the history
+FLEET_POLL_KEYS = ("c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "c_done_msgs",
+                   "c_done_b_lo", "c_done_b_hi", "c_drops", "c_lat_sum")
+
+
+def fleet_counters(host: dict) -> dict[str, np.ndarray]:
+    """[B, n_max] counter arrays in the exact form serial ``SimResult``
+    counters take (hi/lo byte counters recombined into int64)."""
+    cur = {k: np.asarray(host[k])
+           for k in ("c_adm_msgs", "c_done_msgs", "c_drops", "c_lat_sum")}
+    cur["c_adm_bytes"] = sim.combine_byte_counters(host["c_adm_b_hi"],
+                                                   host["c_adm_b_lo"])
+    cur["c_done_bytes"] = sim.combine_byte_counters(host["c_done_b_hi"],
+                                                    host["c_done_b_lo"])
+    return cur
 
 
 def measured_rates(cur: dict, prev: dict, kind: np.ndarray,
@@ -52,16 +75,47 @@ def admitted_gbps(cur: dict, prev: dict, window_s: float) -> np.ndarray:
     return (cur["c_adm_bytes"] - prev["c_adm_bytes"]) * 8 / window_s / 1e9
 
 
+def _axis_coefs(spec, accel, rs) -> tuple[float, float]:
+    """(ingress, egress) Gbps charged on resource axis ``rs`` per Gbps of
+    flow traffic — the host-side mirror of ``engine._resource_tables``
+    (same resolution order: flow ``res_demand`` hint, else the
+    accelerator's, else 1/1; ``fabric_only`` axes charge nothing for
+    off-fabric stage directions)."""
+    ic = ec = None
+    for nm, a, b in getattr(spec, "res_demand", ()):
+        if nm == rs.name:
+            ic, ec = float(a), float(b)
+            break
+    if ic is None:
+        ic, ec = accel.resource_demand(rs.name)
+    if rs.fabric_only:
+        if PATH_INGRESS_DIR[spec.path] == 2:
+            ic = 0.0
+        if PATH_EGRESS_DIR[spec.path] == 2:
+            ec = 0.0
+    return max(ic, 0.0), max(ec, 0.0)
+
+
 def flow_axis_util(spec, accel, link, adm_gbps: float) -> tuple[float, ...]:
-    """One flow's utilization of the shaped resource vector: axis 0 (the
-    only axis the port has) is the flow's ingress link direction, admitted
-    Gbps over the direction's effective bandwidth (off-fabric paths use
-    0)."""
-    del accel
+    """One flow's utilization of every shaped resource axis.
+
+    Axis 0 is the flow's ingress link direction (admitted Gbps over the
+    direction's effective bandwidth; off-fabric paths use 0); each extra
+    axis mirrors one ``LinkSpec.resources`` entry, charging admitted
+    ingress plus the device's egress echo through the flow's demand
+    coefficients.  Fractions of capacity, so a ``ControlPolicy`` can
+    compare axes directly."""
     d = PATH_INGRESS_DIR[spec.path]
     caps = (link.h2d_gbps, link.d2h_gbps)
     link_cap = caps[d] * link.efficiency if d < 2 else 0.0
-    return (adm_gbps / link_cap if link_cap > 0 else 0.0,)
+    out = [adm_gbps / link_cap if link_cap > 0 else 0.0]
+    eg_ratio = (float(accel.egress_bytes(np.asarray(
+        [float(spec.pattern.msg_bytes)]))[0]) / max(spec.pattern.msg_bytes, 1))
+    for rs in getattr(link, "resources", ()):
+        ic, ec = _axis_coefs(spec, accel, rs)
+        charged = adm_gbps * (ic + ec * eg_ratio)
+        out.append(charged / max(rs.capacity_gbps, 1e-12))
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,8 +36,18 @@
 //    engine made 1 + k_grant launches and some hundred eager ops around
 //    them.  Each grant iteration: every flow's eligibility and arbiter key,
 //    a block-wide argmin, then the grant (tokens, queue pop, link budget,
-//    credits, accelerator-queue push, arbiter state, admission counters).
-//    Bitwise the plain version, ops.grant_tick_plain.
+//    credits, extra resource axes, accelerator-queue push, arbiter state,
+//    admission counters).  Bitwise the plain version, ops.grant_tick_plain.
+//
+//    Resource axes (the link's R = 1..MAX_RES extra axes: device memory
+//    bandwidth, host DMA, ...; engine._resource_tables): a flow is eligible
+//    only while every axis it demands in either direction has a positive
+//    budget, and a grant charges its ingress demand w_in[r, g] * size on
+//    every axis as one fused multiply-add, as the compiled reference
+//    contracts it.  Each thread holds its flows' demands and the R budgets
+//    in registers (the budgets replicated, like the link's); the winner's
+//    demands travel with its size through the argmin's shuffle or shared
+//    slots.  R = 0 launches an instantiation with none of this compiled in.
 //
 // Design.  One CTA a batch element (one server's dataplane): the batched
 // engine (run_window_batch, the reference's jax.vmap) launches a grid of B
@@ -199,6 +209,12 @@ struct GrantTickArgs {
   const int* t_idx;           // [1] the tick's index in the window, read
                               // on the card (a CUDA graph replays the
                               // launch; the engine advances the counter)
+  float* res_bud;             // [B, R] this tick's extra resource-axis
+                              // budgets (bytes); null when R = 0
+  const float* res_w_in;      // [B, R, N] bytes charged on axis r per
+                              // ingress byte granted to flow f
+  const bool* res_any;        // [B, R, N] flow f demands axis r (ingress
+                              // or egress): it stalls while r is in debt
   int n;                      // N, flows an element (padded)
   int n_accel;                // A, accelerators an element (padded)
   int qlen;
@@ -207,6 +223,7 @@ struct GrantTickArgs {
   int k_grant;
   int tick_cycles;
   int stall_stride;           // n_ticks, or 0: one mask for every element
+  int n_res;                  // R, extra resource axes (0..MAX_RES)
 };
 
 namespace {
@@ -220,6 +237,7 @@ constexpr int ARB_WFQ = 3;
 constexpr float BIG = 3e38f;          // the key of an ineligible flow
 constexpr int MAX_THREADS = 1024;
 constexpr int KPF = 4;                // queue entries held ahead of a head
+constexpr int MAX_RES = 4;            // extra resource axes a launch holds
 
 // (key, index) lexicographic order: the lower key, then the lower index
 __device__ __forceinline__ bool before(float k1, int i1, float k0, int i0) {
@@ -239,16 +257,20 @@ __device__ __forceinline__ void warp_argmin(float& key, int& idx) {
   }
 }
 
-template <int FPT>
+// RMAX: 0 (no resource axes: none of their code is compiled in) or
+// MAX_RES (a.n_res axes, 1..MAX_RES, read at run time)
+template <int FPT, int RMAX>
 __global__ void __launch_bounds__(MAX_THREADS)
 tb_grant_tick_kernel(const GrantTickArgs a) {
   // per-warp best of a grant iteration, double-buffered so that one
-  // barrier an iteration suffices: (key, index, head size, info), where
+  // barrier an iteration suffices: (key, index, head size, info, ingress
+  // demand on each resource axis), where
   // info = accel << 3 | ingress dir << 1 | eligible
   __shared__ float s_key[2][32];
   __shared__ int s_idx[2][32];
   __shared__ int s_sz[2][32];
   __shared__ int s_info[2][32];
+  __shared__ float s_w[2][RMAX > 0 ? RMAX : 1][32];
 
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -280,6 +302,15 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
   float vft[FPT], w[FPT], prio[FPT];
   bool act[FPT];
   int psz[FPT][KPF], pat[FPT][KPF];
+  // resource axes: each flow's ingress demand per axis and the axes it
+  // demands in either direction (bit r); every thread holds the R budgets
+  const int nr = RMAX > 0 ? a.n_res : 0;
+  float win[FPT][RMAX > 0 ? RMAX : 1];
+  int rmask[FPT];
+  float rb[RMAX > 0 ? RMAX : 1];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r)
+    rb[r] = r < nr ? a.res_bud[static_cast<int64_t>(b) * nr + r] : 0.0f;
 
   // -- stage 1: token-bucket timers, and the loads of the tick ------------
 #pragma unroll
@@ -291,6 +322,16 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     act[k] = f < n && a.fl_mask[fo + f];
 #pragma unroll
     for (int j = 0; j < KPF; ++j) psz[k][j] = pat[k][j] = 0;
+    rmask[k] = 0;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      win[k][r] = 0.0f;
+      if (r < nr && f < n) {
+        const int64_t o = (static_cast<int64_t>(b) * nr + r) * n + f;
+        win[k][r] = a.res_w_in[o];
+        rmask[k] |= a.res_any[o] ? (1 << r) : 0;
+      }
+    }
     if (f >= n) continue;
     const int64_t g = fo + f;
     // software shaping: a descheduled host defers refills and catches up
@@ -352,6 +393,9 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     // this thread's best flow: (key, index) and what a grant needs of it
     float bk = __int_as_float(0x7f800000);       // +inf: no flow
     int bi = 0x7fffffff, bsz = 0, binfo = 0;
+    float bw[RMAX > 0 ? RMAX : 1];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) bw[r] = 0.0f;
 #pragma unroll
     for (int k = 0; k < FPT; ++k) {
       const int f = tid + k * T;
@@ -364,6 +408,10 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
       // a message may start whenever its link has any budget left
       const float bf = dir == 2 ? BIG : (dir == 0 ? b0 : b1);
       e = e && bf > 0.0f && act[k] && !stall;
+      // every axis the flow demands must have budget left
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < nr && ((rmask[k] >> r) & 1)) e = e && rb[r] > 0.0f;
       float key;
       if (arbiter == ARB_RR) {
         key = __int2float_rn(floor_mod(f - rr - 1, n));
@@ -378,16 +426,22 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
         bi = f;
         bsz = hs;
         binfo = (info[k] & ~1) | (e ? 1 : 0);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) bw[r] = win[k][r];
       }
     }
     float wk = bk;
     int g = bi;
     warp_argmin(wk, g);
     int gsz, ginfo;
+    float gw[RMAX > 0 ? RMAX : 1];
     if (T == 32) {
       const int owner = g % T;        // the lane holding flow g
       gsz = __shfl_sync(0xffffffffu, bsz, owner);
       ginfo = __shfl_sync(0xffffffffu, binfo, owner);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        gw[r] = __shfl_sync(0xffffffffu, bw[r], owner);
     } else {
       const int buf = it & 1;
       if (bi == g) {                  // the one lane that holds the warp's best
@@ -395,6 +449,8 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
         s_idx[buf][warp] = g;
         s_sz[buf][warp] = bsz;
         s_info[buf][warp] = binfo;
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) s_w[buf][r][warp] = bw[r];
       }
       __syncthreads();
       const int nwarps = T >> 5;
@@ -404,6 +460,8 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
       const int ow = (g % T) >> 5;    // the warp holding flow g
       gsz = s_sz[buf][ow];
       ginfo = s_info[buf][ow];
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) gw[r] = s_w[buf][r][ow];
     }
     // the grant, or (ok = false) the same float operations with zeros
     const bool ok = ginfo & 1;
@@ -415,6 +473,11 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     b1 = __fsub_rn(b1, gdir != 0 ? spend : 0.0f);
     cred += ok ? 1 : 0;
     if (ok) rr = g;
+    // the grant's ingress demand on every axis, one fused multiply-add as
+    // the compiled reference contracts it
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+      if (ok && r < nr) rb[r] = __fmaf_rn(-gw[r], szf, rb[r]);
 #pragma unroll
     for (int k = 0; k < FPT; ++k) {
       const int f = tid + k * T;
@@ -481,13 +544,19 @@ tb_grant_tick_kernel(const GrantTickArgs a) {
     a.budget[2 * b + 1] = b1;
     a.credits_used[b] = cred;
     a.rr_ptr[b] = rr;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+      if (r < nr) a.res_bud[static_cast<int64_t>(b) * nr + r] = rb[r];
   }
 }
 
 template <int FPT>
 cudaError_t launch_grant_tick(const GrantTickArgs& a, int batch, int threads,
                               cudaStream_t stream) {
-  tb_grant_tick_kernel<FPT><<<batch, threads, 0, stream>>>(a);
+  if (a.n_res > 0)
+    tb_grant_tick_kernel<FPT, MAX_RES><<<batch, threads, 0, stream>>>(a);
+  else
+    tb_grant_tick_kernel<FPT, 0><<<batch, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -502,7 +571,10 @@ cudaError_t launch_grant_tick(const GrantTickArgs& a, int batch, int threads,
 extern "C" int tb_grant_tick_launch(const GrantTickArgs* a, int batch,
                                     void* stream) {
   const int n = a->n;
-  if (n <= 0 || n > 8 * MAX_THREADS || batch <= 0 || batch > 65535)
+  if (n <= 0 || n > 8 * MAX_THREADS || batch <= 0 || batch > 65535 ||
+      a->n_res < 0 || a->n_res > MAX_RES ||
+      (a->n_res > 0 && (a->res_bud == nullptr || a->res_w_in == nullptr ||
+                        a->res_any == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int fpt = 1;
   while (n > fpt * MAX_THREADS) fpt *= 2;

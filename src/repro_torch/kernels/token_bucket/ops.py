@@ -12,7 +12,8 @@ holds two kernels:
 * ``grant_tick`` is the dataplane tick's stages 1 and 4 in one launch: the
   token-bucket timers of every flow, then ``k_grant`` sequential shaper +
   arbiter grants (eligibility, arbiter key, argmin, queue pop, link budget,
-  credits, accelerator-queue push, arbiter state, admission counters), for
+  credits, the link's extra resource axes (up to ``MAX_RES_AXES``),
+  accelerator-queue push, arbiter state, admission counters), for
   every element of a batch of dataplanes at once (one CTA an element; the
   serial engine is a batch of one).  It carries the TPU kernel's "refill
   and admission for every flow in one launch" on to the decision the
@@ -50,6 +51,9 @@ SHAPING_SW = 2
 BIG = float(np.float32(3e38))
 #: flows ``grant_tick``'s kernel holds (1024 threads, 8 flows a thread)
 MAX_GRANT_FLOWS = 8192
+#: extra resource axes ``grant_tick``'s kernel gates on and charges (its
+#: ``MAX_RES`` in csrc/token_bucket.cu; a test holds the two equal)
+MAX_RES_AXES = 4
 
 #: kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -253,13 +257,20 @@ def put_at(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor, ok, v):
 
 
 def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
-                     t_idx: torch.Tensor) -> None:
+                     t_idx: torch.Tensor,
+                     res_bud: torch.Tensor | None = None) -> None:
     """Stages 1 and 4 of the tick whose index in its window is ``t_idx``
     (a [1] int32 tensor on the carry's device, read there), in plain
     PyTorch ops (any device), in place on the batched carry ``c`` (every
-    leaf [B, ...]) and the [B, 2] link ``budget``: every flow's token-bucket
-    timers, then ``k_grant`` sequential grants in each element.  No carry
-    tensor changes identity or address.
+    leaf [B, ...]), the [B, 2] link ``budget`` and, where the link has R
+    extra resource axes, their [B, R] budgets ``res_bud``: every flow's
+    token-bucket timers, then ``k_grant`` sequential grants in each
+    element.  No carry tensor changes identity or address.
+
+    With resource axes a flow is eligible only while every axis it demands
+    in either direction (``args["res_w_any"]``) has a positive budget, and
+    a grant charges ``res_w_in[r, g] * size`` on every axis r, as one fused
+    multiply-add (the compiled reference contracts it).
 
     The refill may run after stages 2 and 3 (as here): they read neither
     the bucket state nor ``sw_pend``.  A grant charges its cost as
@@ -308,6 +319,10 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
         n_act = torch.clamp(args["fl_mask"].sum(1, keepdim=True,
                                                 dtype=torch.int32), min=1)
     gbps = st.mode == tb.MODE_GBPS     # registers are fixed in a tick
+    rb = res_bud
+    if rb is not None:
+        res_w_in, res_any = args["res_w_in"], args["res_w_any"]
+        R = res_w_in.shape[1]
     for _ in range(cfg.k_grant):
         head = c["q_head"].long()[:, :, None]
         head_sz = c["q_sz"].gather(2, head)[:, :, 0]
@@ -328,6 +343,9 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
         bud_f = torch.where(args["fl_in_off"], BIG,
                             b.gather(1, args["fl_in01"]))
         elig &= bud_f > 0.0
+        if rb is not None:
+            # start-when-positive on every demanded axis, as on the link
+            elig &= ((~res_any) | (rb[:, :, None] > 0.0)).all(1)
         if sw is not False:
             elig &= ~is_stall
         # arbiter key (lower = served first): lanes in cyclic order after
@@ -362,6 +380,11 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
         b = b - torch.where(args["ar2"] == args["fl_in01"].gather(1, g),
                             spend, 0.0)
         c["credits_used"] += ok_i[:, 0]
+        if rb is not None:
+            # the granted message's ingress demand on every axis (payload
+            # bytes only: the TLP overhead is a link artifact)
+            w_g = res_w_in.gather(2, g[:, None, :].expand(-1, R, -1))[:, :, 0]
+            rb = torch.where(ok, fma32(-w_g, szf, rb), rb)
         # accel queue push
         a = fl_accel.gather(1, g)
         slot = ((c["aq_head"].gather(1, a) + c["aq_cnt"].gather(1, a))
@@ -384,6 +407,8 @@ def grant_tick_plain(cfg, args: dict, c: dict, budget: torch.Tensor,
         c["c_adm_b_hi"] += lo >> 20
         c["c_adm_b_lo"].copy_(lo & 0xFFFFF)
     budget.copy_(b)
+    if rb is not None:
+        res_bud.copy_(rb)
 
 
 class GrantTickArgs(ctypes.Structure):
@@ -397,10 +422,11 @@ class GrantTickArgs(ctypes.Structure):
         "fl_accel", "fl_in_dir", "fl_mask", "rr_ptr", "credits_used",
         "budget", "aq_head", "aq_cnt", "aq_bytes", "aq_sz", "aq_fl", "aq_at",
         "c_adm_msgs", "c_adm_b_lo", "c_adm_b_hi", "shaping", "arbiter",
-        "credits", "ovh", "stall", "t_idx")] + [
+        "credits", "ovh", "stall", "t_idx", "res_bud", "res_w_in",
+        "res_any")] + [
         (name, ctypes.c_int) for name in (
             "n", "n_accel", "qlen", "aq_len", "aq_byte_cap", "k_grant",
-            "tick_cycles", "stall_stride")]
+            "tick_cycles", "stall_stride", "n_res")]
 
 
 def _grant_launcher():
@@ -415,8 +441,10 @@ def _grant_launcher():
 
 
 def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
-                  t_idx: torch.Tensor) -> GrantTickArgs:
-    """The checked argument block of one launch."""
+                  t_idx: torch.Tensor,
+                  res_bud: torch.Tensor | None = None) -> GrantTickArgs:
+    """The checked argument block of one launch (null resource pointers and
+    ``n_res`` 0 without resource axes)."""
     st = c["tb"]
     dev = st.tokens.device
     if st.tokens.ndim != 2:
@@ -455,6 +483,19 @@ def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
         stall=(stall, (B if stall.shape[0] == B else 1, stall.shape[-1]),
                torch.bool),
         t_idx=(t_idx, (1,), i32))
+    R = 0
+    if res_bud is not None or "res_w_in" in args:
+        if res_bud is None or "res_w_in" not in args:
+            raise ValueError("grant_tick: pass res_bud exactly when the "
+                             "arguments hold resource tables")
+        R = args["res_w_in"].shape[1]
+        if not 1 <= R <= MAX_RES_AXES:
+            raise ValueError(f"grant_tick: {R} resource axes; the kernel "
+                             f"holds 1..{MAX_RES_AXES}")
+        shapes.update(
+            res_bud=(res_bud, (B, R), f32),
+            res_w_in=(args["res_w_in"], (B, R, N), f32),
+            res_any=(args["res_w_any"], (B, R, N), torch.bool))
     s = GrantTickArgs()
     for name, (x, shape, dtype) in shapes.items():
         _check(name, x, shape, dtype, dev, "grant_tick")
@@ -464,15 +505,19 @@ def _grant_struct(cfg, args: dict, c: dict, budget: torch.Tensor,
                                                cfg.tick_cycles)
     # one stall row serves every element: stride 0
     s.stall_stride = stall.shape[-1] if stall.shape[0] == B > 1 else 0
+    s.n_res = R
     return s
 
 
 def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor,
-               t_idx: torch.Tensor) -> None:
+               t_idx: torch.Tensor,
+               res_bud: torch.Tensor | None = None) -> None:
     """Stages 1 and 4 of the tick whose index in its window is ``t_idx``
     ([1] int32 on the carry's device) in place on the batched carry ``c``
-    (B elements, every leaf [B, ...]) and the [B, 2] float32 link
-    ``budget``.
+    (B elements, every leaf [B, ...]), the [B, 2] float32 link ``budget``
+    and, where the arguments hold R extra resource axes (1..
+    ``MAX_RES_AXES``; more raise), their [B, R] float32 budgets
+    ``res_bud``.
 
     On a CUDA carry: one launch of ``tb_grant_tick_kernel`` on the current
     stream, one CTA an element (no host sync, no allocation, legal under
@@ -482,7 +527,7 @@ def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor,
     carry: ``grant_tick_plain``."""
     dev = c["tb"].tokens.device
     if dev.type == "cpu":
-        grant_tick_plain(cfg, args, c, budget, t_idx)
+        grant_tick_plain(cfg, args, c, budget, t_idx, res_bud)
         return
     if dev.type != "cuda":
         raise ValueError(f"grant_tick: unsupported device {dev}")
@@ -491,7 +536,7 @@ def grant_tick(cfg, args: dict, c: dict, budget: torch.Tensor,
         raise ValueError(f"grant_tick: {N} flows; the kernel holds 1.."
                          f"{MAX_GRANT_FLOWS}")
     global LAUNCHES
-    s = _grant_struct(cfg, args, c, budget, t_idx)
+    s = _grant_struct(cfg, args, c, budget, t_idx, res_bud)
     err = _grant_launcher()(ctypes.byref(s), c["tb"].tokens.shape[0],
                             torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:

@@ -14,6 +14,12 @@ instead of holding the card), then times the kernel at N = 2, 3 and 1025
 non-zero on a build failure, a hang or any differing bit.
 ``chip_smoke.py`` is the full check; this is the rehearsal before it.
 
+Resource axes: ``check_resources`` runs the kernel with R = 1..4 extra
+axes (``random_resource_axes``: non-dyadic demand coefficients, axes a
+flow does not demand, budgets around zero) against the plain version at
+``RES_BATCHES``; ``time_grant_tick_resources`` times it at the contention
+benchmark's shape (B = 8, R = 2) beside R = 0 on the same carry.
+
 ``random_grant_inputs`` / ``random_batch_inputs`` make the carries;
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` use them too.
 """
@@ -39,7 +45,13 @@ CASES = list(itertools.product(GRANT_NS, SHAPINGS, ARBITERS, GRANT_K))
 TIMED_NS = (2, 3, 1025)
 #: the batched kernel's batch sizes (one CTA an element)
 BATCH_SIZES = (1, 6, 64)
+#: (B, R, k_grant, seed) of the resource-axis checks
+RES_CASES = list(itertools.product((1, 8, 64), (1, 2, 3, 4), (4, 8),
+                                   (0, 1)))
 HBM_BYTES_PER_S = 3.35e12
+#: cycles of the spin kernel that holds the card while the host queues the
+#: launches ``grant_event_us`` times (about 11 ms at 1.755 GHz)
+SPIN_CYCLES = 20_000_000
 #: the leaves of the carry the grant tick writes
 GRANT_LEAVES = ("sw_pend", "q_head", "q_cnt", "vft", "rr_ptr",
                 "credits_used", "aq_cnt", "aq_bytes", "aq_sz", "aq_fl",
@@ -275,6 +287,7 @@ def grant_launch_us(carry, budget, launch, calls: int = 50,
     not show every launch is taken again, up to ``attempts`` times, and
     raises after the last."""
     from torch.profiler import ProfilerActivity, profile
+    best: list[float] = []
     for _ in range(attempts):
         fresh = [copy_inputs(carry, budget) for _ in range(calls)]
         torch.cuda.synchronize()
@@ -287,17 +300,57 @@ def grant_launch_us(carry, budget, launch, calls: int = 50,
               and "tb_grant_tick" in e.name]
         if len(us) == calls:
             return us
-    raise AssertionError(f"profile shows {len(us)} grant-tick launches of "
-                         f"{calls} in each of {attempts} traces")
+        best = max(best, us, key=len)
+    raise AssertionError(f"profile shows {len(best)} grant-tick launches "
+                         f"of {calls} at most in {attempts} traces")
 
+
+def grant_event_us(carry, budget, launch, calls: int = 50,
+                   attempts: int = 3) -> dict:
+    """Device µs a grant-tick launch from CUDA events, for shapes whose
+    profiler trace does not show every launch: ``calls`` launches, each
+    ``launch(c, b)`` on a fresh copy of ``carry`` and ``budget`` made
+    beforehand, queued behind a spin kernel (``SPIN_CYCLES``) so that the
+    card runs them back to back with an event recorded after each; then
+    ``calls`` events recorded back to back with nothing between them.
+    ``us`` is the mean interval around a launch less the mean empty
+    interval (``empty_us``).  A take in which the spin ended before the
+    host had queued the last event (the card may have waited on the host)
+    is taken again, up to ``attempts`` times, and raises after the
+    last."""
+    for _ in range(attempts):
+        fresh = [copy_inputs(carry, budget) for _ in range(calls)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 * calls + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        for i, (c, b) in enumerate(fresh):
+            launch(c, b)
+            ev[i + 1].record()
+        for e in ev[calls + 1:]:
+            e.record()
+        queued_in_time = not ev[0].query()
+        _finish_or_exit("event timing")
+        if queued_in_time:
+            gaps = [ev[i].elapsed_time(ev[i + 1]) * 1e3
+                    for i in range(2 * calls)]
+            launch_us = sum(gaps[:calls]) / calls
+            empty_us = sum(gaps[calls:]) / calls
+            return dict(us=launch_us - empty_us, launch_us=launch_us,
+                        empty_us=empty_us, launches=calls)
+    raise AssertionError(f"the card ran dry before the host had queued "
+                         f"{calls} grant-tick launches, {attempts} times")
 
 def time_grant_tick(n: int, dev, calls: int = 200) -> dict:
     """At ``n`` flows (hardware shaping, RR, ``k_grant`` 4, the first
     random carry whose tick grants four messages): the wrapper's ms a call and the plain version's (CUDA events over back-to-back calls
     on one carry, whose queues and budget drain over the calls), and the
     kernel's device ms a launch (``torch.profiler`` over 50 calls, each on
-    a fresh copy of the inputs, so every launch grants as the first did),
-    with the bound of that first tick."""
+    a fresh copy of the inputs, so every launch grants as the first did;
+    ``event_device_ms`` the same from CUDA events, ``grant_event_us``, as
+    a check of that method against the trace), with the bound of that
+    first tick."""
     for seed in range(100):        # the first carry whose tick grants 4
         cfg, args, carry, budget, t_idx = random_grant_inputs(
             n, seed, dev, shaping=ops.SHAPING_HW, arbiter=0, k_grant=4)
@@ -312,12 +365,15 @@ def time_grant_tick(n: int, dev, calls: int = 200) -> dict:
     c, b = copy_inputs(carry, budget)
     plain_ms = _event_ms(
         lambda: ops.grant_tick_plain(cfg, args, c, b, t_idx), calls)
-    us = grant_launch_us(
-        carry, budget, lambda c, b: ops.grant_tick(cfg, args, c, b, t_idx))
+    def launch(c, b):
+        ops.grant_tick(cfg, args, c, b, t_idx)
+    us = grant_launch_us(carry, budget, launch)
     bound, by = grant_bound_ms(n, carry["aq_cnt"].shape[-1], grants, 4)
     return dict(n=n, k_grant=4, grants=grants, ms=ms, plain_ms=plain_ms,
-                device_ms=sum(us) / len(us) / 1e3, bound_ms=bound,
-                bound_by=by)
+                device_ms=sum(us) / len(us) / 1e3,
+                event_device_ms=grant_event_us(carry, budget,
+                                               launch)["us"] / 1e3,
+                bound_ms=bound, bound_by=by)
 
 
 def batch_case(B: int, seed: int = 0, k_grant: int = 4):
@@ -336,6 +392,56 @@ def batch_case(B: int, seed: int = 0, k_grant: int = 4):
     holes = [(b, n // 2) for b, n in enumerate(ns) if n >= 3 and b % 2 == 0]
     return dict(ns=ns, shapings=sh, arbiters=ar, holes=holes,
                 k_grant=k_grant, seed=seed + B)
+
+
+def random_resource_axes(args: dict, n_res: int, seed: int,
+                         device) -> torch.Tensor:
+    """Adds ``n_res`` extra resource axes to a random tick's ``args``
+    (``res_w_in`` / ``res_w_any``, [B, R, N], as the engine packs them)
+    and returns their [B, R] budgets.  Coefficients are non-dyadic (0.05,
+    0.3, 1.7) or 1 or 0, a fifth of the flows demand an axis on egress
+    only (``res_w_any`` without ingress charge), the last axis exempts
+    off-fabric ingress as a ``fabric_only`` axis does, and budgets sit
+    around zero (some in debt, some a fraction of a message)."""
+    rng = np.random.default_rng(seed)
+    B, N = args["fl_mask"].shape
+    w_in = rng.choice(np.float32([0.0, 0.05, 0.3, 1.0, 1.7]),
+                      (B, n_res, N)).astype(np.float32)
+    eg_only = (w_in == 0.0) & (rng.random((B, n_res, N)) < 0.5)
+    off = args["fl_in_off"].cpu().numpy()
+    w_in[:, -1, :][off] = 0.0
+    bud = rng.choice(np.float32([-700.0, -0.5, 0.25, 3.0, 900.0, 60000.0]),
+                     (B, n_res)) * rng.random((B, n_res)).astype(np.float32)
+    args["res_w_in"] = torch.as_tensor(w_in, device=device)
+    args["res_w_any"] = torch.as_tensor((w_in > 0.0) | eg_only,
+                                        device=device)
+    return torch.as_tensor(bud.astype(np.float32), device=device)
+
+
+def check_resources(case, dev) -> dict:
+    """``grant_tick`` with resource axes on the card against
+    ``grant_tick_plain`` (``batch_case(B)``'s carry, R axes from
+    ``random_resource_axes``); returns the grants made and any differing
+    leaves (``res_bud`` included)."""
+    B, R, k, seed = case
+    bc = batch_case(B, seed, k_grant=k)
+    cfg, args, carry, budget, t_idx = random_batch_inputs(
+        bc["ns"], bc["seed"], dev, shapings=bc["shapings"],
+        arbiters=bc["arbiters"], k_grant=k, holes=bc["holes"])
+    res = random_resource_axes(args, R, 7 * B + 11 * R + seed, dev)
+    ck, bk = copy_inputs(carry, budget)
+    cp, bp = copy_inputs(carry, budget)
+    rk, rp = res.clone(), res.clone()
+    before = ops.LAUNCHES_BY_PATH["grant_tick"]
+    ops.grant_tick(cfg, args, ck, bk, t_idx, rk)
+    launched = ops.LAUNCHES_BY_PATH["grant_tick"] - before
+    ops.grant_tick_plain(cfg, args, cp, bp, t_idx, rp)
+    differ = differing_leaves(ck, bk, cp, bp)
+    if not torch.equal(_bits(rk), _bits(rp)):
+        differ.append("res_bud")
+    return dict(case=list(case), launches=launched,
+                grants=grants_made(carry, cp),
+                gated=int((res <= 0).sum()), differ=differ)
 
 
 def check_batch(B: int, dev, seed: int = 0, shared_stall: bool = False
@@ -395,6 +501,58 @@ def time_grant_tick_batch(B: int, dev, calls: int = 50) -> dict:
                 bound_by="bytes" if bound >= t_ops else "operations")
 
 
+def contention_case(dev, n_res: int):
+    """The grant tick at ``benchmarks/contention.py``'s shape: B = 8
+    servers of three ``synthetic50`` tenants each, hardware shaping, round
+    robin, ``k_grant`` 4, with ``n_res`` resource axes (0 or 2)."""
+    cfg, args, carry, budget, t_idx = random_batch_inputs(
+        [3] * 8, 5, dev, shapings=[ops.SHAPING_HW] * 8, arbiters=[0] * 8,
+        k_grant=4, n_accel=1)
+    res = random_resource_axes(args, n_res, 5, dev) if n_res else None
+    return cfg, args, carry, budget, t_idx, res
+
+
+def time_grant_tick_resources(dev, calls: int = 50) -> dict:
+    """The grant tick at contention's shape (``contention_case``) with R =
+    2 resource axes and, on the same carry, with none: the wrapper's ms a
+    call, the plain version's, the kernel's device ms a launch (each
+    launch on a fresh copy of the inputs) and the bound
+    (``grant_bound_ms`` per element, plus each flow's R demand
+    words and flags read and the R budgets read and written).  At this
+    shape the profiler's trace has dropped some launches in every take,
+    so the device time comes from CUDA events (``grant_event_us``)."""
+    out = {}
+    for R in (0, 2):
+        cfg, args, carry, budget, t_idx, res = contention_case(dev, R)
+        if res is not None:
+            # the budgets ride the carry, so each timed launch gets a fresh
+            # copy made before the timed region
+            carry = dict(carry, res_bud=res)
+
+        def launch(c, b):
+            ops.grant_tick(cfg, args, c, b, t_idx, c.get("res_bud"))
+        c, b = copy_inputs(carry, budget)
+        launch(c, b)
+        per_el = (c["c_adm_msgs"] - carry["c_adm_msgs"]).sum(1).tolist()
+        c, b = copy_inputs(carry, budget)
+        ms = _event_ms(lambda: launch(c, b), 200)
+        c, b = copy_inputs(carry, budget)
+        plain_ms = _event_ms(lambda: ops.grant_tick_plain(
+            cfg, args, c, b, t_idx, c.get("res_bud")), 20)
+        dev_t = grant_event_us(carry, budget, launch, calls)
+        n_flows = args["fl_mask"].shape[1]
+        bound = sum(grant_bound_ms(n_flows, 1, g, 4)[0] for g in per_el)
+        bound += 8 * (n_flows * R * 5 + R * 8) / HBM_BYTES_PER_S * 1e3
+        out[f"R{R}"] = dict(batch=8, flows=8 * n_flows, n_res=R,
+                            grants=int(sum(per_el)), ms=ms,
+                            plain_ms=plain_ms, device_ms=dev_t["us"] / 1e3,
+                            device_ms_by="cuda_events",
+                            event_us={k: dev_t[k] for k in (
+                                "launch_us", "empty_us", "launches")},
+                            bound_ms=bound, bound_by="bytes")
+    return out
+
+
 def _finish_or_exit(tag: str, limit_s: float = 20.0) -> None:
     """Wait for the card's queue, ending the process if it does not drain
     within ``limit_s`` (a kernel that never finishes)."""
@@ -434,8 +592,19 @@ def main() -> int:
             _finish_or_exit(f"batch {B}")
             bad += bool(row["differ"]) or row["launches"] != 1
             print(json.dumps(row), flush=True)
+    res_bad = 0
+    for case in RES_CASES:
+        row = check_resources(case, dev)
+        _finish_or_exit(f"resources {case}")
+        res_bad += bool(row["differ"]) or row["launches"] != 1
+        if row["differ"] or case[0] == 8:
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"resource_cases": len(RES_CASES), "failed": res_bad}),
+          flush=True)
+    bad += res_bad
     for n in TIMED_NS:
         print(json.dumps(time_grant_tick(n, dev)), flush=True)
+    print(json.dumps(time_grant_tick_resources(dev)), flush=True)
     for B in BATCH_SIZES:
         print(json.dumps(time_grant_tick_batch(B, dev)), flush=True)
     return 1 if bad else 0

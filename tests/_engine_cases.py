@@ -6,7 +6,10 @@ This module imports the port only (no JAX), so the card tests run where
 JAX is not installed; ``port_scenario`` builds a scenario with the port's
 modules, and ``test_torch_engine._scenario`` the same one with the JAX
 package's.  ``system`` names a ``baselines`` system by its module
-attribute; ``paths`` are ``Path`` values (ints)."""
+attribute; ``paths`` are ``Path`` values (ints).  A case with
+``resources`` runs on a link with those extra resource axes (``(name,
+capacity Gbps, burst bytes, fabric_only)`` each, ``case_link``), and its
+odd flows carry the demand hint ``hint`` on the first axis."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +23,8 @@ from repro_torch.core.sim import (SHAPING_HW, SHAPING_NONE, SHAPING_SW,
                                   SimConfig, gen_arrivals, gen_stall_mask)
 
 N_TICKS = 250
+#: the resource cases' extra axes: (name, Gbps, burst bytes, fabric_only)
+RESOURCES = (("mem_bw", 20.0, 0, False), ("host_dma", 37.3, 4096, True))
 
 CASES = {
     # Arcus: hardware shaping, round robin (the managed run)
@@ -65,6 +70,15 @@ CASES = {
     # path on uncontended ticks
     "hw_rr_40_flows": dict(shaping=SHAPING_HW, arbiter=ARB_RR, n_flows=40,
                            cfg=dict(k_grant=8)),
+    # the resource vector: a tight memory-bandwidth axis and a fabric-only
+    # host-DMA axis with a burst, a non-dyadic 0.05 hint on odd flows; the
+    # reference's one-shot grant path and its sequential loop (the port
+    # runs the loop either way)
+    "hw_resources": dict(shaping=SHAPING_HW, arbiter=ARB_RR, n_flows=3,
+                         resources=RESOURCES, hint=0.05),
+    "hw_resources_seq": dict(shaping=SHAPING_HW, arbiter=ARB_RR, n_flows=3,
+                             resources=RESOURCES, hint=0.05,
+                             cfg=dict(grant_fast=False, stage_fast=False)),
 }
 
 #: the system whose registers a shaping mode's scenario uses by default
@@ -72,15 +86,30 @@ DEFAULT_SYSTEM = {SHAPING_NONE: "HOST_NO_TS", SHAPING_HW: "ARCUS",
                   SHAPING_SW: "HOST_TS_REFLEX"}
 
 
+def case_link(case: dict, link_cls, resource_cls):
+    """The link of a case, built with a package's ``LinkSpec`` and
+    ``ResourceSpec``."""
+    return link_cls(resources=tuple(resource_cls(*r)
+                                    for r in case.get("resources", ())))
+
+
+def case_hints(n_flows: int, resources, hint) -> list:
+    """Per-flow ``res_demand``: odd flows carry ``hint`` (ingress and
+    egress) on the first resource axis."""
+    return [((resources[0][0], hint, hint),) if resources and hint
+            is not None and i % 2 else () for i in range(n_flows)]
+
+
 def port_scenario(shaping, arbiter, n_flows=2, system=None, load=0.9,
                   msg=1500, msg2=0, p2=0.0, accels=("ipsec32",), cfg=None,
                   n_ticks=N_TICKS, seed=3,
                   paths=(Path.FUNCTION_CALL, Path.INLINE_NIC_RX),
-                  slo="gbps"):
+                  slo="gbps", resources=(), hint=None):
     """``(flows, accel table, cfg, TBState, arrivals, stall mask)`` of a
     case, built with the port: flow i takes ``paths[i % len(paths)]`` and
     SLO ``8 (i + 1)`` Gbps, or with ``slo="iops"`` ``400,000 (i + 1)``
-    IOPS, under the registers that SLO plans."""
+    IOPS, under the registers that SLO plans (``resources`` and ``hint``:
+    ``case_hints``)."""
     if slo == "gbps":
         slos = [SLO.gbps(8.0 * (i + 1)) for i in range(n_flows)]
         plans = [ttb.params_for_gbps(s.target) for s in slos]
@@ -91,8 +120,8 @@ def port_scenario(shaping, arbiter, n_flows=2, system=None, load=0.9,
                       i % len(accels),
                       TrafficPattern(msg, load=load, process="poisson",
                                      msg_bytes2=msg2, p2=p2),
-                      slos[i], priority=i, weight=1.0 + i)
-             for i in range(n_flows)]
+                      slos[i], priority=i, weight=1.0 + i, res_demand=h)
+             for i, h in enumerate(case_hints(n_flows, resources, hint))]
     flows = FlowSet.build(specs)
     sim_cfg = SimConfig(n_ticks=n_ticks, shaping=shaping, arbiter=arbiter,
                         **(cfg or {}))

@@ -234,7 +234,7 @@ def result_digest(res) -> str:
     return h.hexdigest()
 
 
-def fig6_batch_digests(n_ticks: int = 60_000) -> list:
+def fig6_batch_digests(n_ticks: int = 20_000) -> list:
     """The JAX reference's run of ``chip_smoke.py``'s ``fig6_batch``
     phase on the CPU (``benchmarks/fig6_throughput_cdf.py``'s experiment:
     Arcus, Host_TS_reflex and Host_TS_firecracker at load points 1.5 and

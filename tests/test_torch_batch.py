@@ -382,15 +382,15 @@ def _port_case(n_ticks=10):
 @pytest.mark.parametrize("what", ["static", "size", "resources", "ndim",
                                   "fl_masks", "tb_states", "stall"])
 def test_batch_rejects_what_the_reference_rejects(what):
-    """A structural config mismatch, a batch size mismatch, a 2-D trace, a
-    wrong ``fl_masks`` shape, ``tb_states=None`` without a carry and a
-    stall mask of another batch raise ``ValueError``; a link with
-    ``resources`` raises the serial path's ``NotImplementedError``."""
+    """A structural config mismatch, a batch size mismatch, links with
+    different numbers of resource axes, a 2-D trace, a wrong ``fl_masks``
+    shape, ``tb_states=None`` without a carry and a stall mask of another
+    batch raise ``ValueError``, as in the reference."""
     flows, tab, cfg, tbs, arr = _port_case()
     arr2 = tsim.stack_arrivals([arr, arr])
     args = dict(flows=flows, accels=tab, link=tic.LinkSpec(), cfg=cfg,
                 tb_states=[tbs, tbs], arr_t=arr2[0], arr_sz=arr2[1])
-    err, match = ValueError, None
+    match = None
     if what == "static":
         args["cfg"] = [cfg, dataclasses.replace(cfg, k_grant=2)]
         match = "traced fields"
@@ -398,8 +398,9 @@ def test_batch_rejects_what_the_reference_rejects(what):
         args["tb_states"] = [tbs]
         match = "batch size mismatch"
     elif what == "resources":
-        args["link"] = tic.LinkSpec(resources=(tic.mem_bw(100.0),))
-        err = NotImplementedError
+        args["link"] = [tic.LinkSpec(),
+                        tic.LinkSpec(resources=(tic.mem_bw(100.0),))]
+        match = "resource axes"
     elif what == "ndim":
         args["arr_t"], args["arr_sz"] = arr
         match = "arr_t"
@@ -412,5 +413,5 @@ def test_batch_rejects_what_the_reference_rejects(what):
     else:
         args["stall_mask"] = np.zeros((3, cfg.n_ticks), bool)
         match = "stall_mask"
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=match):
         te.run_window_batch(**args, device="cpu")

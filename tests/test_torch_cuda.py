@@ -18,13 +18,13 @@ import pytest
 import torch
 
 from _engine_cases import (BATCH_HOLE, BATCH_WINDOW, CASES as ENGINE_CASES,
-                           batch_masks, port_batch, port_batch_registers,
-                           port_scenario)
+                           batch_masks, case_link, port_batch,
+                           port_batch_registers, port_scenario)
 from repro_torch.core import engine as te, token_bucket as tb
 from repro_torch.core.accelerator import CATALOG, AccelTable
 from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
                                    TrafficPattern)
-from repro_torch.core.interconnect import LinkSpec
+from repro_torch.core.interconnect import LinkSpec, ResourceSpec
 from repro_torch.core.sim import (SimConfig, gen_arrivals, simulate,
                                   simulate_batch)
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -105,14 +105,15 @@ def test_engine_case_on_card_matches_cpu(dev, case):
     equals the same window on the CPU on every carry leaf, with one
     grant-tick launch a tick and no step launch."""
     flows, atab, cfg, tbs, arr, stall = port_scenario(**ENGINE_CASES[case])
+    link = case_link(ENGINE_CASES[case], LinkSpec, ResourceSpec)
     before = dict(ops.LAUNCHES_BY_PATH)
-    c_dev = te.run_window(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+    c_dev = te.run_window(flows, atab, link, cfg, tbs, *arr, stall,
                           device=dev)
     torch.cuda.synchronize()
     assert ops.LAUNCHES_BY_PATH["grant_tick"] - before["grant_tick"] == \
         cfg.n_ticks
     assert ops.LAUNCHES_BY_PATH["step"] == before["step"]
-    c_cpu = te.run_window(flows, atab, LinkSpec(), cfg, tbs, *arr, stall,
+    c_cpu = te.run_window(flows, atab, link, cfg, tbs, *arr, stall,
                           device="cpu")
     got, want = te.carry_to_numpy(c_dev), te.carry_to_numpy(c_cpu)
     assert int(want["c_adm_msgs"].sum()) > 0
@@ -155,6 +156,7 @@ def test_engine_case_graph_matches_eager(dev, case):
     graph's replays count one grant-tick launch a tick, and the resumed
     window captures nothing new."""
     flows, atab, cfg, tbs, arr, stall = port_scenario(**ENGINE_CASES[case])
+    link = case_link(ENGINE_CASES[case], LinkSpec, ResourceSpec)
     n = cfg.n_ticks // 2
     win = dataclasses.replace(cfg, n_ticks=n)
     regs = tb.pack([tb.params_for_gbps(4.0 * (i + 1))
@@ -163,7 +165,7 @@ def test_engine_case_graph_matches_eager(dev, case):
     def run(fn):
         carry = None
         for t0, st in ((0, tbs), (n, regs)):
-            carry = fn(flows, atab, LinkSpec(), win, st, *arr, stall,
+            carry = fn(flows, atab, link, win, st, *arr, stall,
                        t0_ticks=t0, carry=carry, device=dev)
             yield te.cache_info()
         yield te.carry_to_numpy(carry)
@@ -179,6 +181,16 @@ def test_engine_case_graph_matches_eager(dev, case):
         for a, b in zip(v if k == "tb" else (v,),
                         got[k] if k == "tb" else (got[k],)):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.mark.parametrize("case", tb_rehearse.RES_CASES)
+def test_grant_tick_resource_axes_match_plain_on_card(dev, case):
+    """The grant tick with R = 1-4 extra resource axes (eligibility on
+    every demanded axis, a fused charge a grant) equals
+    ``grant_tick_plain`` bitwise on every leaf and the axes' budgets."""
+    row = tb_rehearse.check_resources(case, dev)
+    torch.cuda.synchronize()
+    assert row["launches"] == 1 and row["differ"] == [], row
 
 
 @pytest.mark.parametrize("shared_stall", [False, True])

@@ -10,14 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from _engine_cases import CASES, DEFAULT_SYSTEM, N_TICKS, port_scenario
+from _engine_cases import (CASES, DEFAULT_SYSTEM, N_TICKS, case_hints,
+                           case_link, port_scenario)
 from _torch_parity import (assert_bitwise, assert_carry_equal, port_cfg,
                            port_flows)
 from repro.core import baselines as jb, engine as je, token_bucket as jtb
 from repro.core.accelerator import CATALOG, AccelTable
 from repro.core.flow import SLO, FlowSet, FlowSpec, Path, TrafficPattern
 from repro.core.interconnect import (ARB_PRIORITY, ARB_RR, ARB_WFQ, ARB_WRR,
-                                     LinkSpec, mem_bw)
+                                     LinkSpec, ResourceSpec, mem_bw)
 from repro.core.sim import SHAPING_SW, SimConfig, gen_arrivals, gen_stall_mask
 from repro_torch.core import accelerator as tacc, engine as te
 from repro_torch.core import interconnect as tic, token_bucket as ttb
@@ -27,11 +28,12 @@ from repro_torch.kernels.token_bucket import ops as tb_ops
 def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
               msg2=0, p2=0.0, accels=("ipsec32",), cfg=None, n_ticks=N_TICKS,
               seed=3, paths=(Path.FUNCTION_CALL, Path.INLINE_NIC_RX),
-              slo="gbps"):
+              slo="gbps", resources=(), hint=None):
     """A case of ``_engine_cases.CASES`` built with the JAX package (the
     accelerator table with both): flow i takes ``paths[i % len(paths)]``
     and SLO ``8 (i + 1)`` Gbps, or with ``slo="iops"`` ``400,000 (i + 1)``
-    IOPS, under the registers that SLO plans."""
+    IOPS, under the registers that SLO plans (``resources`` and ``hint``:
+    ``_engine_cases.case_hints``)."""
     if slo == "gbps":
         slos = [SLO.gbps(8.0 * (i + 1)) for i in range(n_flows)]
         plans = [jtb.params_for_gbps(s.target) for s in slos]
@@ -42,8 +44,8 @@ def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,
                       i % len(accels),
                       TrafficPattern(msg, load=load, process="poisson",
                                      msg_bytes2=msg2, p2=p2),
-                      slos[i], priority=i, weight=1.0 + i)
-             for i in range(n_flows)]
+                      slos[i], priority=i, weight=1.0 + i, res_demand=h)
+             for i, h in enumerate(case_hints(n_flows, resources, hint))]
     flows = FlowSet.build(specs)
     sim_cfg = SimConfig(n_ticks=n_ticks, shaping=shaping, arbiter=arbiter,
                         **(cfg or {}))
@@ -67,10 +69,14 @@ def _port_tb(tbs):
 
 
 def _run_both(flows, jtab, ttab, cfg, tbs, arr, stall, *, t0=0,
-              carries=(None, None)):
-    c_ref = je.run_window(flows, jtab, LinkSpec(), cfg, tbs, *arr, stall,
-                          t0_ticks=t0, carry=carries[0])
-    c_port = te.run_window(port_flows(flows), ttab, tic.LinkSpec(),
+              carries=(None, None), case=None):
+    case = case or {}
+    c_ref = je.run_window(flows, jtab, case_link(case, LinkSpec,
+                                                 ResourceSpec),
+                          cfg, tbs, *arr, stall, t0_ticks=t0,
+                          carry=carries[0])
+    c_port = te.run_window(port_flows(flows), ttab,
+                           case_link(case, tic.LinkSpec, tic.ResourceSpec),
                            port_cfg(cfg), _port_tb(tbs), *arr, stall,
                            t0_ticks=t0, carry=carries[1], device="cpu")
     return c_ref, c_port
@@ -79,7 +85,8 @@ def _run_both(flows, jtab, ttab, cfg, tbs, arr, stall, *, t0=0,
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_run_window_matches_reference(case):
     flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(**CASES[case])
-    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall)
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall,
+                              case=CASES[case])
     host = jax.device_get(c_ref)
     assert int(host["comp_n"]) > 0 and host["c_adm_msgs"].sum() > 0
     assert_carry_equal(host, te.carry_to_numpy(c_port))
@@ -140,13 +147,22 @@ def test_resume_jax_carry_in_port(case):
 
 
 def test_resource_vector_not_ported_yet():
-    flows, jtab, ttab, cfg, tbs, arr, stall = _scenario(
-        **CASES["hw_rr"], n_ticks=10)
-    link = tic.LinkSpec(resources=(tic.mem_bw(100.0),))
-    assert mem_bw(100.0).name == link.resources[0].name
-    with pytest.raises(NotImplementedError):
-        te.run_window(port_flows(flows), ttab, link, port_cfg(cfg),
-                      _port_tb(tbs), *arr, device="cpu")
+    """(Named for the refusal it replaces: the port used to reject
+    ``LinkSpec.resources``.)  A window on a link with a tight memory-
+    bandwidth axis, resumed for a second window with new registers,
+    equals the reference's carry bit for bit, the axes' residue
+    ``res_res`` included, and the axis does charge."""
+    flows, jtab, ttab, cfg, tbs, arr, stall = _two_windows("hw_rr")
+    case = dict(resources=(("mem_bw", 8.0, 0, False),))
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs, arr, stall,
+                              case=case)
+    assert mem_bw(8.0) == case_link(case, LinkSpec, ResourceSpec).resources[0]
+    tbs2 = jtb.pack([jtb.params_for_gbps(3.0), jtb.params_for_gbps(30.0)])
+    c_ref, c_port = _run_both(flows, jtab, ttab, cfg, tbs2, arr, stall,
+                              t0=150, carries=(c_ref, c_port), case=case)
+    host = jax.device_get(c_ref)
+    assert host["res_res"].shape == (1,) and host["res_res"][0] < 0.0
+    assert_carry_equal(host, te.carry_to_numpy(c_port))
 
 
 def test_entry_points_default_to_cuda():

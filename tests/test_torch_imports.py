@@ -41,3 +41,20 @@ def test_port_sources_name_no_jax_import(path):
                      r"import\s+repro\.|from\s+repro\s+import|import\s+repro\b)",
                      re.M)
     assert not pat.search(text), path
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.token_bucket.ops", "repro_torch.core.engine",
+    "repro_torch.core.controller", "repro_torch.core.runtime"])
+def test_port_module_imports_first(module):
+    """Any of the port's entry modules can be the first one a program
+    imports (the smoke starts with the kernels' wrappers): no import
+    cycle through ``repro_torch.core``, whose ``FleetController`` loads
+    on first use."""
+    code = (f"import sys\nsys.path.insert(0, {str(SRC)!r})\n"
+            f"import {module}\nimport repro_torch.core as core\n"
+            "print(core.FleetController.__name__, core.TenantEvent.__name__)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["FleetController", "TenantEvent"]

@@ -185,7 +185,7 @@ def test_grant_args_struct_matches_cuda_source():
                  {"int": ctypes.c_int, "float": ctypes.c_float}[m.group(2)])
         fields.append((m.group(4), ctype))
     assert fields == list(tops.GrantTickArgs._fields_)
-    assert len(fields) == 43
+    assert len(fields) == 47
 
 
 def test_grant_kernel_mode_words_match_python():
