@@ -51,6 +51,15 @@ benchmarks' configurations uncut on the card (``resource_parity``,
 and charging the link's extra resource axes, placement, churn and the
 adaptive control loop through ``FleetController``.
 
+The workload package (``repro_torch.workloads``) runs its generators and
+its five named scenarios on the card: ``workload_parity`` holds the seven
+generator patterns' traces against the reference's pinned digests and a
+batch of seven elements (one a pattern) CUDA against CPU and graph against
+eager body; ``scenarios`` is benchmarks/scenarios.py's run uncut (five
+scenarios, two servers, 12,000 ticks, each under ``StaticHold`` and the
+bi-level adaptive policy), every deterministic field held equal to
+benchmarks/results/scenarios.json.
+
 Cuts against earlier versions of this script, made to fit the fleet
 phases in the time limit: ``fig6_batch`` runs 20,000 ticks (60,000 before;
 fig6's quick run is 60,000 and its full run 400,000; its digests are the
@@ -151,23 +160,34 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms_per_launch(fn, kind: str, calls: int = 50) -> float:
+def device_ms_per_launch(fn, kind: str, calls: int = 50,
+                         attempts: int = 5) -> float:
     """Device time of one launch of ``kind``'s kernels (KERNEL_KINDS), from
-    ``torch.profiler`` over ``calls`` calls of ``fn``."""
+    ``torch.profiler`` over ``calls`` calls of ``fn`` (one launch each).
+    The profiler's trace misses launches, more of them the more windows
+    were traced before it in the process, and now and then all of them; a
+    trace that does not show every launch is taken again, up to
+    ``attempts`` times.  The mean is over the fullest trace, and the call
+    raises when no trace shows a launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    best: list[float] = []
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(p in e.name for p in KERNEL_KINDS[kind])]
-    if not us:
-        raise AssertionError(f"the profile shows no {kind} kernel")
-    return sum(us) / len(us) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(p in e.name for p in KERNEL_KINDS[kind])]
+        best = max(best, us, key=len)
+        if len(us) >= calls:
+            break
+    if not best:
+        raise AssertionError(f"{attempts} profiles show no {kind} kernel")
+    return sum(best) / len(best) / 1e3
 
 
 def auto_time_ms(fn, budget_s: float = 0.2, max_iters: int = 200) -> float:
@@ -979,7 +999,8 @@ def _profile_window(dev, n_ticks: int, eager: bool = False) -> dict:
     eager body; an unprofiled window first captures the graph): host wall
     time, device busy time, device kernels, the token-bucket kernel's
     launches and device time, host waits by name, and the host time of the
-    costliest ops."""
+    costliest ops.  A trace that misses a grant-tick launch is taken again,
+    up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import token_bucket as tb
@@ -994,24 +1015,29 @@ def _profile_window(dev, n_ticks: int, eager: bool = False) -> dict:
     atab = AccelTable.build([CATALOG["ipsec32"]])
     with _eager_windows() if eager else contextlib.nullcontext():
         simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
+        for _ in range(3):      # a trace that misses a grant tick: again
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    dev_us = kernels = tb_us = tb_n = 0
-    waits: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += e.time_range.elapsed_us()     # one stream: no overlap
-            kernels += 1
-            if any(pat in e.name for pat in KERNEL_KINDS["token_bucket"]):
-                tb_us += e.time_range.elapsed_us()
-                tb_n += 1
-        elif _is_host_wait(e.name):
-            waits[e.name] = waits.get(e.name, 0) + 1
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                simulate(flows, atab, LinkSpec(), cfg, tbs, *arr,
+                         device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev_us = kernels = tb_us = tb_n = 0
+            waits: dict[str, int] = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    dev_us += e.time_range.elapsed_us()  # one stream
+                    kernels += 1
+                    if any(pat in e.name
+                           for pat in KERNEL_KINDS["token_bucket"]):
+                        tb_us += e.time_range.elapsed_us()
+                        tb_n += 1
+                elif _is_host_wait(e.name):
+                    waits[e.name] = waits.get(e.name, 0) + 1
+            if tb_n == n_ticks:
+                break
     top = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: -e.cpu_time_total)[:6]
@@ -2149,6 +2175,419 @@ def phase_adaptive_churn(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# workloads: the production-shaped generators and the named scenarios
+# ---------------------------------------------------------------------------
+
+# tests/test_workloads.py:84-117: the seven generator patterns' traces at
+# 20,000 ticks, seeds 0 and 7 (shape, sha256 of times then sizes)
+WORKLOAD_TICKS = 20_000
+WORKLOAD_DIGESTS = {
+    0: ((7, 1234), "33ac781cceab741f6556bb9abf959eae"
+                   "1e31d1569ef644ffacc6c2b79b39f2fd"),
+    7: ((7, 1208), "8dee228bcdd48e4da05bf65add80d9a7"
+                   "b9b1923cbf36aa8066d58550248fd4a6")}
+# workload_parity's batch: one element a pattern, beside a poisson tenant
+WORKLOAD_BATCH_TICKS = 1_000
+# benchmarks/scenarios.py, uncut: five scenarios on two servers, eight
+# windows of 1,500 ticks, one ProfileTable of 8,000 ticks a context shared
+# by every build
+SCENARIOS = ("mmpp_surge", "heavy_tail", "diurnal_corr", "flash_crowd",
+             "adversarial_probe")
+SCENARIO_PROFILE_TICKS = 8_000
+# completions before this share of the horizon leave the latency tails
+# (benchmarks/scenarios.py:52)
+SCENARIO_WARMUP_FRAC = 0.25
+# every deterministic field of benchmarks/results/scenarios.json, each
+# scenario and arm (the JAX package's fresh run on the CPU gives the same)
+SCENARIO_REFERENCE = {
+    "mmpp_surge": {
+        "static": dict(
+            violations=11, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 8.298666666666666, "101": 6.8693333333333335,
+                         "110": 7.4239999999999995, "111": 7.338666666666667,
+                         "1000": 9.386666666666667, "1001": 9.472},
+            ref_gbps_mean=9.429333333333332,
+            ref_dev_max_pct=0.45248868778281215,
+            ref_window_cv_max_pct=22.7573345243469, n=575,
+            mean_us=0.3676521739130435, p50_us=0.29200000000000004,
+            p99_us=1.48312, p999_us=1.9447520000000067),
+        "adaptive": dict(
+            violations=11, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 8.32, "101": 10.624, "110": 4.437333333333333,
+                         "111": 5.866666666666667, "1000": 11.541333333333332,
+                         "1001": 9.173333333333332},
+            ref_gbps_mean=10.357333333333333,
+            ref_dev_max_pct=11.431513903192595,
+            ref_window_cv_max_pct=20.283155279253588, n=575,
+            mean_us=0.7090295652173912, p50_us=0.41600000000000004,
+            p99_us=3.94344, p999_us=4.693864000000008)},
+    "heavy_tail": {
+        "static": dict(
+            violations=19, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 5.972729166666667, "101": 4.707729166666667,
+                         "110": 6.713791666666666, "111": 7.364041666666667,
+                         "1000": 9.408000000000001, "1001": 9.301333333333332},
+            ref_gbps_mean=9.354666666666667,
+            ref_dev_max_pct=0.5701254275940839,
+            ref_window_cv_max_pct=24.390282559811023, n=585,
+            mean_us=0.8975794871794871, p50_us=0.256, p99_us=8.85328,
+            p999_us=9.437280000000031),
+        "adaptive": dict(
+            violations=31, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 1.8571458333333335, "101": 2.849854166666667,
+                         "110": 0.9591458333333334, "111": 3.7972500000000005,
+                         "1000": 9.194666666666667, "1001": 9.173333333333334},
+            ref_gbps_mean=9.184000000000001,
+            ref_dev_max_pct=0.1161440185830495,
+            ref_window_cv_max_pct=21.63317204012652, n=584,
+            mean_us=0.16806164383561645, p50_us=0.072,
+            p99_us=0.8388799999999974, p999_us=1.7662480000000222)},
+    "diurnal_corr": {
+        "static": dict(
+            violations=16, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 6.933333333333333, "101": 7.573333333333334,
+                         "110": 6.293333333333333, "111": 7.530666666666667,
+                         "1000": 9.322666666666667, "1001": 9.578666666666667},
+            ref_gbps_mean=9.450666666666667,
+            ref_dev_max_pct=1.3544018058690757,
+            ref_window_cv_max_pct=22.173457606386567, n=578,
+            mean_us=0.5246643598615917, p50_us=0.29200000000000004,
+            p99_us=2.7439999999999998, p999_us=3.0578400000000094),
+        "adaptive": dict(
+            violations=17, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 6.933333333333334, "101": 6.5920000000000005,
+                         "110": 4.288, "111": 5.930666666666667,
+                         "1000": 9.194666666666667, "1001": 9.173333333333332},
+            ref_gbps_mean=9.184, ref_dev_max_pct=0.11614401858304954,
+            ref_window_cv_max_pct=20.283155279253588, n=580,
+            mean_us=0.40176551724137927, p50_us=0.154,
+            p99_us=1.7671200000000027, p999_us=2.1347200000000153)},
+    "flash_crowd": {
+        "static": dict(
+            violations=6, lat_violations=0,
+            decisions=[['arrive', 300, 0], ['arrive', 301, 1]],
+            tenant_gbps={"100": 6.655999999999999, "110": 6.762666666666666,
+                         "300": 4.949333333333333, "301": 4.949333333333333,
+                         "1000": 9.322666666666667, "1001": 9.472},
+            ref_gbps_mean=9.397333333333332,
+            ref_dev_max_pct=0.7945516458569878,
+            ref_window_cv_max_pct=23.34922676841802, n=584,
+            mean_us=0.3873013698630137, p50_us=0.21800000000000003,
+            p99_us=3.4535199999999975, p999_us=3.8366960000000025),
+        "adaptive": dict(
+            violations=6, lat_violations=1,
+            decisions=[['arrive', 300, 0], ['arrive', 301, 1]],
+            tenant_gbps={"100": 8.576, "110": 7.4879999999999995, "300": 9.728,
+                         "301": 8.846222222222222, "1000": 11.541333333333332,
+                         "1001": 11.541333333333332},
+            ref_gbps_mean=11.541333333333332, ref_dev_max_pct=0.0,
+            ref_window_cv_max_pct=18.36115475123148, n=584,
+            mean_us=0.9336917808219178, p50_us=0.432, p99_us=7.386359999999979,
+            p999_us=8.089020000000001)},
+    "adversarial_probe": {
+        "static": dict(
+            violations=10, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 4.096, "110": 4.096, "1000": 9.365333333333332,
+                         "1001": 9.450666666666667},
+            ref_gbps_mean=9.408, ref_dev_max_pct=0.4535147392290316,
+            ref_window_cv_max_pct=22.87044518790476, n=584,
+            mean_us=0.33744520547945206, p50_us=0.072, p99_us=2.464,
+            p999_us=2.697700000000003),
+        "adaptive": dict(
+            violations=9, lat_violations=0, decisions=[],
+            tenant_gbps={"100": 4.096, "110": 4.096,
+                         "1000": 11.541333333333332,
+                         "1001": 11.541333333333332},
+            ref_gbps_mean=11.541333333333332, ref_dev_max_pct=0.0,
+            ref_window_cv_max_pct=18.83638168843618, n=584,
+            mean_us=0.320986301369863, p50_us=0.07600000000000001,
+            p99_us=2.4187999999999983, p999_us=2.6463960000000055)}}
+SCENARIO_PROBE = dict(bucket_bytes=49152, period_s=9.6e-05,
+                      period_windows=2)
+
+
+def _workload_patterns():
+    """tests/test_workloads.py's seven digest patterns, with the port."""
+    from repro_torch.core.flow import TrafficPattern as TP
+    return [
+        TP(1024, load=0.3, process="mmpp", params=(("states", (0.25, 2.5)),)),
+        TP(1024, load=0.3, process="heavytail",
+           params=(("dist", "pareto"), ("alpha", 1.5))),
+        TP(1024, load=0.3, process="heavytail",
+           params=(("dist", "lognormal"), ("sigma", 1.0))),
+        TP(1024, load=0.3, process="diurnal", params=(("amp", 0.8),)),
+        TP(1024, load=0.3, process="corrburst",
+           params=(("group", 3), ("burst_hz", 50_000.0), ("burst_len", 8))),
+        TP(1024, load=0.3, process="flash", params=(("at", 0.3),
+                                                    ("mult", 6.0))),
+        TP(1024, rate_mps=5e5, process="adversarial",
+           params=(("bucket_bytes", 32 * 1024), ("period_s", 96e-6))),
+    ]
+
+
+def _trace_digest(t, s):
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(t.astype("<i4")).tobytes())
+    h.update(np.ascontiguousarray(s.astype("<i4")).tobytes())
+    return t.shape, h.hexdigest()
+
+
+def phase_workload_parity(dev) -> dict:
+    """The production-shaped generators through the port: the seven
+    patterns' traces (``make_trace``, numpy) against the reference's pinned
+    digests, then one ``simulate_batch`` of seven elements (one a pattern,
+    each beside a 1 KiB poisson tenant, hardware shaping at 6 Gbps) on the
+    card: bitwise equal to the same batch on the CPU, and the window's
+    CUDA graph bitwise equal to its eager body on the card.  Launch counts
+    set to 0 just before the card's ``simulate_batch`` and read just
+    after: one grant-tick launch a tick."""
+    import torch
+    from repro_torch.core import engine, token_bucket as tb
+    from repro_torch.core.accelerator import CATALOG, AccelTable
+    from repro_torch.core.flow import (SLO, FlowSet, FlowSpec, Path,
+                                       TrafficPattern)
+    from repro_torch.core.interconnect import LinkSpec
+    from repro_torch.core.sim import SimConfig, simulate_batch, stack_arrivals
+    from repro_torch.kernels.token_bucket import ops
+    from repro_torch.workloads.generators import make_trace
+    pats = _workload_patterns()
+    digests = {}
+    for seed, want in WORKLOAD_DIGESTS.items():
+        got = _trace_digest(*make_trace(pats, n_ticks=WORKLOAD_TICKS,
+                                        seed=seed))
+        digests[seed] = [list(got[0]), got[1]]
+        if got != want:
+            raise AssertionError(f"workload_parity: seed {seed} traces "
+                                 f"{got} != the pinned {want}")
+    n = WORKLOAD_BATCH_TICKS
+    cfg = SimConfig(n_ticks=n)
+    probe = TrafficPattern(1024, load=0.3, process="poisson")
+    flows, arrs = [], []
+    for b, pat in enumerate(pats):
+        flows.append(FlowSet.build([
+            FlowSpec(i, i, Path.FUNCTION_CALL, 0, p, SLO.gbps(6.0))
+            for i, p in enumerate((pat, probe))]))
+        arrs.append(make_trace([pat, probe], n_ticks=n, seed=b))
+    regs = [tb.pack([tb.params_for_gbps(6.0)] * 2) for _ in pats]
+    args = (flows, AccelTable.build([CATALOG["synthetic50"]]), LinkSpec(),
+            cfg, regs, *stack_arrivals(arrs))
+    engine.cache_clear()
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    card = simulate_batch(*args, device=dev)
+    wall = time.perf_counter() - t0
+    by_path = dict(ops.LAUNCHES_BY_PATH)
+    info = engine.cache_info()
+    cpu = simulate_batch(*args, device="cpu")
+    for b, (c, g) in enumerate(zip(cpu, card)):
+        _results_equal(f"workload_parity element {b} CUDA vs CPU", c, g)
+    graph = engine.carry_to_numpy(engine.run_window_batch(*args,
+                                                          device=dev))
+    eager = engine.carry_to_numpy(engine._run_window_batch_eager(
+        *args, device=dev))
+    for k, v in graph.items():
+        for a, x in zip(*((t[k] if k == "tb" else (t[k],))
+                          for t in (graph, eager))):
+            if a.tobytes() != x.tobytes():
+                raise AssertionError(f"workload_parity: graph != eager "
+                                     f"body on {k}")
+    sizes = [int(s.max()) for _, s in arrs]
+    emit("workload_parity", patterns=[p.process for p in pats],
+         digest_ticks=WORKLOAD_TICKS, digests=digests, batch=len(pats),
+         ticks=n, max_msg_bytes=sizes,
+         admitted=[int(r.counters["c_adm_msgs"].sum()) for r in card],
+         completions=[int(r.comp_flow.size) for r in card],
+         cuda_vs_cpu_bitwise=True, graph_vs_eager_bitwise=True,
+         wall_s=wall, us_per_batched_tick=wall / n * 1e6, cache_info=info,
+         launches_by_path=by_path)
+    if by_path != dict(step=0, grant_tick=n) or \
+            info != {"entries": 1, "traces": 1}:
+        raise AssertionError(f"workload_parity: cache {info}, launches "
+                             f"{by_path} for {n} ticks")
+    # elements 1 and 2 are the heavy-tailed ones (mean 1 KiB)
+    if not all(r.comp_flow.size for r in card) or min(sizes[1:3]) <= 1024:
+        raise AssertionError(f"workload_parity: an element completed "
+                             f"nothing, or the heavy tails drew no size "
+                             f"above 1 KiB: {sizes}")
+    return by_path
+
+
+@contextlib.contextmanager
+def _profiling_timer():
+    """Seconds spent in the profiler's batched simulations (synchronised
+    wall clock around each ``simulate_batch`` that ``profile_contexts_multi``
+    runs)."""
+    import torch
+    from repro_torch.core import profiler
+    rec = dict(s=0.0, batches=0)
+    inner = profiler.simulate_batch
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        rec["s"] += time.perf_counter() - t0
+        rec["batches"] += 1
+        return out
+    profiler.simulate_batch = timed
+    try:
+        yield rec
+    finally:
+        profiler.simulate_batch = inner
+
+
+def _scenario_stats(spec, built, results, reports) -> dict:
+    """benchmarks/scenarios.py:59-128 and benchmarks/common.py:62-81 on
+    the port's run: violation windows (all, latency), the lifecycle
+    decisions, each rate tenant's mean measured rate, the reference
+    tenants' (ids 1000+b) cross-server deviation and worst cross-window CV
+    (window 0 left out), and the latency probes' (lane 1) tails past the
+    warm-up cut (``np.percentile``'s default interpolation)."""
+    import numpy as np
+    from repro_torch.core.flow import SLOKind
+    lat_kind = int(SLOKind.LATENCY)
+    metrics = [m for rep in reports for w in rep
+               for m in w.metrics.values()]
+    acc: dict = {}
+    for m in metrics:
+        if m.kind != lat_kind:
+            acc.setdefault(m.flow_id, []).append(m.measured)
+    per = [np.array([w.measured[1000 + b] for w in reports[b]])
+           for b in range(spec.servers)]
+    mean_b = np.array([p.mean() for p in per])
+    lat = np.concatenate([
+        r.comp_lat_s[(r.comp_flow == 1)
+                     & (r.comp_t_s >= SCENARIO_WARMUP_FRAC * r.seconds)]
+        for r in results]).astype(float)
+    out = dict(
+        violations=sum(m.violated for m in metrics),
+        lat_violations=sum(m.violated for m in metrics
+                           if m.kind == lat_kind),
+        decisions=[[e["kind"], e["tenant"],
+                    -1 if e["server"] is None else e["server"]]
+                   for e in built.controller.last_events],
+        tenant_gbps={str(f): float(np.mean(v))
+                     for f, v in sorted(acc.items())},
+        ref_gbps_mean=float(mean_b.mean()),
+        ref_dev_max_pct=float(np.max(np.abs(mean_b - mean_b.mean())
+                                     / mean_b.mean()) * 100),
+        ref_window_cv_max_pct=float(max(
+            np.std(p[1:]) / max(np.mean(p[1:]), 1e-12) * 100 for p in per)),
+        n=int(lat.size), mean_us=float(np.mean(lat) * 1e6))
+    for q, key in ((50, "p50_us"), (99, "p99_us"), (99.9, "p999_us")):
+        out[key] = float(np.percentile(lat, q) * 1e6)
+    return out
+
+
+def phase_scenarios(dev) -> dict:
+    """benchmarks/scenarios.py's run, uncut, through the port on the card:
+    the five named scenarios (``repro_torch.workloads``) on two servers,
+    eight windows of 1,500 ticks, each under ``StaticHold`` and under
+    ``GlobalRetarget(SlackAIMD(), period=3)``, every build sharing one
+    ProfileTable of 8,000 ticks a context.  Both arms are built (admission
+    profiling timed), then each runs on a cleared cache with its launch
+    counts set to 0 just before the run and read just after: one entry,
+    one capture, 12,000 grant-tick launches, nothing profiled.
+    ``flash_crowd``'s opportunists arrive at window 2 and their admission
+    profiles a context inside ``run``; a throwaway static build and run of
+    its first three windows (the arrival included) warms that context
+    first, as the benchmark warms every context with a throwaway run.
+    Every deterministic field of each arm (and the prober's burst size and
+    period) against scenarios.json's."""
+    import dataclasses
+
+    import torch
+    from repro_torch import workloads as wl
+    from repro_torch.core import control, engine, profiler
+    from repro_torch.core.profiler import ProfileTable
+    from repro_torch.kernels.token_bucket import ops
+    policies = {"static": control.StaticHold,
+                "adaptive": lambda: control.GlobalRetarget(
+                    control.SlackAIMD(), period=3)}
+    profile = ProfileTable(n_ticks=SCENARIO_PROFILE_TICKS, device=dev)
+    out = {}
+    for name in SCENARIOS:
+        spec = wl.get_scenario(name)
+        p0 = profiler.profiling_stats()
+        with _profiling_timer() as prof:
+            t0 = time.perf_counter()
+            built = {arm: spec.build(control=mk(), profile=profile,
+                                     device=dev)
+                     for arm, mk in policies.items()}
+            build_s = time.perf_counter() - t0
+            warm_s = 0.0
+            if spec.events is not None:
+                t1 = time.perf_counter()
+                dataclasses.replace(spec, n_windows=3).build(
+                    profile=profile, device=dev).run()
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t1
+        p1 = profiler.profiling_stats()
+        arms = {}
+        for arm, b in built.items():
+            engine.cache_clear()
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t2 = time.perf_counter()
+            results, reports = b.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t2
+            by_path = dict(ops.LAUNCHES_BY_PATH)
+            info = engine.cache_info()
+            arms[arm] = dict(
+                _scenario_stats(spec, b, results, reports),
+                wall_s=wall, us_per_batched_tick=wall / spec.total_ticks
+                * 1e6, cache_info=info, launches_by_path=by_path)
+        p2 = profiler.profiling_stats()
+        row = dict(servers=spec.servers, windows=spec.n_windows,
+                   window_ticks=spec.window_ticks,
+                   total_ticks=spec.total_ticks,
+                   profiled_contexts=p1["contexts"] - p0["contexts"],
+                   profiling_s=prof["s"], profiling_batches=prof["batches"],
+                   build_s=build_s, warm_run_s=warm_s,
+                   timed_runs_profiled_contexts=p2["contexts"]
+                   - p1["contexts"], arms=arms)
+        if name == "adversarial_probe":
+            adv = spec.tenants(spec)[0][2].pattern    # [ref, lat, prober]
+            row["probe"] = dict(
+                bucket_bytes=int(adv.param("bucket_bytes")),
+                period_s=float(adv.param("period_s")),
+                period_windows=int(round(adv.param("period_s")
+                                         / spec.window_s())))
+        emit("scenarios", scenario=name, **row)
+        out[name] = row
+        for arm, d in arms.items():
+            got = {k: d[k] for k in SCENARIO_REFERENCE[name][arm]}
+            if got != SCENARIO_REFERENCE[name][arm]:
+                bad = {k: (v, SCENARIO_REFERENCE[name][arm][k])
+                       for k, v in got.items()
+                       if v != SCENARIO_REFERENCE[name][arm][k]}
+                raise AssertionError(f"scenarios {name} {arm}: (port, "
+                                     f"reference) differ on {bad}")
+            if d["cache_info"] != {"entries": 1, "traces": 1} or \
+                    d["launches_by_path"] != dict(
+                        step=0, grant_tick=spec.total_ticks):
+                raise AssertionError(
+                    f"scenarios {name} {arm}: cache {d['cache_info']}, "
+                    f"launches {d['launches_by_path']} for "
+                    f"{spec.total_ticks} ticks")
+        if row["timed_runs_profiled_contexts"]:
+            raise AssertionError(
+                f"scenarios {name}: the timed runs profiled "
+                f"{row['timed_runs_profiled_contexts']} contexts")
+        if row.get("probe", SCENARIO_PROBE) != SCENARIO_PROBE:
+            raise AssertionError(f"scenarios {name}: probe {row['probe']} "
+                                 f"!= the reference's {SCENARIO_PROBE}")
+    return {f"{name}.{arm}": d["launches_by_path"]
+            for name, row in out.items() for arm, d in row["arms"].items()}
+
+
+# ---------------------------------------------------------------------------
 # serving: gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -2676,6 +3115,8 @@ def main() -> int:
     cont = phase_contention(dev)
     churn = phase_churn(dev)
     adapt = phase_adaptive_churn(dev)
+    wp = phase_workload_parity(dev)
+    scen = phase_scenarios(dev)
     model, serve, _ = phase_serve(dev)
     long = phase_serve_long(dev, model)
     phase_serve_parity(dev, model)
@@ -2703,6 +3144,8 @@ def main() -> int:
         **{f"contention.{arm}": v for arm, v in cont.items()},
         churn=churn,
         **{f"adaptive_churn.{arm}": v for arm, v in adapt.items()},
+        workload_parity=wp,
+        **{f"scenarios.{k}": v for k, v in scen.items()},
         **{p: r["token_bucket_paths"] for p, r in runs.items()})
     tb_src = "src/repro_torch/kernels/token_bucket/csrc/token_bucket.cu"
     step = k["times"][n_main]
@@ -2749,7 +3192,10 @@ def main() -> int:
                for arm, v in cont.items()},
             churn=churn["grant_tick"],
             **{f"adaptive_churn.{arm}": v["grant_tick"]
-               for arm, v in adapt.items()})}]
+               for arm, v in adapt.items()},
+            workload_parity=wp["grant_tick"],
+            **{f"scenarios.{k}": v["grant_tick"]
+               for k, v in scen.items()})}]
     for name, res, src, rep, shape, run in (
             ("decode_attention", da,
              "src/repro_torch/kernels/decode_attention/csrc/"

@@ -565,9 +565,8 @@ class FleetController:
                         ) -> tuple[np.ndarray, np.ndarray]:
         """Full-horizon arrival traces for one server in lane order — the
         exact rows ``run`` would generate itself from ``seeds``.  The
-        public seam for replayable scenarios (the reference's
-        ``repro.workloads``): emit once, save, and pass back through
-        ``run(arrivals=...)``."""
+        public seam for replayable scenarios (``repro_torch.workloads``):
+        emit once, save, and pass back through ``run(arrivals=...)``."""
         return self._layout_arrivals(server, cfg, seed, ref)
 
     def _fleet_pass(self, host: dict, prev: dict | None, cfg: SimConfig,

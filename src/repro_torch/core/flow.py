@@ -67,8 +67,9 @@ class TrafficPattern:
     load: float = 0.5
     rate_mps: float | None = None
     # any name in the sim's arrival-process registry (``cbr``, ``poisson``
-    # and ``onoff`` ship built-in; the reference's workload package
-    # registers the production-shaped set, not yet ported)
+    # and ``onoff`` ship built-in; ``repro_torch.workloads.generators``
+    # registers the production-shaped set: mmpp, heavytail, diurnal,
+    # corrburst, flash, adversarial)
     process: str = "cbr"
     # onoff: bursts of `burst_len` back-to-back msgs separated by idle gaps.
     burst_len: int = 32

@@ -159,7 +159,9 @@ def gen_arrivals(flows: FlowSet, cfg: SimConfig, *, seed: int = 0,
         raise ValueError(
             f"unknown arrival process(es) {unknown}; registered: "
             f"{sorted(_PROCESSES)} (workload processes register via "
-            "register_process)")
+            "repro_torch.core.sim.register_process — import "
+            "repro_torch.workloads.generators for the production-shaped "
+            "set)")
     # dense [N, M0] generation sized by the fastest flow: slow rows draw
     # more randomness than their m_i needs, but flow counts here are small
     # (tens) and M0 is capped by max_msgs, so the vectorization win

@@ -1,6 +1,7 @@
 """Shared builders of the fleet control-plane parity tests
 (``test_torch_resources.py``, ``test_torch_placement.py``,
-``test_torch_control.py``, ``test_torch_controller.py``): one namespace per
+``test_torch_control.py``, ``test_torch_controller.py``,
+``test_torch_scenarios.py``): one namespace per
 package holding the same names, so a scenario is written once and built
 with the JAX package (``JAX``) and with the port on the CPU (``PORT``), and
 the comparisons of their outputs."""
@@ -31,6 +32,7 @@ def _namespace(prefix: str, **extra) -> SimpleNamespace:
         SLOKind=flow.SLOKind, LinkSpec=ic.LinkSpec, mem_bw=ic.mem_bw,
         host_dma=ic.host_dma, RES_MEM_BW=ic.RES_MEM_BW)
     ns.ArcusRuntime = mod("runtime").ArcusRuntime
+    ns.workloads = importlib.import_module(f"{prefix}.workloads")
     ns.ProfileTable = mod("profiler").ProfileTable
     ns.simulate = ns.sim.simulate
     ns.simulate_batch = ns.sim.simulate_batch

@@ -73,7 +73,14 @@ def test_gen_arrivals_and_stall_mask_match_reference(seed):
                                   tsim.gen_stall_mask(port_cfg(cfg), **kw))
     assert tsim.trace_budget(_specs()[2].pattern, 1e6, 1e-3) == \
         jsim.trace_budget(_specs()[2].pattern, 1e6, 1e-3)
-    assert tsim.registered_processes() == ("cbr", "poisson", "onoff")
+    # the registry is process-global: a worker that imported
+    # repro_torch.workloads for an earlier file also holds the workload set
+    # (its full tuple is held against the reference's in
+    # test_torch_workloads.py)
+    names = tsim.registered_processes()
+    assert names[:3] == ("cbr", "poisson", "onoff")
+    assert names[3:] in ((), ("mmpp", "heavytail", "diurnal", "corrburst",
+                              "flash", "adversarial")), names
 
 
 def test_unknown_process_raises():
