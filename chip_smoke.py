@@ -38,7 +38,22 @@ drives the port's paths through the kernels:
     mix, four 2000-token prompts, and, at 4 layers, both mixes through the
     kernel against the plain scan (each call's logits against the plain
     versions on a copy of the same cache: a recurrent state carries any
-    rounding difference forward, so two independent runs drift apart).
+    rounding difference forward, so two independent runs drift apart);
+  * the same serving of recurrentgemma-9b at full width and depth (26
+    ``rglru`` layers and 12 local MQA attention layers: decode attention
+    at 16 query heads on one KV head of 256, flash prefill at G = 16),
+    four 2560-token prompts across its 2048-token window, and one period
+    (3 layers) through the kernels against the plain versions on the same
+    cache;
+  * the same serving of mixtral-8x22b at full width (48 / 8 heads of 128,
+    G = 6; 8 experts of d_ff 16384, top-2) and 8 of its 56 layers (all 56
+    would hold about 280 GB of weights): the launcher's mix over 6 s of
+    virtual time, four 1536-token prompts, the MoE layer's decode form
+    (every expert, unrouted outputs dropped) against its grouped form on
+    one hidden state, and 2 layers through the kernels against the plain
+    versions on the same cache and the same MoE routing
+    (``repro_torch.models.routing``: rounding can move a router's choice
+    where its k-th and (k+1)-th experts nearly tie).
 
 Flash prefill and the SSD scan have two kernels each, chosen by operand
 type: bf16 (what the models pass) on the tensor cores, float32 on the CUDA
@@ -66,9 +81,11 @@ fig6's quick run is 60,000 and its full run 400,000; its digests are the
 JAX reference's at 20,000), ``profile`` profiles windows of 50 ticks (100
 before), ``profile_batch8`` holds its entries at 3,000 ticks and times
 12,000 (6,000 and 30,000 before), and ``parity`` / ``graph_parity`` run
-1,000 / 250 ticks (2,000 / 500 before).  The mamba2 paths run more
-scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so that their
-mixes reach 3 s of virtual time.
+1,000 / 250 ticks (2,000 / 500 before).  The mamba2 and recurrentgemma
+paths run more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so
+that their mixes reach 3 s of virtual time; mixtral's runs 6 s (its full
+config's cost model clocks a 33 ms decode step on one H100), and its depth
+is cut to 8 layers (a ``reduced`` line says so).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero.  The last three lines are the kernel table, the card's
@@ -130,6 +147,24 @@ MAMBA_PARITY_LAYERS = 4
 # advances 0.1 ms and a mamba2 step far less than a gemma3 one, so its mixes
 # take about 29,000 rounds to reach 3 s (every request done by then)
 MAMBA_ROUNDS = 40_000
+# serving: recurrentgemma-9b at full width and depth (38 layers: 26 rglru
+# and 12 local, MQA attention of 16 heads on one KV head of 256 with a
+# 2048-token window; d_model and lru_width 4096, vocab 256000); its long
+# prompts cross the window, and its mixes reach 3 s of virtual time in about
+# 18,000 (serve) and 24,000 (long) rounds
+RG_ARCH = "recurrentgemma-9b"
+RG_LONG_PROMPT, RG_LONG_LEN = 2560, 4096
+RG_PARITY_LAYERS = 3       # one period: rglru, rglru, local
+# serving: mixtral-8x22b at full width (d_model 6144, 48 / 8 heads of 128,
+# window 4096, 8 experts of d_ff 16384, top-2, vocab 32768) and 8 of its 56
+# layers: all 56 would hold about 280 GB of bf16 weights, 8 hold 41 GB.  On
+# one H100's clock (its full config's cost model) a decode step takes 33 ms,
+# so the launcher's mix runs 6 s of virtual time to finish every request
+MX_ARCH = "mixtral-8x22b"
+MX_LAYERS = 8
+MX_LONG_PROMPT = 1536
+MX_SERVE_S = 6.0
+MX_PARITY_LAYERS = 2
 # kernel vs plain logits in bf16: about one bf16 ulp of their scale
 LOGIT_RTOL, LOGIT_ATOL = 1e-2, 0.0625
 
@@ -326,7 +361,11 @@ def _max_err(a, b) -> float:
 # tests/test_kernels.py:43-51 (lengths drawn there), then gemma3-12b's
 # decode: a float32 cache under bf16 activations, at the serve mix's cache
 # (S = 256, lengths 13..80), the long mix's local and global caches
-# (S = 1024 full; S = 2048, lengths 1536..1568)
+# (S = 1024 full; S = 2048, lengths 1536..1568); then recurrentgemma-9b's
+# local layers (MQA: 16 query heads on one KV head of 256, G = 16) at the
+# serve mix's cache and the long mix's full 2048-row window, and
+# mixtral-8x22b's (48 / 8 heads of 128, G = 6) at the serve mix's cache and
+# the long mix's (S = 2048, lengths 1536..1568)
 DA_CASES = [
     (2, 16, 8, 128, 1024, 0, "float32", "float32", None),
     (1, 8, 1, 64, 512, 0, "float32", "float32", None),
@@ -338,9 +377,14 @@ DA_CASES = [
     (8, 16, 8, 256, 256, 0, "bfloat16", "float32", (13, 81)),
     (8, 16, 8, 256, 1024, 0, "bfloat16", "float32", (1024, 1025)),
     (8, 16, 8, 256, 2048, 0, "bfloat16", "float32", (1536, 1569)),
+    (8, 16, 1, 256, 256, 0, "bfloat16", "float32", (13, 81)),
+    (8, 16, 1, 256, 2048, 0, "bfloat16", "float32", (2048, 2049)),
+    (8, 48, 8, 128, 256, 0, "bfloat16", "float32", (13, 81)),
+    (8, 48, 8, 128, 2048, 0, "bfloat16", "float32", (1536, 1569)),
 ]
-DA_MAIN = 7                 # the serve mix's shape: the table's row (then
-                            # the long mix's two caches)
+DA_MAIN = 7                 # the serve mix's shape: the table's row
+DA_LONG = (8, 9)            # the long mix's two caches
+DA_NEW = {"recurrentgemma-9b": (10, 11), "mixtral-8x22b": (12, 13)}
 
 
 def phase_kernel_decode_attention(dev) -> dict:
@@ -408,14 +452,19 @@ def phase_kernel_decode_attention(dev) -> dict:
         rows.append(row)
     emit("kernel_decode_attention", cases=rows,
          worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
-    return dict(rows=rows, main=rows[DA_MAIN], long=rows[DA_MAIN + 1:],
+    return dict(rows=rows, main=rows[DA_MAIN],
+                long=[rows[i] for i in DA_LONG],
+                new={a: [rows[i] for i in ix] for a, ix in DA_NEW.items()},
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
 # B, S, H, KvH, D, window, chunk, dtype: the cases of
 # tests/test_flash_prefill_kernel.py:10-17, then gemma3-12b's prefill in
 # bf16: the serve mix's prompts (12 and 64 tokens) and the long mix's
-# (1536), each through a local layer (window 1024) and a global one
+# (1536), each through a local layer (window 1024) and a global one; then
+# recurrentgemma-9b's local layers (G = 16, D 256, window 2048: packed rows
+# i * 16 + g) at 12, 64 and 2560 tokens, and mixtral-8x22b's (G = 6, D 128,
+# window 4096: 6 does not divide a 128-row tile) at 12, 64 and 1536
 FP_CASES = [
     (2, 128, 4, 2, 64, 0, 0, "float32"),
     (1, 256, 8, 8, 128, 0, 0, "float32"),
@@ -428,10 +477,17 @@ FP_CASES = [
     (1, 64, 16, 8, 256, 0, 0, "bfloat16"),
     (1, 1536, 16, 8, 256, 1024, 0, "bfloat16"),
     (1, 1536, 16, 8, 256, 0, 0, "bfloat16"),
+    (1, 12, 16, 1, 256, 2048, 0, "bfloat16"),
+    (1, 64, 16, 1, 256, 2048, 0, "bfloat16"),
+    (1, 2560, 16, 1, 256, 2048, 0, "bfloat16"),
+    (1, 12, 48, 8, 128, 4096, 0, "bfloat16"),
+    (1, 64, 48, 8, 128, 4096, 0, "bfloat16"),
+    (1, 1536, 48, 8, 128, 4096, 0, "bfloat16"),
 ]
 FP_FIRST_TIMED = 6
 FP_MAIN = 7                 # the serve mix's background prompt: the table's
-FP_LONG = 9                 # the long mix's prompt (local, then global)
+FP_LONG = (9, 10)           # the long mix's prompt (local, then global)
+FP_NEW = {"recurrentgemma-9b": (11, 12, 13), "mixtral-8x22b": (14, 15, 16)}
 
 
 def _prefill_mask(S: int, w: int, ck: int, dev):
@@ -518,7 +574,9 @@ def phase_kernel_flash_prefill(dev) -> dict:
         rows.append(row)
     emit("kernel_flash_prefill", cases=rows,
          worst_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in rows))
-    return dict(rows=rows, main=rows[FP_MAIN], long=rows[FP_LONG:],
+    return dict(rows=rows, main=rows[FP_MAIN],
+                long=[rows[i] for i in FP_LONG],
+                new={a: [rows[i] for i in ix] for a, ix in FP_NEW.items()},
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
@@ -928,8 +986,9 @@ def _decode_graph_parity(arch: str, model, dev, layers: int) -> None:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
+    from repro_torch.models.transformer import ATTN_KINDS
     cut = model.first_layers(layers)
-    n_attn = layers - cut.cfg.layer_kinds().count("ssd")
+    n_attn = sum(k in ATTN_KINDS for k in cut.cfg.layer_kinds())
     eng = ServingEngine(cut.cfg, cut, max_batch=4, max_len=256, device=dev)
     graph = eng._decode
     rows = []
@@ -2640,7 +2699,8 @@ def _instrument(engine, keep_logits: bool = False) -> dict:
 
 
 def _scheduler(model, dev, *, arch, max_batch, max_len, mix, plain=False,
-               keep_logits=False, long_prompt=LONG_PROMPT, shadow=None):
+               keep_logits=False, long_prompt=LONG_PROMPT, shadow=None,
+               tape=None):
     """An ArcusScheduler (token-bucket kernel on) over a fresh engine, with
     ``mix`` submitted: ``"serve"`` is ``launch/serve.py``'s mix (two
     reserved tenants of 1200 and 800 tokens/s, an opportunistic background
@@ -2650,7 +2710,10 @@ def _scheduler(model, dev, *, arch, max_batch, max_len, mix, plain=False,
     the launcher clocks its reduced model by the full config.  ``shadow``
     (a list) receives, for every prefill and decode call, the call's logits
     and those of the plain versions run on a copy of the cache the call
-    started from (``_shadow_plain``)."""
+    started from (``_shadow_plain``), with ``tape`` (a ``RoutingTape``)
+    pinning the plain calls' MoE routing to the kernels' call's; then the
+    engine decodes through its eager body (the graph is held against it by
+    ``_decode_graph_parity``), where the tape records every call."""
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve as S
@@ -2661,9 +2724,11 @@ def _scheduler(model, dev, *, arch, max_batch, max_len, mix, plain=False,
     engine = ServingEngine(model.cfg, model, max_batch=max_batch,
                            max_len=max_len, device=dev,
                            plain_kernels=plain)
+    if tape is not None:
+        engine._decode = engine._decode_eager
     rec = _instrument(engine, keep_logits)
     if shadow is not None:
-        _shadow_plain(engine, shadow)
+        _shadow_plain(engine, shadow, tape)
     cost = StepCostModel(get_config(arch), HardwareSpec())
     if mix == "serve":
         sched = ArcusScheduler(engine, S.make_tenants([1200.0, 800.0], True),
@@ -2687,12 +2752,13 @@ def _scheduler(model, dev, *, arch, max_batch, max_len, mix, plain=False,
     return sched, rec, rounds, n
 
 
-def _shadow_plain(engine, pairs: list) -> None:
+def _shadow_plain(engine, pairs: list, tape=None) -> None:
     """Wrap the engine's prefill and decode so that each call also runs the
     model's plain versions on a copy of the cache it starts from, and
     append (kind, logits, plain logits) to ``pairs``: the kernels against
     their plain versions on the same inputs at every call.  The plain calls
-    launch no kernel."""
+    launch no kernel.  With ``tape``, the plain call takes the MoE routing
+    that the kernels' call chose (``repro_torch.models.routing``)."""
     from repro_torch.models import transformer as T
     model = engine.params
     pre, dec = engine._prefill, engine._decode
@@ -2700,19 +2766,25 @@ def _shadow_plain(engine, pairs: list) -> None:
     def copy(cache):
         return [tuple(t.clone() for t in layer) for layer in cache]
 
-    def prefill(tok, cache):
+    def shadowed(kind, call, plain_call, cache, *args):
         snap = copy(cache)
-        out = pre(tok, cache)
-        pairs.append(("prefill", out[0],
-                      T.prefill(model, tok, snap, plain=True)[0]))
+        if tape is not None:
+            tape.record()
+        out = call(*args, cache)
+        if tape is not None:
+            tape.replay()
+        want = plain_call(model, *args, snap, plain=True)
+        if tape is not None:
+            tape.stop()
+        pairs.append((kind, out[0] if kind == "prefill" else out,
+                      want[0] if kind == "prefill" else want))
         return out
 
+    def prefill(tok, cache):
+        return shadowed("prefill", pre, T.prefill, cache, tok)
+
     def decode(tok, ln, cache):
-        snap = copy(cache)
-        out = dec(tok, ln, cache)
-        pairs.append(("decode", out,
-                      T.decode_step(model, tok, ln, snap, plain=True)))
-        return out
+        return shadowed("decode", dec, T.decode_step, cache, tok, ln)
     engine._prefill, engine._decode = prefill, decode
 
 
@@ -2742,22 +2814,24 @@ def _run_path(name, model, dev, **kw) -> dict:
     import numpy as np
     import torch
     max_rounds = kw.pop("max_rounds", 2000)
+    duration = kw.pop("duration", 3.0)
     sched, rec, rounds, n_req = _scheduler(model, dev, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
-    sched.run(3.0, max_rounds=max_rounds)
+    sched.run(duration, max_rounds=max_rounds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     fp_paths = dict(_kernel_ops()["flash_prefill"].LAUNCHES_BY_PATH)
     ssd_paths = dict(_kernel_ops()["ssd_scan"].LAUNCHES_BY_PATH)
     tb_paths = dict(_kernel_ops()["token_bucket"].LAUNCHES_BY_PATH)
+    from repro_torch.models.transformer import ATTN_KINDS
     L = model.cfg.n_layers
     kinds = model.cfg.layer_kinds()
     n_ssd = kinds.count("ssd")
-    n_attn = L - n_ssd
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
     expect = dict(token_bucket=rec["prefills"] + rounds[0],
                   decode_attention=rec["decodes"] * n_attn,
                   flash_prefill=rec["prefills"] * n_attn,
@@ -2893,27 +2967,45 @@ def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
             f"prefill_{long_prompt}": _profile(prefill, 2)}
 
 
-def phase_serve(dev) -> tuple:
-    """gemma3-12b at full width and depth, random weights drawn on the card:
-    the launcher's mix through ArcusScheduler(use_kernel=True)."""
+def _full_model(arch: str, dev, n_layers: int | None = None):
+    """``arch``'s config at full width (``n_layers`` of depth, or all) with
+    random weights drawn on the card: (model, seconds to draw, GiB)."""
+    import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import module, transformer as T
-    cfg = get_config(SERVE_ARCH)
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     model = T.init_model(SERVE_SEED, cfg, device=dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights_gib = sum(p.numel() * p.element_size()
-                      for p in model.parameters()) / 2**30
+    gib = sum(p.numel() * p.element_size()
+              for p in model.parameters()) / 2**30
+    return model, time.perf_counter() - t0, gib
+
+
+def _emit_serve(phase: str, arch: str, model, init_s, gib, run, prof
+                ) -> None:
+    from repro_torch.models import module
+    cfg = model.cfg
+    emit(phase, arch=arch, n_layers=cfg.n_layers,
+         layer_kinds={k: cfg.layer_kinds().count(k)
+                      for k in sorted(set(cfg.layer_kinds()))},
+         moe_layers=sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)),
+         d_model=cfg.d_model, vocab=cfg.vocab,
+         params=module.param_count(model), weights_gib=gib, init_s=init_s,
+         max_batch=8, max_len=256, **_public(run), profile=prof)
+
+
+def phase_serve(dev) -> tuple:
+    """gemma3-12b at full width and depth, random weights drawn on the card:
+    the launcher's mix through ArcusScheduler(use_kernel=True)."""
+    model, init_s, gib = _full_model(SERVE_ARCH, dev)
     run = _run_path("serve", model, dev, arch=SERVE_ARCH, max_batch=8,
                     max_len=256, mix="serve")
     prof = _profile_serving(model, dev)
-    emit("serve", arch=SERVE_ARCH, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, vocab=cfg.vocab,
-         params=module.param_count(model), weights_gib=weights_gib,
-         init_s=init_s, max_batch=8, max_len=256, **_public(run),
-         profile=prof)
+    _emit_serve("serve", SERVE_ARCH, model, init_s, gib, run, prof)
     return model, run, prof
 
 
@@ -2933,7 +3025,8 @@ def phase_serve_long(dev, model) -> dict:
 
 
 def _kernels_vs_plain(name, cut, dev, arch, long_prompt, max_rounds=2000,
-                      same_inputs=False) -> dict:
+                      same_inputs=False, long_len=2048, serve_s=3.0,
+                      pin_routing=False) -> dict:
     """Both mixes through the kernels and through their plain versions on
     ``cut``: the same tokens, equal stats and virtual time, and logits
     within one bf16 ulp of their scale (LOGIT_RTOL / LOGIT_ATOL) at every
@@ -2942,20 +3035,33 @@ def _kernels_vs_plain(name, cut, dev, arch, long_prompt, max_rounds=2000,
     started from (``_shadow_plain``), and the drift between the two
     independent runs is reported, not held: a model with a recurrent state
     carries any rounding difference forward, and two runs that differ only
-    in the order of float32 sums drift apart at small logits."""
+    in the order of float32 sums drift apart at small logits.  The long
+    mix's engine holds ``long_len`` positions; the serve mix runs
+    ``serve_s`` seconds of virtual time.  ``pin_routing`` (a model with MoE
+    layers; implies ``same_inputs``) runs each call's plain versions on the
+    MoE routing of the kernels' call (``repro_torch.models.routing``) and
+    reports how often the plain call's own routing moved; the two
+    independent runs can then route a token differently, so their tokens
+    are reported, not held (their statistics, which the token values do
+    not touch, are)."""
     import dataclasses
     import torch
+    from repro_torch.models import routing
+    same_inputs |= pin_routing
     report = {}
-    for mix, max_batch, max_len in (("serve", 8, 256),
-                                    ("long", LONG_REQUESTS, 2048)):
+    for mix, max_batch, max_len, secs in (
+            ("serve", 8, 256, serve_s), ("long", LONG_REQUESTS, long_len, 3.0)):
         shadow = [] if same_inputs else None
-        runs = [_run_path(f"{name}/{mix}", cut, dev, arch=arch,
-                          max_batch=max_batch, max_len=max_len, mix=mix,
-                          plain=plain, keep_logits=True,
-                          long_prompt=long_prompt, max_rounds=max_rounds,
-                          shadow=None if plain else shadow)
-                for plain in (False, True)]
-        (k, p) = runs
+        tape = routing.RoutingTape(cut) if pin_routing else None
+        common = dict(arch=arch, max_batch=max_batch, max_len=max_len,
+                      mix=mix, keep_logits=True, long_prompt=long_prompt,
+                      max_rounds=max_rounds, duration=secs)
+        k = _run_path(f"{name}/{mix}", cut, dev, shadow=shadow, tape=tape,
+                      **common)
+        if tape is not None:
+            tape.remove()
+        p = _run_path(f"{name}/{mix}", cut, dev, plain=True, **common)
+        runs = (k, p)
         kl, pl = k["rec"]["logits"], p["rec"]["logits"]
         if [a for a, _ in kl] != [b for b, _ in pl]:
             raise AssertionError(f"{name}/{mix}: call sequences differ")
@@ -2980,13 +3086,15 @@ def _kernels_vs_plain(name, cut, dev, arch, long_prompt, max_rounds=2000,
             [r.generated for r in ps.all_reqs.values()]
         stats = all(dataclasses.asdict(ks.stats[t]) ==
                     dataclasses.asdict(ps.stats[t]) for t in ks.stats)
-        if not (toks and stats and ks.now_s == ps.now_s):
+        if not ((toks or pin_routing) and stats and ks.now_s == ps.now_s):
             raise AssertionError(f"{name}/{mix}: tokens equal {toks}, "
                                  f"stats equal {stats}")
+        if tape is not None:
+            row["routing"] = tape.report()
         report[mix] = dict(row, tokens_equal=toks, stats_equal=stats,
                            kernel_launches=k["launches"],
                            plain_launches=p["launches"])
-        del runs, k, p, kl, pl, independent, shadow
+        del runs, k, p, kl, pl, independent, shadow, tape
         torch.cuda.empty_cache()
     return report
 
@@ -3013,24 +3121,11 @@ def phase_serve_mamba2(dev) -> tuple:
     card: the launcher's mix through ArcusScheduler(use_kernel=True), every
     prefill through the SSD-scan kernel (48 launches), decode in plain
     torch."""
-    import torch
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import module, transformer as T
-    cfg = get_config(MAMBA_ARCH)
-    t0 = time.perf_counter()
-    model = T.init_model(SERVE_SEED, cfg, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights_gib = sum(p.numel() * p.element_size()
-                      for p in model.parameters()) / 2**30
+    model, init_s, gib = _full_model(MAMBA_ARCH, dev)
     run = _run_path("serve_mamba2", model, dev, arch=MAMBA_ARCH, max_batch=8,
                     max_len=256, mix="serve", max_rounds=MAMBA_ROUNDS)
     prof = _profile_serving(model, dev, MAMBA_LONG_PROMPT)
-    emit("serve_mamba2", arch=MAMBA_ARCH, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, vocab=cfg.vocab,
-         params=module.param_count(model), weights_gib=weights_gib,
-         init_s=init_s, max_batch=8, max_len=256, **_public(run),
-         profile=prof)
+    _emit_serve("serve_mamba2", MAMBA_ARCH, model, init_s, gib, run, prof)
     return model, run, prof
 
 
@@ -3061,6 +3156,139 @@ def phase_serve_mamba2_parity(dev, model) -> None:
     emit("serve_mamba2_parity", layers=MAMBA_PARITY_LAYERS,
          d_model=cut.cfg.d_model, logit_rtol=LOGIT_RTOL,
          logit_atol=LOGIT_ATOL, mixes=report)
+
+
+# ---------------------------------------------------------------------------
+# serving: recurrentgemma-9b and mixtral-8x22b at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_recurrentgemma(dev) -> tuple:
+    """recurrentgemma-9b at full width and depth, random weights drawn on
+    the card: the launcher's mix through ArcusScheduler(use_kernel=True);
+    decode attention and flash prefill launch once a step / prefill for
+    each of the 12 local layers, the 26 rglru layers run torch ops (the
+    reference scans in jnp, with no kernel)."""
+    model, init_s, gib = _full_model(RG_ARCH, dev)
+    run = _run_path("serve_recurrentgemma", model, dev, arch=RG_ARCH,
+                    max_batch=8, max_len=256, mix="serve",
+                    max_rounds=MAMBA_ROUNDS)
+    prof = _profile_serving(model, dev, RG_LONG_PROMPT)
+    _emit_serve("serve_recurrentgemma", RG_ARCH, model, init_s, gib, run,
+                prof)
+    return model, run, prof
+
+
+def phase_serve_recurrentgemma_long(dev, model) -> dict:
+    """Four 2560-token prompts over the 2048-token window: the local
+    caches keep the last 2048 positions and roll, and each rglru prefill
+    scans 2560 positions (12 levels of the associative scan)."""
+    run = _run_path("serve_recurrentgemma_long", model, dev, arch=RG_ARCH,
+                    max_batch=LONG_REQUESTS, max_len=RG_LONG_LEN, mix="long",
+                    long_prompt=RG_LONG_PROMPT, max_rounds=MAMBA_ROUNDS)
+    if run["longest_sequence"] <= model.cfg.window:
+        raise AssertionError(f"serve_recurrentgemma_long stayed inside the "
+                             f"window: {run['longest_sequence']}")
+    emit("serve_recurrentgemma_long", prompt=RG_LONG_PROMPT,
+         new_tokens=LONG_NEW, window=model.cfg.window,
+         max_batch=LONG_REQUESTS, max_len=RG_LONG_LEN, **_public(run))
+    return run
+
+
+def phase_serve_recurrentgemma_parity(dev, model) -> None:
+    """One period (rglru, rglru, local) at full width: the decode graph
+    against its eager body, then both mixes through the kernels against
+    the plain versions, each call's logits on a copy of the same cache (the
+    recurrent state carries rounding forward, as mamba2's)."""
+    _decode_graph_parity(RG_ARCH, model, dev, RG_PARITY_LAYERS)
+    cut = model.first_layers(RG_PARITY_LAYERS)
+    report = _kernels_vs_plain("serve_recurrentgemma_parity", cut, dev,
+                               RG_ARCH, RG_LONG_PROMPT, MAMBA_ROUNDS,
+                               same_inputs=True, long_len=RG_LONG_LEN)
+    emit("serve_recurrentgemma_parity", layers=RG_PARITY_LAYERS,
+         d_model=cut.cfg.d_model, logit_rtol=LOGIT_RTOL,
+         logit_atol=LOGIT_ATOL, mixes=report)
+
+
+def phase_serve_mixtral(dev) -> tuple:
+    """mixtral-8x22b at full width and MX_LAYERS of depth, random weights
+    drawn on the card: the launcher's mix through
+    ArcusScheduler(use_kernel=True), clocked by the full config; each
+    prefill's MoE layers dispatch grouped by expert, each decode step (a
+    graph replay) runs every expert on the 8 slots."""
+    emit("reduced", what="serve_mixtral depth",
+         n_layers=[MX_LAYERS, 56], why="56 layers hold about 280 GB of bf16 "
+         "weights; one card holds 80 GB")
+    model, init_s, gib = _full_model(MX_ARCH, dev, MX_LAYERS)
+    run = _run_path("serve_mixtral", model, dev, arch=MX_ARCH, max_batch=8,
+                    max_len=256, mix="serve", max_rounds=MAMBA_ROUNDS,
+                    duration=MX_SERVE_S)
+    prof = _profile_serving(model, dev, MX_LONG_PROMPT)
+    _emit_serve("serve_mixtral", MX_ARCH, model, init_s, gib, run, prof)
+    return model, run, prof
+
+
+def phase_serve_mixtral_long(dev, model) -> dict:
+    """Four 1536-token prompts: each prefill routes 3,072 (token, expert)
+    rows a MoE layer through the grouped dispatch."""
+    run = _run_path("serve_mixtral_long", model, dev, arch=MX_ARCH,
+                    max_batch=LONG_REQUESTS, max_len=2048, mix="long",
+                    long_prompt=MX_LONG_PROMPT, max_rounds=MAMBA_ROUNDS)
+    if run["longest_sequence"] < MX_LONG_PROMPT:
+        raise AssertionError(f"serve_mixtral_long: longest sequence "
+                             f"{run['longest_sequence']}")
+    emit("serve_mixtral_long", prompt=MX_LONG_PROMPT, new_tokens=LONG_NEW,
+         max_batch=LONG_REQUESTS, max_len=2048, **_public(run))
+    return run
+
+
+def _moe_forms(model, dev) -> dict:
+    """The first MoE layer's decode form (every expert on every token,
+    ``all_experts``) against its grouped form on the same [8, 1, d_model]
+    normed hidden state at full width, within LOGIT_RTOL plus one bf16 ulp
+    of the output's largest magnitude; ms of each form, and the expert
+    bytes each reads."""
+    import torch
+    blk = next(b for b in model.blocks if b.moe)
+    moe = blk.ffn
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = blk.ln2(torch.randn((8, 1, model.cfg.d_model), generator=g,
+                            device=dev).to(moe.wi.dtype))
+    dense, grouped = moe.all_experts(x), moe.grouped(x)
+    torch.cuda.synchronize()
+    scale = float(grouped.float().abs().max())
+    ulp = 2.0 ** (int(torch.tensor(scale).log2().floor()) - 7)
+    diff = (dense.float() - grouped.float()).abs()
+    bad = diff > ulp + LOGIT_RTOL * grouped.float().abs()
+    _, idx = moe.route(x.reshape(8, -1))
+    hit = int(torch.unique(idx).numel())
+    expert_bytes = (moe.wi[0].numel() + moe.wo[0].numel()) \
+        * moe.wi.element_size()
+    out = dict(tokens=8, experts_hit=hit, max_abs_diff=float(diff.max()),
+               output_max_abs=scale, atol=ulp, rtol=LOGIT_RTOL,
+               all_experts_ms=auto_time_ms(lambda: moe.all_experts(x)),
+               grouped_ms=auto_time_ms(lambda: moe.grouped(x)),
+               all_experts_gb=moe.cfg.n_experts * expert_bytes / 1e9,
+               grouped_gb=hit * expert_bytes / 1e9)
+    if bool(bad.any()):
+        raise AssertionError(f"MoE decode form != grouped form: {out}")
+    return out
+
+
+def phase_serve_mixtral_parity(dev, model) -> None:
+    """At full width and MX_PARITY_LAYERS of depth: the MoE layer's two
+    dispatch forms on one hidden state, the decode graph against its eager
+    body, then both mixes through the kernels against the plain versions,
+    each call's plain run on the kernels' call's cache and MoE routing."""
+    forms = _moe_forms(model, dev)
+    _decode_graph_parity(MX_ARCH, model, dev, MX_PARITY_LAYERS)
+    cut = model.first_layers(MX_PARITY_LAYERS)
+    report = _kernels_vs_plain("serve_mixtral_parity", cut, dev, MX_ARCH,
+                               MX_LONG_PROMPT, MAMBA_ROUNDS,
+                               serve_s=MX_SERVE_S, pin_routing=True)
+    emit("serve_mixtral_parity", layers=MX_PARITY_LAYERS,
+         d_model=cut.cfg.d_model, logit_rtol=LOGIT_RTOL,
+         logit_atol=LOGIT_ATOL, moe_forms=forms, mixes=report)
 
 
 def main() -> int:
@@ -3129,10 +3357,30 @@ def main() -> int:
     mlong = phase_serve_mamba2_long(dev, model)
     phase_serve_mamba2_parity(dev, model)
     n_ssd = model.cfg.layer_kinds().count("ssd")
+    mserve, mlong = _public(mserve), _public(mlong)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, rserve, _ = phase_serve_recurrentgemma(dev)
+    rlong = phase_serve_recurrentgemma_long(dev, model)
+    phase_serve_recurrentgemma_parity(dev, model)
+    rserve, rlong = _public(rserve), _public(rlong)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, xserve, _ = phase_serve_mixtral(dev)
+    xlong = phase_serve_mixtral_long(dev, model)
+    phase_serve_mixtral_parity(dev, model)
+    xserve, xlong = _public(xserve), _public(xlong)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     n_main = 2
     t = gt["times"][n_main]
     runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
-                serve_mamba2_long=mlong)
+                serve_mamba2_long=mlong, serve_recurrentgemma=rserve,
+                serve_recurrentgemma_long=rlong, serve_mixtral=xserve,
+                serve_mixtral_long=xlong)
     by_path = {name: dict(main_path=0, **{p: r["launches"][name]
                                           for p, r in runs.items()})
                for name in serve["launches"]}
@@ -3221,23 +3469,29 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape, "launches_by_path": by_path[name]})
         if name == "decode_attention":
+            keys = ("shape", "lengths", "ms", "device_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "bound_share",
+                    "plan")
             rows[-1]["device_ms_per_launch"] = m["device_ms"]
             rows[-1]["bound_share"] = m["bound_share"]
             rows[-1]["plan"] = m["plan"]
-            rows[-1]["long_cache"] = [
-                {k: r[k] for k in ("shape", "lengths", "ms", "device_ms",
-                                   "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "bound_share", "plan")}
-                for r in res["long"]]
+            rows[-1]["long_cache"] = [{k: r[k] for k in keys}
+                                      for r in res["long"]]
+            rows[-1]["new_shapes"] = {
+                arch: [{k: r[k] for k in keys} for r in rs]
+                for arch, rs in res["new"].items()}
         if name == "flash_prefill":
+            keys = ("shape", "window", "ms", "plain_ms", "library_ms",
+                    "library_causal_ms", "bound_ms", "bound_by",
+                    "bound_share", "tflops")
             rows[-1]["kernel_paths"] = {
-                p: r["flash_prefill_paths"] for p, r in (
-                    ("serve", serve), ("serve_long", long))}
-            rows[-1]["long_prompt"] = [
-                {k: r[k] for k in ("shape", "window", "ms", "plain_ms",
-                                   "library_ms", "library_causal_ms",
-                                   "bound_ms", "bound_by", "bound_share",
-                                   "tflops")} for r in res["long"]]
+                p: r["flash_prefill_paths"] for p, r in runs.items()
+                if r["launches"]["flash_prefill"]}
+            rows[-1]["long_prompt"] = [{k: r[k] for k in keys}
+                                       for r in res["long"]]
+            rows[-1]["new_shapes"] = {
+                arch: [{k: r[k] for k in keys} for r in rs]
+                for arch, rs in res["new"].items()}
         if name == "ssd_scan":
             pre = mprof[f"prefill_{MAMBA_LONG_PROMPT}"]
             # one wrapper call (three kernels) a layer

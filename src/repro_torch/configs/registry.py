@@ -2,8 +2,9 @@
 
 Port of ``src/repro/configs/registry.py``; the ten configs beside it are
 copies of the reference's.  The port's model runs the dense attention kinds
-(``global``, ``local``, ``chunk``) and the Mamba2 ``ssd`` kind, and raises
-``NotImplementedError`` for the rest (see ``repro_torch.models.transformer``).
+(``global``, ``local``, ``chunk``), the recurrent ``rglru`` and ``ssd``
+kinds and MoE layers, and raises ``NotImplementedError`` for the rest
+(``cross``, encoders, frontends; see ``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

@@ -7,11 +7,15 @@ engine), virtual-clocked by the FULL config's roofline cost model, with
 per-tenant SLOs enforced by the Arcus token buckets.  It runs on the CUDA
 card (the port's default device; the attention, SSD-scan and token-bucket
 kernels are built at first use).  The archs it serves are those the port's
-model runs: the dense attention models and mamba2-780m.
+model runs: every decoder-only config (the dense attention models,
+recurrentgemma-9b, mixtral-8x22b, llama4-maverick-400b-a17b and
+mamba2-780m), not yet the encoder and cross-attention ones.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
         --tenants 1200,800 --duration 3
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
 
 The cost model's target is ``--chips`` cards of the port's default
 ``HardwareSpec`` (H100 SXM data-sheet peaks).

@@ -51,10 +51,11 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
     """A ``Transformer`` holding the reference's parameters (nested dicts
     of numpy arrays, as ``init_model`` builds them).  Each weight is stored
     in the port's storage dtype (``cfg.dtype`` for the projections, float32
-    for norm scales, the embedding and the Mamba2 conv, decay and skip
-    parameters).  Every mixer parameter (attention or Mamba2) loads by its
-    reference name; a block without an MLP (``d_ff`` 0) has no ``ln2`` or
-    ``ffn``."""
+    for norm scales, the embedding, the MoE router, the RG-LRU gates and the
+    conv, decay and skip parameters).  Every mixer parameter (attention,
+    RG-LRU or Mamba2) and every feed-forward parameter (the MLP's ``wi``,
+    ``wo``; the MoE's ``router``, ``wi``, ``wo``) loads by its reference
+    name; a block without an MLP (``d_ff`` 0) has no ``ln2`` or ``ffn``."""
     model = T.Transformer(cfg, device=device)
     _load(model.embed, params_np["embed"])
     for blk, p in zip(model.blocks, _layer_trees(params_np, cfg)):
@@ -63,8 +64,8 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
             _load(getattr(blk.mixer, name), value)
         if blk.has_ffn:
             _load(blk.ln2.scale, p["ln2"]["scale"])
-            _load(blk.ffn.wi, p["ffn"]["wi"])
-            _load(blk.ffn.wo, p["ffn"]["wo"])
+            for name, value in p["ffn"].items():
+                _load(getattr(blk.ffn, name), value)
         if cfg.norm == "layernorm":
             _load(blk.ln1.bias, p["ln1"]["bias"])
             if blk.has_ffn:
@@ -78,17 +79,21 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, device=None
     return model
 
 
+#: the reference's cache entries of each recurrent kind (attention: k, v)
+CACHE_NAMES = {"rglru": ("conv", "h"), "ssd": ("conv", "state")}
+
+
 def cache_from_jax(cache_np: dict, cfg: ArchConfig, device=None) -> T.Cache:
     """The port's per-layer cache from the reference's stacked serving
     cache (``init_cache`` / ``prefill`` / ``decode_step``), in the reference
-    cache's dtypes: (k, v) of an attention layer, (conv, state) of an
-    ``ssd`` layer."""
+    cache's dtypes: (k, v) of an attention layer, (conv, h) of an
+    ``rglru`` layer, (conv, state) of an ``ssd`` layer."""
     dev = torch.device("cpu") if device is None else torch.device(device)
-    return [tuple(_tensor(c[n]).to(dev)
-                  for n in (("conv", "state") if kind == "ssd"
-                            else ("k", "v")))
+    return [tuple(_tensor(c[n]).to(dev) for n in CACHE_NAMES.get(kind,
+                                                                ("k", "v")))
             for kind, c in zip(cfg.layer_kinds(),
                                _layer_trees(cache_np, cfg))]
+
 
 
 def _tensor(value) -> torch.Tensor:

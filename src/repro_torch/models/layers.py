@@ -1,23 +1,28 @@
-"""Shared neural layers of the port: norms, RoPE, GQA attention, MLP and
-the Mamba2 SSD block.
+"""Shared neural layers of the port: norms, RoPE, GQA attention, MLP, the
+top-k MoE feed-forward, the RG-LRU recurrent block and the Mamba2 SSD
+block.
 
 Port of ``src/repro/models/layers.py`` for the dense attention kinds
-(``global``, ``local``, ``chunk``) and the ``ssd`` kind.  Each layer is an
-``nn.Module`` whose parameters keep the reference's names and layouts
-(``wq`` [E, H, Dh], ``wo`` [H * Dh, E], ``wi`` [E, g, F], ``in_proj``
+(``global``, ``local``, ``chunk``), the ``rglru`` and ``ssd`` kinds and MoE
+layers.  Each layer is an ``nn.Module`` whose parameters keep the
+reference's names and layouts (``wq`` [E, H, Dh], ``wo`` [H * Dh, E],
+``wi`` [E, g, F], the MoE's ``wi`` [X, E, 2, F], ``in_proj``
 [E, 2 Din + 2 G N + H] ...), so weights load one for one.  Storage dtypes
 follow what the reference computes with: the projection weights are cast
-to ``cfg.dtype`` at every use there, so they are stored in it; norm scales
-and the Mamba2 conv taps, decay and skip parameters stay float32.
+to ``cfg.dtype`` at every use there, so they are stored in it; norm scales,
+the MoE router, the RG-LRU gates (``wa``, ``wi``, used in float32) and the
+conv taps, decay and skip parameters stay float32.
 
 Full-sequence attention (prefill) goes through the flash-prefill kernel on
 CUDA and its plain version on the CPU (``repro_torch.kernels.flash_prefill``),
 where the reference computes the same masks inline in jnp
 (``layers.flash_attention``).  The Mamba2 prefill goes through the SSD-scan
 kernel on CUDA (``repro_torch.kernels.ssd_scan``), where the reference
-calls its sequential oracle ``ssd_ref.ssd_scan``.  The reference's
-``actsharding`` hooks are the identity on one device and have no
-counterpart here.
+calls its sequential oracle ``ssd_ref.ssd_scan``.  The RG-LRU scan and
+the MoE dispatch have no kernel in the reference either (an
+``associative_scan`` in jnp and XLA's ``ragged_dot``): the port mirrors
+them in torch ops.  The reference's ``actsharding`` hooks are the identity
+on one device and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -220,7 +225,99 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Mamba2 SSD block (arXiv:2405.21060)
+# MoE (token-choice top-k router; exact dispatch)
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The reference's ``moe_block`` in its serving form (``dropless=True``)
+    with its parameters (``init_moe``): ``router`` [E, X] float32, ``wi``
+    [X, E, 2, F] and ``wo`` [X, F, E] in ``cfg.dtype``.  Two dispatch forms
+    of the same function, chosen by the caller:
+
+    * ``grouped`` (prefill, eager): the routed (token, expert) pairs sorted
+      stably by expert, the group sizes read to the host once, and each
+      expert's contiguous rows through its own matmuls: what ``ragged_dot``
+      computes, with work in proportion to the routed rows;
+    * ``all_experts`` (decode, inside the CUDA graph): no host read and
+      fixed shapes; every expert runs every token, and a token keeps only
+      the outputs of the experts it was routed to (``torch.where``).  A
+      token routes to an expert at most once, so this is exact dispatch
+      too.
+
+    Both sum a token's gated outputs in float32 in ascending expert order,
+    the order of the reference's ``segment_sum`` over expert-sorted rows,
+    and cast the sum to the activations' dtype once."""
+
+    def __init__(self, cfg: ArchConfig, mk: Maker):
+        super().__init__()
+        E, Fd, X = cfg.d_model, cfg.d_ff, cfg.n_experts
+        dt = torch_dtype(cfg.dtype)
+        self.cfg = cfg
+        self.router = mk.dense(E, X, dtype=torch.float32)
+        self.wi = mk.dense(X, (E, 2, Fd), dtype=dt)
+        self.wo = mk.dense(X, (Fd, E), dtype=dt)
+
+    def route(self, xt: torch.Tensor, idx: torch.Tensor | None = None):
+        """Gates [T, K] float32 (normalised to sum 1) and expert indices
+        [T, K] of tokens xt [T, E]: the float32 router's softmax, its top k
+        in ``lax.top_k``'s order (larger first, the lower expert first on a
+        tie: a stable descending sort).  A given ``idx`` pins the experts
+        and takes their gates from this call's softmax (a parity check runs
+        the plain versions on the routing of the kernels' run)."""
+        probs = torch.softmax(xt.float() @ self.router, -1)
+        if idx is None:
+            idx = torch.sort(probs, stable=True, dim=-1,
+                             descending=True).indices[:, :self.cfg.top_k]
+        gate = probs.gather(-1, idx)
+        return gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9), idx
+
+    def _expert(self, e: int, xs: torch.Tensor) -> torch.Tensor:
+        """Expert ``e``'s gated MLP on rows xs [n, E] -> [n, E]."""
+        E, _, Fd = self.wi.shape[1:]
+        h = (xs @ self.wi[e].view(E, 2 * Fd)).view(-1, 2, Fd)
+        h = act(h[:, 0], self.cfg.act) * h[:, 1] if self.cfg.gated_mlp \
+            else act(h[:, 0], self.cfg.act)
+        return h @ self.wo[e]
+
+    def grouped(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, E] through the dropless dispatch (one host read)."""
+        B, S, E = x.shape
+        xt = x.reshape(B * S, E)
+        gate, idx = self.route(xt)
+        flat = idx.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        counts = torch.bincount(flat, minlength=self.cfg.n_experts).tolist()
+        src = order // self.cfg.top_k
+        g = gate.reshape(-1)[order]
+        y = torch.zeros((B * S, E), dtype=torch.float32, device=x.device)
+        start = 0
+        for e, n in enumerate(counts):
+            if n:
+                rows = src[start:start + n]
+                # a token appears once in an expert's rows: no add collides
+                y.index_add_(0, rows, self._expert(e, xt[rows])
+                             * g[start:start + n, None])
+            start += n
+        return y.to(x.dtype).view(B, S, E)
+
+    def all_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, E] through the fixed-shape dispatch (no host read)."""
+        B, S, E = x.shape
+        xt = x.reshape(B * S, E)
+        gate, idx = self.route(xt)
+        zero = gate.new_zeros(())
+        y = torch.zeros((B * S, E), dtype=torch.float32, device=x.device)
+        for e in range(self.cfg.n_experts):
+            hit = idx == e
+            g = torch.where(hit, gate, zero).sum(-1, keepdim=True)
+            y = torch.where(hit.any(-1, keepdim=True),
+                            y + self._expert(e, xt) * g, y)
+        return y.to(x.dtype).view(B, S, E)
+
+
+# ---------------------------------------------------------------------------
+# Activations and the causal conv of the recurrent blocks
 # ---------------------------------------------------------------------------
 
 
@@ -257,6 +354,124 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out + b).to(x.dtype), xp[:, -(K - 1):]
 
 
+def conv_taps(conv_w: torch.Tensor, conv_b: torch.Tensor, dt: torch.dtype):
+    """The reference's ``conv_w.astype(dt) + _conv_id(p)`` and
+    ``conv_b.astype(dt)``: ``dt``-rounded taps plus an exact 1.0 at the last
+    tap, in float32 (bf16 + float32 promotes), so a zero-initialised conv
+    passes its input; the bias cast to ``dt``."""
+    w = conv_w.to(dt).to(torch.float32, copy=True)
+    w[-1] += 1.0
+    return w, conv_b.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+
+
+def _combine(al, bl, ar, br):
+    """The RG-LRU scan's associative step: (al ar, bl ar + br)."""
+    return al * ar, bl * ar + br
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """``jax.lax.associative_scan(combine, (a, b), axis=1)`` with its
+    recursion, so that values combine in the reference's order: combine
+    adjacent pairs, scan those, then combine each odd result with the next
+    even element; about 2 log2(S) levels of a few ops, not S steps."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = _associative_scan(*_combine(a[:, 0:n - 1:2], b[:, 0:n - 1:2],
+                                      a[:, 1::2], b[:, 1::2]))
+    head = [o[:, :-1] for o in odd] if n % 2 == 0 else odd
+    even = _combine(*head, a[:, 2::2], b[:, 2::2])
+    out = []
+    for x, ev, od in zip((a, b), even, odd):
+        y = torch.empty_like(x)
+        y[:, :1] = x[:, :1]
+        y[:, 2::2] = ev
+        y[:, 1::2] = od
+        out.append(y)
+    return out
+
+
+def rglru_scan(a: torch.Tensor, gx: torch.Tensor,
+               h0: torch.Tensor | None = None):
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) gx_t over a, gx [B, S, W]
+    (float32) from h0 [B, W] (zero when None): the reference's
+    ``rglru_scan``.  Returns (h [B, S, W], h [:, -1])."""
+    b = torch.sqrt(torch.clamp_min(1.0 - a ** 2, 1e-9)) * gx
+    af, bf = _associative_scan(a, b)
+    h = bf if h0 is None else bf + af * h0[:, None, :]
+    return h, h[:, -1]
+
+
+class RGLRU(nn.Module):
+    """The reference's ``rglru_block`` (Griffin's recurrent block) with its
+    parameters (``init_rglru``): a gelu gate branch, an input branch through
+    a width-4 causal conv, float32 recurrence and input gates, the RG-LRU
+    scan and the out-projection.  ``prefill`` scans the whole prompt from a
+    zero state (the reference passes no state); ``decode`` steps the
+    recurrence once.  Both write the (conv [B, 3, W], h [B, W] float32)
+    cache in place."""
+
+    CONV = 4
+
+    def __init__(self, cfg: ArchConfig, mk: Maker):
+        super().__init__()
+        E = cfg.d_model
+        W = cfg.lru_width or E
+        dt = torch_dtype(cfg.dtype)
+        self.wx = mk.dense(E, W, dtype=dt)
+        self.wy = mk.dense(E, W, dtype=dt)
+        self.conv_w = mk.zeros((self.CONV, W))
+        self.conv_b = mk.zeros((W,))
+        self.wa = mk.dense(W, W, dtype=torch.float32)
+        self.ba = mk.zeros((W,))
+        self.wi = mk.dense(W, W, dtype=torch.float32)
+        self.bi = mk.zeros((W,))
+        self.lam = mk.ones((W,))
+        self.wo = mk.dense(W, E, dtype=dt)
+
+    def _mix(self, x, conv_state, h0):
+        """The block on x [B, S, E] from (conv_state, h0), or from zeros
+        when both are None.  Returns (out, new conv state, last h)."""
+        dt = x.dtype
+        gate = act(x @ self.wy, "gelu")
+        w, b = conv_taps(self.conv_w, self.conv_b, dt)
+        u, new_conv = causal_conv1d(x @ self.wx, w, b, conv_state)
+        uf = u.float()
+        r = torch.sigmoid(uf @ self.wa + self.ba)
+        i = torch.sigmoid(uf @ self.wi + self.bi)
+        a = torch.exp(-8.0 * r * softplus(self.lam))   # c = 8 (the paper)
+        h, h_last = rglru_scan(a, i * uf, h0)
+        return (h.to(dt) * gate) @ self.wo, new_conv, h_last
+
+    def prefill(self, x, cache, *, plain: bool = False):
+        """Whole prompt x [B, S, E] from a zero state into ``cache`` =
+        (conv, h).  ``plain`` is accepted for the ``Block`` interface: the
+        block launches no kernel."""
+        conv, h = cache
+        out, new_conv, h_last = self._mix(x, None, None)
+        conv.copy_(new_conv)
+        h.copy_(h_last)
+        return out
+
+    def decode(self, x, cache):
+        """One token x [B, 1, E] against ``cache``, updated in place."""
+        conv, h = cache
+        out, new_conv, h_last = self._mix(x, conv, h)
+        conv.copy_(new_conv)
+        h.copy_(h_last)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD block (arXiv:2405.21060)
+# ---------------------------------------------------------------------------
+
+
 def mamba2_split(cfg: ArchConfig):
     """(Din, H, G, N) of the reference's ``mamba2_split``."""
     Din = cfg.d_inner_mult * cfg.d_model
@@ -286,14 +501,6 @@ class Mamba2(nn.Module):
         self.norm_scale = mk.ones((Din,))
         self.out_proj = mk.dense(Din, E, dtype=dt)
 
-    def _conv_weights(self, dt: torch.dtype):
-        """``conv_w.astype(dt) + _conv_id_wide``: bf16-rounded taps plus an
-        exact 1.0 at the last tap, in float32 (bf16 + float32 promotes); the
-        bias cast to ``dt``."""
-        w = self.conv_w.to(dt).to(torch.float32, copy=True)
-        w[-1] += 1.0
-        return w, self.conv_b.to(dt)
-
     def _mix(self, x, conv_state, ssd_state, *, plain: bool = False):
         """The block on x [B, S, E]; the decode form when S == 1 and a state
         is given (``plain`` runs the scan's plain version on a CUDA tensor
@@ -304,7 +511,7 @@ class Mamba2(nn.Module):
         P = self.cfg.ssm_head_dim
         zxbcdt = x @ self.in_proj
         z, xbc, dt = torch.split(zxbcdt, [Din, Din + 2 * G * N, H], -1)
-        w, b = self._conv_weights(dt_)
+        w, b = conv_taps(self.conv_w, self.conv_b, dt_)
         xbc, new_conv = causal_conv1d(xbc, w, b, conv_state)
         xbc = silu(xbc)
         xs, Bc, Cc = torch.split(xbc, [Din, G * N, G * N], -1)

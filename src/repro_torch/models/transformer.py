@@ -1,15 +1,17 @@
 """Decoder-only transformer of the port: init, serving cache, prefill and
 decode.
 
-Port of ``src/repro/models/transformer.py`` for the dense attention kinds
-and the Mamba2 ``ssd`` kind.  The reference stacks each period position's
+Port of ``src/repro/models/transformer.py`` for the dense attention
+kinds, the recurrent ``rglru`` and ``ssd`` kinds and MoE feed-forwards
+(``cfg.is_moe_layer``).  The reference stacks each period position's
 parameters across repetitions and scans over them; here every layer is its
 own ``Block`` module, layer ``li = rep * period + j`` of kind
 ``cfg.layer_kinds()[li]``, and the model loops over them in Python.  The
 cache is a list with one pair of tensors per layer, updated in place (the
 reference returns new arrays with the same values): (k, v) of
-[B, W, KvH, Dh] for an attention layer, (conv [B, K-1, Din + 2 G N],
-state [B, H, P, N] float32) for an ``ssd`` layer.
+[B, W, KvH, Dh] for an attention layer, (conv [B, 3, W], h [B, W] float32)
+for an ``rglru`` layer, (conv [B, K-1, Din + 2 G N], state [B, H, P, N]
+float32) for an ``ssd`` layer.
 
 Decode attention goes through the decode-attention kernel on CUDA
 (``repro_torch.kernels.decode_attention``), where the reference calls the
@@ -17,11 +19,14 @@ kernel's oracle ``da_ref.decode_attention`` inline
 (``_decode_self_attention``); prefill attention goes through the
 flash-prefill kernel (``layers.Attention.block``) and the Mamba2 prefill
 through the SSD-scan kernel (``layers.Mamba2.prefill``).  ``plain=True``
-runs the plain versions on a CUDA tensor too, for parity checks only.
+runs the plain versions on a CUDA tensor too, for parity checks only.  A
+MoE layer dispatches a prefill's tokens grouped by expert
+(``layers.MoE.grouped``, one host read) and a decode step's through every
+expert at fixed shapes (``layers.MoE.all_experts``, capturable).
 
-Out of this slice, and refused with ``NotImplementedError``: the ``rglru``
-and ``cross`` layer kinds, encoder layers, MoE layers, frontends, and the
-full-sequence ``forward`` (training and scoring).
+Out of this slice, and refused with ``NotImplementedError``: the ``cross``
+layer kind, encoder layers, frontends, and the full-sequence ``forward``
+(training and scoring, with the MoE auxiliary loss).
 """
 from __future__ import annotations
 
@@ -37,9 +42,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 ATTN_KINDS = ("global", "local", "chunk")
-KINDS = ATTN_KINDS + ("ssd",)
+RECURRENT_KINDS = ("rglru", "ssd")
+KINDS = ATTN_KINDS + RECURRENT_KINDS
 
-Cache = list   # one (k, v) or (conv, state) pair of tensors per layer
+Cache = list   # one (k, v), (conv, h) or (conv, state) pair per layer
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -53,51 +59,59 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: encoder layers are not "
                                   "ported")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "is not ported")
 
 
-class Block(nn.Module):
-    """One pre-norm layer: attention of ``kind`` or the Mamba2 mixer
-    (``ssd``), then the MLP where ``cfg.d_ff > 0``."""
+MIXERS = {"rglru": L.RGLRU, "ssd": L.Mamba2}
 
-    def __init__(self, cfg: ArchConfig, kind: str, mk: L.Maker):
+
+class Block(nn.Module):
+    """One pre-norm layer: attention of ``kind``, the RG-LRU block
+    (``rglru``) or the Mamba2 mixer (``ssd``), then, where
+    ``cfg.d_ff > 0``, the MLP or (``moe``) the MoE feed-forward."""
+
+    def __init__(self, cfg: ArchConfig, kind: str, mk: L.Maker, *,
+                 moe: bool = False):
         super().__init__()
         self.kind = kind
         self.ln1 = L.Norm(cfg, mk)
-        self.mixer = L.Mamba2(cfg, mk) if kind == "ssd" \
-            else L.Attention(cfg, mk)
+        self.mixer = MIXERS.get(kind, L.Attention)(cfg, mk)
         self.has_ffn = cfg.d_ff > 0
+        self.moe = moe and self.has_ffn
         if self.has_ffn:
             self.ln2 = L.Norm(cfg, mk)
-            self.ffn = L.MLP(cfg, mk)
+            self.ffn = L.MoE(cfg, mk) if self.moe else L.MLP(cfg, mk)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        if self.has_ffn:
-            x = x + self.ffn(self.ln2(x))
-        return x
+    def _ffn(self, x: torch.Tensor, decode: bool) -> torch.Tensor:
+        if not self.has_ffn:
+            return x
+        h = self.ln2(x)
+        if not self.moe:
+            return x + self.ffn(h)
+        return x + (self.ffn.all_experts(h) if decode
+                    else self.ffn.grouped(h))
 
     def prefill(self, x, tables, cache_kv, *, plain: bool = False):
         """Full sequence at positions 0..S-1; writes the (rolling) cache,
-        or the ``ssd`` layer's (conv, state)."""
-        if self.kind == "ssd":
+        or a recurrent layer's (conv, state)."""
+        if self.kind in RECURRENT_KINDS:
             return self._ffn(x + self.mixer.prefill(self.ln1(x), cache_kv,
-                                                    plain=plain))
+                                                    plain=plain), False)
         y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
                                    plain=plain)
         _build_attn_cache(self.kind, k, v, cache_kv)
-        return self._ffn(x + y)
+        return self._ffn(x + y, False)
 
     def decode(self, x, tables, cache_kv, slot, valid, *,
                plain: bool = False):
         """One token per sequence: writes its K/V at ``slot`` [B] (int64)
-        and attends the first ``valid`` [B] (int32) cache rows; an ``ssd``
+        and attends the first ``valid`` [B] (int32) cache rows; a recurrent
         layer steps its (conv, state) instead."""
-        if self.kind == "ssd":
-            return self._ffn(x + self.mixer.decode(self.ln1(x), cache_kv))
+        if self.kind in RECURRENT_KINDS:
+            return self._ffn(x + self.mixer.decode(self.ln1(x), cache_kv),
+                             True)
         q, k, v = self.mixer.qkv(self.ln1(x))
         q = L.apply_rope(q, tables)
         k = L.apply_rope(k, tables)
@@ -111,7 +125,7 @@ class Block(nn.Module):
         attn = da_ops.decode_attention_plain if plain \
             else da_ops.decode_attention
         o = attn(q[:, 0], ck, cv, valid, window=0)
-        return self._ffn(x + self.mixer.out(o[:, None]))
+        return self._ffn(x + self.mixer.out(o[:, None]), True)
 
 
 def _build_attn_cache(kind: str, k, v, cache_kv) -> None:
@@ -159,9 +173,11 @@ class Transformer(nn.Module):
         # the reference's draw order: period position-major, then the tail
         for j in range(period):
             for r in range(reps):
-                blocks[r * period + j] = Block(cfg, kinds[j], mk)
+                li = r * period + j
+                blocks[li] = Block(cfg, kinds[li], mk,
+                                   moe=cfg.is_moe_layer(li))
         for li in range(reps * period, cfg.n_layers):
-            blocks[li] = Block(cfg, kinds[li], mk)
+            blocks[li] = Block(cfg, kinds[li], mk, moe=cfg.is_moe_layer(li))
         self.blocks = nn.ModuleList(blocks[li] for li in range(cfg.n_layers))
         self.final_norm = L.Norm(cfg, mk)
         if not cfg.tie_embeddings:
@@ -226,13 +242,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> Cache:
     """Zeroed per-layer (k, v) [batch, W, KvH, Dh] in ``dtype``, W being
     ``max_len`` for a global layer and ``min(window, max_len)`` for a local
-    or chunk one; for an ``ssd`` layer (conv [batch, K-1, Din + 2 G N] in
-    ``dtype``, state [batch, H, P, N] float32), as the reference."""
+    or chunk one; for an ``rglru`` layer (conv [batch, 3, W] in ``dtype``,
+    h [batch, W] float32, W = ``lru_width or d_model``); for an ``ssd`` layer
+    (conv [batch, K-1, Din + 2 G N] in ``dtype``, state [batch, H, P, N]
+    float32), as the reference."""
     check_supported(cfg)
     dev = resolve_device(device)
     KvH, Dh = cfg.n_kv_heads, cfg.head_dim_
     cache = []
     for kind in cfg.layer_kinds():
+        if kind == "rglru":
+            W = cfg.lru_width or cfg.d_model
+            cache.append((
+                torch.zeros((batch, L.RGLRU.CONV - 1, W), dtype=dtype,
+                            device=dev),
+                torch.zeros((batch, W), dtype=torch.float32, device=dev)))
+            continue
         if kind == "ssd":
             Din, H, G, N = L.mamba2_split(cfg)
             cache.append((
@@ -272,8 +297,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     logits [B, V].  The valid rows a layer attends are ``lengths + 1``
     (global), ``min(lengths + 1, W)`` (local, rolling) or
     ``lengths % window + 1`` (chunk), always with window 0, as the
-    reference's ``_decode_self_attention``.  An ``ssd`` layer steps its
-    recurrence (``layers.Mamba2.decode``)."""
+    reference's ``_decode_self_attention``.  A recurrent layer steps its
+    recurrence (``layers.RGLRU.decode``, ``layers.Mamba2.decode``)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     tables = model._tables(lengths[:, None])

@@ -87,13 +87,32 @@ SSD_NOISE = {"conv_w": (0.3, 0.0), "conv_b": (0.1, 0.0), "a_log": (0.5, 0.0),
              "norm_scale": (0.2, 1.0)}
 
 
+#: the same for the RG-LRU parameters that init_rglru sets to zeros or ones
+#: (``jax_and_port_model(rglru_seed=...)``): the conv taps and bias, the
+#: gate biases and the decay parameter Lambda
+RGLRU_NOISE = {"conv_w": (0.3, 0.0), "conv_b": (0.1, 0.0), "ba": (0.5, 0.0),
+               "bi": (0.5, 0.0), "lam": (0.5, 1.0)}
+
+
+def add_noise(mixers: list, table: dict, seed: int) -> None:
+    """Seeded noise (``table``: name -> (scale, centre)) in place on every
+    mixer (a dict of numpy arrays) that has all of ``table``'s names."""
+    rng = np.random.default_rng(seed)
+    for mixer in mixers:
+        if set(table) <= set(mixer):
+            for name, (scale, centre) in table.items():
+                mixer[name] = (centre + scale * rng.standard_normal(
+                    mixer[name].shape)).astype(np.float32)
+
+
 def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
-                       ssd_seed=None):
+                       ssd_seed=None, rglru_seed=None):
     """The reference's ``init_model(seed, cfg)`` parameters and the port's
     CPU model holding the same values.  ``bias_seed`` replaces the zero QKV
-    biases by random ones, and ``ssd_seed`` puts seeded noise
-    (``SSD_NOISE``) on the Mamba2 parameters initialised to zeros or ones,
-    in the numpy tree both packages load (so a test sees them act)."""
+    biases by random ones, and ``ssd_seed`` / ``rglru_seed`` put seeded
+    noise (``SSD_NOISE`` / ``RGLRU_NOISE``) on the Mamba2 / RG-LRU
+    parameters initialised to zeros or ones, in the numpy tree both
+    packages load (so a test sees them act)."""
     import jax
     import jax.numpy as jnp
     from repro.models import transformer as JT
@@ -109,11 +128,9 @@ def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
                 mixer[name] = (0.1 * rng.standard_normal(
                     mixer[name].shape)).astype(np.float32)
     if ssd_seed is not None:
-        rng = np.random.default_rng(ssd_seed)
-        for mixer in mixers:
-            for name, (scale, centre) in SSD_NOISE.items():
-                mixer[name] = (centre + scale * rng.standard_normal(
-                    mixer[name].shape)).astype(np.float32)
+        add_noise(mixers, SSD_NOISE, ssd_seed)
+    if rglru_seed is not None:
+        add_noise(mixers, RGLRU_NOISE, rglru_seed)
     model = convert.params_from_jax(params, port_arch(cfg), device="cpu")
     return jax.tree.map(jnp.asarray, params), model
 
@@ -138,12 +155,12 @@ def serving_mix(vocab: int):
 
 
 def run_serving(pkg: str, cfg, model, mix, shaped: bool, use_kernel: bool,
-                arch: str, max_rounds: int = 400):
+                arch: str, max_rounds: int = 400, duration: float = 0.6):
     """Serve ``mix`` through one package's ``ServingEngine`` (max_batch 4,
     max_len 128, float32 cache) under its Arcus or FCFS scheduler, clocked
     by ``arch``'s full-config cost model on the reference's hardware
-    numbers (8 chips), for 0.6 s or ``max_rounds`` rounds (an idle round
-    advances 0.1 ms).  ``pkg`` is ``"jax"`` (``model`` = the parameter
+    numbers (8 chips), for ``duration`` s of virtual time or ``max_rounds``
+    rounds (an idle round advances 0.1 ms).  ``pkg`` is ``"jax"`` (``model`` = the parameter
     tree) or ``"torch"`` (``model`` = the port's CPU model).  Returns
     (scheduler, requests, the logits of every prefill and decode call)."""
     if pkg == "jax":
@@ -189,8 +206,50 @@ def run_serving(pkg: str, cfg, model, mix, shaped: bool, use_kernel: bool,
             in enumerate(mix)]
     for r in reqs:
         sched.submit(r)
-    sched.run(0.6, max_rounds=max_rounds)
+    sched.run(duration, max_rounds=max_rounds)
     return sched, reqs, logits
+
+
+def assert_serving_matches(cfg, params, model, arch: str, shaped=True,
+                           use_kernel=True, duration: float = 0.6) -> None:
+    """``run_serving`` of ``serving_mix`` through both packages (the
+    reference's ``params``, the port's CPU ``model`` holding them): the
+    same call sequence, logits of every prefill and decode within 1e-4
+    (float32 sums in another order), equal tokens, every request done,
+    scheduler statistics, clock and buckets bit for bit, equal engine
+    lengths, and the final caches within 2e-5."""
+    import jax
+    from repro_torch.models import convert
+    mix = serving_mix(cfg.vocab)
+    j_sched, j_reqs, j_logits = run_serving("jax", cfg, params, mix, shaped,
+                                            use_kernel, arch,
+                                            duration=duration)
+    t_sched, t_reqs, t_logits = run_serving("torch", cfg, model, mix, shaped,
+                                            use_kernel, arch,
+                                            duration=duration)
+    assert [k for k, _ in t_logits] == [k for k, _ in j_logits]
+    assert sum(k == "decode" for k, _ in j_logits) >= 8
+    for i, ((kind, a), (_, b)) in enumerate(zip(j_logits, t_logits)):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4,
+                                   err_msg=f"{kind} call {i}")
+    assert [r.generated for r in t_reqs] == [r.generated for r in j_reqs]
+    assert all(r.done for r in j_reqs)
+    for tid, st in j_sched.stats.items():
+        assert dataclasses.asdict(t_sched.stats[tid]) == \
+            dataclasses.asdict(st), tid
+    assert t_sched.now_s == j_sched.now_s
+    for name in ("tokens", "cyc"):
+        np.testing.assert_array_equal(
+            getattr(t_sched.buckets, name).numpy(),
+            np.asarray(getattr(j_sched.buckets, name)))
+    np.testing.assert_array_equal(t_sched.engine.lengths,
+                                  j_sched.engine.lengths)
+    ref_cache = convert.cache_from_jax(
+        jax.tree.map(np.asarray, j_sched.engine.cache), model.cfg)
+    for li, (rkv, tkv) in enumerate(zip(ref_cache, t_sched.engine.cache)):
+        for r, t in zip(rkv, tkv):
+            np.testing.assert_allclose(t.numpy(), r.numpy(), rtol=1e-5,
+                                       atol=2e-5, err_msg=f"layer {li}")
 
 
 def launcher_report(argv: list) -> tuple:

@@ -270,7 +270,8 @@ def test_batch_elements_match_serial_on_card(dev):
             assert np.array_equal(getattr(serial, k), getattr(batch[b], k))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m",
+                                  "recurrentgemma-9b", "mixtral-8x22b"])
 def test_captured_decode_matches_eager(dev, arch):
     """The reduced config's decode step through the engine's CUDA graph
     gives the eager body's logits (and so tokens) and cache bitwise, each
@@ -285,7 +286,7 @@ def test_captured_decode_matches_eager(dev, arch):
     if arch == "mamba2-780m":
         cfg = dc.replace(cfg, d_ff=0)
     model = T.init_model(0, cfg, device=dev)
-    n_attn = cfg.n_layers - cfg.layer_kinds().count("ssd")
+    n_attn = sum(k in T.ATTN_KINDS for k in cfg.layer_kinds())
     eng = ServingEngine(cfg, model, max_batch=4, max_len=128, device=dev)
     graph, rows = eng._decode, []
 
@@ -345,6 +346,9 @@ DA_CASES = [
     (1, 24, 2, 128, 640, 128, torch.float32, torch.float32),
     (8, 16, 8, 256, 1024, 0, torch.bfloat16, torch.float32),
     (2, 8, 2, 64, 256, 0, torch.float32, torch.bfloat16),
+    # recurrentgemma-9b's MQA (G = 16, D 256) and mixtral-8x22b's G = 6
+    (8, 16, 1, 256, 2048, 0, torch.bfloat16, torch.float32),
+    (8, 48, 8, 128, 2048, 0, torch.bfloat16, torch.float32),
 ]
 
 
@@ -457,6 +461,11 @@ FP_CASES = [
     (1, 300, 8, 2, 128, 0, 40, torch.bfloat16),       # chunk edges in tiles
     (2, 129, 8, 8, 80, 0, 0, torch.bfloat16, False),  # non-causal, G = 1
     (1, 70, 6, 2, 36, 0, 0, torch.bfloat16),          # D padded to 40
+    # recurrentgemma-9b's local layers (G = 16, D 256) past their window,
+    # and mixtral-8x22b's (G = 6: packed rows i * 6 + g across tiles)
+    (1, 2560, 16, 1, 256, 2048, 0, torch.bfloat16),
+    (1, 200, 48, 8, 128, 0, 0, torch.bfloat16),
+    (1, 1536, 48, 8, 128, 4096, 0, torch.bfloat16),
 ]
 
 
@@ -709,3 +718,79 @@ def test_serving_engine_mamba2_kernels_match_plain(dev):
     diff = (kern - plain).abs()
     assert bool((diff <= 0.0625 + 1e-2 * plain.abs()).all()), \
         float(diff.max())
+
+
+def _shadowed_engine_calls(cfg, model, dev) -> tuple:
+    """Three prompts admitted and 10 decode steps (the eager body) through
+    the kernels, each call's logits beside the plain versions' on a copy
+    of the cache it started from, on the MoE routing the kernels' call
+    chose (``RoutingTape``; a recurrent state carries rounding forward, so
+    two independent runs would drift apart).  Returns the (kernels, plain)
+    logit pairs and the tape's report."""
+    from repro_torch.models import routing, transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    eng = ServingEngine(cfg, model, max_batch=4, max_len=128, device=dev)
+    tape = routing.RoutingTape(model)
+    pairs = []
+    pre, dec = eng._prefill, eng._decode_eager
+
+    def shadowed(kind, call, plain_call, cache, *args):
+        snap = [tuple(t.clone() for t in kv) for kv in cache]
+        tape.record()
+        out = call(*args, cache)
+        tape.replay()
+        want = plain_call(model, *args, snap, plain=True)
+        tape.stop()
+        pairs.append((out[0], want[0]) if kind == "prefill" else (out, want))
+        return out
+    eng._prefill = lambda tok, c: shadowed("prefill", pre, T.prefill, c, tok)
+    eng._decode = lambda tok, ln, c: shadowed("decode", dec, T.decode_step,
+                                              c, tok, ln)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((80, 12, 40)):
+        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12))
+    for _ in range(10):
+        eng.step()
+    tape.remove()
+    return pairs, tape.report()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
+def test_serving_engine_rglru_and_moe_kernels_match_plain(dev, arch):
+    """Reduced recurrentgemma / mixtral in bf16 on the card: every prefill's
+    and decode's logits through the kernels (decode attention and flash
+    prefill at G = 4 on one KV head) within one bf16 ulp of their scale of
+    the plain versions on the same cache and MoE routing."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    cfg = get_reduced_config(arch, dtype="bfloat16")
+    model = T.init_model(0, cfg, device=dev)
+    before = fp_ops.LAUNCHES
+    pairs, routing = _shadowed_engine_calls(cfg, model, dev)
+    n_attn = sum(k in T.ATTN_KINDS for k in cfg.layer_kinds())
+    assert fp_ops.LAUNCHES - before == 3 * n_attn
+    assert len(pairs) == 13
+    for got, want in pairs:
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= 0.0625 + 1e-2 * want.float().abs()).all()), \
+            (float(diff.max()), routing)
+
+
+def test_moe_decode_form_matches_grouped_on_card(dev):
+    """The reduced bf16 mixtral's MoE layer on a decode step's 8 tokens:
+    the fixed-shape form (every expert, unrouted outputs dropped) within
+    one bf16 ulp of the output's scale of the grouped form, on the same
+    routing."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    cfg = get_reduced_config("mixtral-8x22b", dtype="bfloat16")
+    moe = T.init_model(0, cfg, device=dev).blocks[0].ffn
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((8, 1, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    dense, grouped = moe.all_experts(x).float(), moe.grouped(x).float()
+    scale = float(grouped.abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert bool(((dense - grouped).abs() <= ulp + 1e-2 * grouped.abs()
+                 ).all()), float((dense - grouped).abs().max())

@@ -12,8 +12,6 @@ bit: the clock is Python floats and the buckets int32.
 """
 import dataclasses
 
-import jax
-import numpy as np
 import pytest
 import torch
 
@@ -21,16 +19,12 @@ from repro.configs.registry import ARCH_IDS, get_config, get_reduced_config
 from repro.serving import costmodel as j_cost
 from repro_torch.configs import registry as t_registry
 from repro_torch.core.flow import SLO as TSLO
-from repro_torch.models import convert
 from repro_torch.serving import costmodel as t_cost
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Tenant as TTenant
 from repro_torch.serving.scheduler import ArcusScheduler as TArcus
-from _torch_parity import (V5E, jax_and_port_model, launcher_report,
-                           run_serving, serving_mix)
-
-LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)
-CACHE_TOL = dict(rtol=1e-5, atol=2e-5)
+from _torch_parity import (V5E, assert_serving_matches, jax_and_port_model,
+                           launcher_report)
 
 
 @pytest.mark.parametrize("shaped,use_kernel", [(True, True), (False, False)],
@@ -38,38 +32,12 @@ CACHE_TOL = dict(rtol=1e-5, atol=2e-5)
 def test_engine_and_scheduler_match_reference(shaped, use_kernel):
     cfg = get_reduced_config("gemma3-12b")
     params, model = jax_and_port_model(cfg, 0)
-    mix = serving_mix(cfg.vocab)
-    j_sched, j_reqs, j_logits = run_serving("jax", cfg, params, mix, shaped,
-                                            use_kernel, "gemma3-12b")
-    t_sched, t_reqs, t_logits = run_serving("torch", cfg, model, mix, shaped,
-                                            use_kernel, "gemma3-12b")
-
-    assert [k for k, _ in t_logits] == [k for k, _ in j_logits]
-    assert sum(k == "decode" for k, _ in j_logits) >= 8
-    for i, ((kind, a), (_, b)) in enumerate(zip(j_logits, t_logits)):
-        np.testing.assert_allclose(b, a, **LOGIT_TOL,
-                                   err_msg=f"{kind} call {i}")
-    assert [r.generated for r in t_reqs] == [r.generated for r in j_reqs]
-    assert all(r.done for r in j_reqs)
-    for tid, st in j_sched.stats.items():
-        assert dataclasses.asdict(t_sched.stats[tid]) == \
-            dataclasses.asdict(st), tid
-    assert t_sched.now_s == j_sched.now_s
-    for name in ("tokens", "cyc"):
-        np.testing.assert_array_equal(
-            getattr(t_sched.buckets, name).numpy(),
-            np.asarray(getattr(j_sched.buckets, name)))
-    np.testing.assert_array_equal(t_sched.engine.lengths,
-                                  j_sched.engine.lengths)
-    ref_cache = convert.cache_from_jax(
-        jax.tree.map(np.asarray, j_sched.engine.cache), model.cfg)
-    for li, (rkv, tkv) in enumerate(zip(ref_cache, t_sched.engine.cache)):
-        for r, t in zip(rkv, tkv):
-            np.testing.assert_allclose(t.numpy(), r.numpy(), **CACHE_TOL,
-                                       err_msg=f"layer {li}")
+    assert_serving_matches(cfg, params, model, "gemma3-12b", shaped,
+                           use_kernel)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m",
+                                  "recurrentgemma-9b", "mixtral-8x22b"])
 def test_launcher_matches_reference(arch):
     """``python -m repro_torch.launch.serve --arch <arch>`` with default
     flags otherwise prints what the reference's launcher prints (the
