@@ -53,7 +53,24 @@ drives the port's paths through the kernels:
     one hidden state, and 2 layers through the kernels against the plain
     versions on the same cache and the same MoE routing
     (``repro_torch.models.routing``: rounding can move a router's choice
-    where its k-th and (k+1)-th experts nearly tie).
+    where its k-th and (k+1)-th experts nearly tie);
+  * serving with frontends through ``ServingEngine.admit(req, frontend)``
+    + ``step()`` (the launcher's scheduler admits with no frontend, as the
+    reference's, so these paths drive the engine; each request with its
+    own seeded embeddings): llama-3.2-vision-11b at full width and depth
+    (32 global and 8 gated ``cross`` layers over 1600 patch embeddings:
+    flash prefill non-causal at Sq != Sk, decode attention over the full
+    memory at G = 4), the launcher's request shapes, four 1536-token
+    prompts (``_long``) and one period (5 layers) through the kernels
+    against the plain versions on the same cache (``_parity``); and
+    seamless-m4t-medium at full size (a 12-layer bidirectional encoder
+    over 1024 audio frames, 12 decoder layers each with causal
+    self-attention and cross-attention to the encoder's output; G = 1,
+    D 64), the same request shapes, the encoder's share of a prefill,
+    and 2 + 2 layers against the plain versions (``serve_seamless_parity``).
+    The card's random weights draw the gates (zero at init: a silent cross
+    layer would leave the checks blind), QKV biases and norms from a
+    seeded normal; a ``reduced`` line says so.
 
 Flash prefill and the SSD scan have two kernels each, chosen by operand
 type: bf16 (what the models pass) on the tensor cores, float32 on the CUDA
@@ -165,6 +182,19 @@ MX_LAYERS = 8
 MX_LONG_PROMPT = 1536
 MX_SERVE_S = 6.0
 MX_PARITY_LAYERS = 2
+# serving with frontends: llama-3.2-vision-11b at full width and depth (40
+# layers, global x 4 then cross: 32 / 8 heads of 128, d_model 4096, vocab
+# 128256; 1600 patch embeddings of dim 1280) and seamless-m4t-medium at
+# full size (12 encoder and 12 decoder layers, 16 heads of 64, d_model
+# 1024, vocab 256206; 1024 audio frames of dim 1024).  The card's
+# frontend embeddings come from numpy's default_rng(FRONTEND_SEED); the
+# long mixes run four 1536-token prompts against the memory
+LV_ARCH = "llama-3.2-vision-11b"
+LV_PARITY_LAYERS = 5       # one period: global x 4, cross
+SM_ARCH = "seamless-m4t-medium"
+SM_PARITY_LAYERS = 2       # 2 encoder and 2 decoder layers
+FRONTEND_SEED = 23
+FRONTEND_LONG_PROMPT = 1536
 # kernel vs plain logits in bf16: about one bf16 ulp of their scale
 LOGIT_RTOL, LOGIT_ATOL = 1e-2, 0.0625
 
@@ -365,7 +395,12 @@ def _max_err(a, b) -> float:
 # local layers (MQA: 16 query heads on one KV head of 256, G = 16) at the
 # serve mix's cache and the long mix's full 2048-row window, and
 # mixtral-8x22b's (48 / 8 heads of 128, G = 6) at the serve mix's cache and
-# the long mix's (S = 2048, lengths 1536..1568)
+# the long mix's (S = 2048, lengths 1536..1568); then llama-3.2-vision-11b's
+# (32 / 8 heads of 128, G = 4) self-attention at the serve mix's cache and
+# cross layers over the full 1600-row memory (not a power of two: a partial
+# last row tile), and seamless-m4t-medium's (16 / 16 heads of 64, G = 1)
+# self-attention at the serve mix's cache and cross-attention over the full
+# 1024-row memory
 DA_CASES = [
     (2, 16, 8, 128, 1024, 0, "float32", "float32", None),
     (1, 8, 1, 64, 512, 0, "float32", "float32", None),
@@ -381,10 +416,15 @@ DA_CASES = [
     (8, 16, 1, 256, 2048, 0, "bfloat16", "float32", (2048, 2049)),
     (8, 48, 8, 128, 256, 0, "bfloat16", "float32", (13, 81)),
     (8, 48, 8, 128, 2048, 0, "bfloat16", "float32", (1536, 1569)),
+    (8, 32, 8, 128, 256, 0, "bfloat16", "float32", (13, 81)),
+    (8, 32, 8, 128, 1600, 0, "bfloat16", "float32", (1600, 1601)),
+    (8, 16, 16, 64, 256, 0, "bfloat16", "float32", (13, 81)),
+    (8, 16, 16, 64, 1024, 0, "bfloat16", "float32", (1024, 1025)),
 ]
 DA_MAIN = 7                 # the serve mix's shape: the table's row
 DA_LONG = (8, 9)            # the long mix's two caches
-DA_NEW = {"recurrentgemma-9b": (10, 11), "mixtral-8x22b": (12, 13)}
+DA_NEW = {"recurrentgemma-9b": (10, 11), "mixtral-8x22b": (12, 13),
+          LV_ARCH: (14, 15), SM_ARCH: (16, 17)}
 
 
 def phase_kernel_decode_attention(dev) -> dict:
@@ -464,7 +504,15 @@ def phase_kernel_decode_attention(dev) -> dict:
 # (1536), each through a local layer (window 1024) and a global one; then
 # recurrentgemma-9b's local layers (G = 16, D 256, window 2048: packed rows
 # i * 16 + g) at 12, 64 and 2560 tokens, and mixtral-8x22b's (G = 6, D 128,
-# window 4096: 6 does not divide a 128-row tile) at 12, 64 and 1536
+# window 4096: 6 does not divide a 128-row tile) at 12, 64 and 1536; then,
+# with a ninth entry Sk, non-causal rows of q [B, S, H, D] against k, v
+# [B, Sk, KvH, D]: llama-3.2-vision-11b's cross layers (G = 4, D 128) at
+# 12, 64 and 1536 queries against its 1600 memory rows (Sk not a multiple
+# of the 64-key tile) and its causal self-attention at 64 and 1536;
+# seamless-m4t-medium's (G = 1, D 64) encoder (1024 x 1024), its
+# cross-attention at 12, 64 and 1536 queries against 1024 rows and its
+# causal self-attention at 64 and 1536; then two untimed edges: Sk = 16
+# (the reduced configs' memory, below one tile) and Sk = 1000
 FP_CASES = [
     (2, 128, 4, 2, 64, 0, 0, "float32"),
     (1, 256, 8, 8, 128, 0, 0, "float32"),
@@ -483,11 +531,26 @@ FP_CASES = [
     (1, 12, 48, 8, 128, 4096, 0, "bfloat16"),
     (1, 64, 48, 8, 128, 4096, 0, "bfloat16"),
     (1, 1536, 48, 8, 128, 4096, 0, "bfloat16"),
+    (1, 12, 32, 8, 128, 0, 0, "bfloat16", 1600),
+    (1, 64, 32, 8, 128, 0, 0, "bfloat16", 1600),
+    (1, 1536, 32, 8, 128, 0, 0, "bfloat16", 1600),
+    (1, 64, 32, 8, 128, 0, 0, "bfloat16"),
+    (1, 1536, 32, 8, 128, 0, 0, "bfloat16"),
+    (1, 1024, 16, 16, 64, 0, 0, "bfloat16", 1024),
+    (1, 12, 16, 16, 64, 0, 0, "bfloat16", 1024),
+    (1, 64, 16, 16, 64, 0, 0, "bfloat16", 1024),
+    (1, 1536, 16, 16, 64, 0, 0, "bfloat16", 1024),
+    (1, 64, 16, 16, 64, 0, 0, "bfloat16"),
+    (1, 1536, 16, 16, 64, 0, 0, "bfloat16"),
+    (2, 40, 4, 1, 64, 0, 0, "bfloat16", 16),
+    (1, 300, 8, 2, 128, 0, 0, "bfloat16", 1000),
 ]
 FP_FIRST_TIMED = 6
+FP_UNTIMED = (28, 29)       # the non-causal edges
 FP_MAIN = 7                 # the serve mix's background prompt: the table's
 FP_LONG = (9, 10)           # the long mix's prompt (local, then global)
-FP_NEW = {"recurrentgemma-9b": (11, 12, 13), "mixtral-8x22b": (14, 15, 16)}
+FP_NEW = {"recurrentgemma-9b": (11, 12, 13), "mixtral-8x22b": (14, 15, 16),
+          LV_ARCH: (17, 18, 19, 20, 21), SM_ARCH: (22, 23, 24, 25, 26, 27)}
 
 
 def _prefill_mask(S: int, w: int, ck: int, dev):
@@ -505,38 +568,44 @@ def _prefill_mask(S: int, w: int, ck: int, dev):
 def phase_kernel_flash_prefill(dev) -> dict:
     """CUDA flash prefill vs its plain version on the card (2e-5 for
     float32, 2e-2 for bf16; bf16 operands go to the tensor-core kernel,
-    float32 ones to the CUDA-core kernel), then times of the kernel, the
-    plain version and SDPA at gemma3-12b's shapes: SDPA with the explicit
-    mask (``library_ms``) and, where the mask is the plain causal one, SDPA
-    with ``is_causal`` (its flash backend, ``library_causal_ms``)."""
+    float32 ones to the CUDA-core kernel), causal or (rows with Sk) not,
+    then times of the kernel, the plain version and SDPA at the serving
+    paths' shapes: SDPA with the explicit mask, or with none for a
+    non-causal row (``library_ms``), and, where the mask is the plain
+    causal one, SDPA with ``is_causal`` (its flash backend,
+    ``library_causal_ms``); the rows of the frontend archs also the
+    profiled device ms a launch."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import ops
     rows = []
-    for i, (B, S, H, KvH, D, w, ck, dn) in enumerate(FP_CASES):
+    for i, (B, S, H, KvH, D, w, ck, dn, *sk) in enumerate(FP_CASES):
         dt = getattr(torch, dn)
+        Sk, causal = (sk[0], False) if sk else (S, True)
+        kw = dict(window=w, chunk_size=ck, causal=causal)
         g = torch.Generator(device=dev).manual_seed(200 + i)
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
-        k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
-        v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
+        k = torch.randn((B, Sk, KvH, D), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Sk, KvH, D), generator=g, device=dev).to(dt)
         path = ops.kernel_path(q.dtype, k.dtype)
         by_path = dict(ops.LAUNCHES_BY_PATH)
-        got = ops.flash_prefill(q, k, v, window=w, chunk_size=ck)
+        got = ops.flash_prefill(q, k, v, **kw)
         by_path[path] += 1
         if ops.LAUNCHES_BY_PATH != by_path:
             raise AssertionError(f"flash_prefill: {dn} call not on the "
                                  f"{path} path: {ops.LAUNCHES_BY_PATH}")
-        want = ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck)
+        want = ops.flash_prefill_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = 2e-2 if dn == "bfloat16" else 2e-5
         err = _max_err(got, want)
-        row = dict(shape=[B, S, H, KvH, D], window=w, chunk=ck, dtype=dn,
-                   path=path, max_abs_err=err, tol=tol)
+        row = dict(shape=[B, S, H, KvH, D], sk=Sk, causal=causal, window=w,
+                   chunk=ck, dtype=dn, path=path, max_abs_err=err, tol=tol)
         if not err < tol:
             emit("kernel_flash_prefill", failed=row)
             raise AssertionError(f"flash_prefill kernel != plain: {row}")
-        if i >= FP_FIRST_TIMED:
-            mask = _prefill_mask(S, w, ck, dev)
+        if i >= FP_FIRST_TIMED and i not in FP_UNTIMED:
+            mask = _prefill_mask(S, w, ck, dev) if causal else \
+                torch.ones((S, Sk), dtype=torch.bool, device=dev)
             pairs = int(mask.sum())
             # q, k, v read once and the output (q's size) written once
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
@@ -547,19 +616,26 @@ def phase_kernel_flash_prefill(dev) -> dict:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
             def lib():
+                # no mask at all where there is none: SDPA's plain full
+                # attention, the yardstick of the non-causal rows
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                    qt, kt, vt, attn_mask=mask if causal else None,
+                    enable_gqa=True)
             lib_err = _max_err(lib().transpose(1, 2), want)
             if not lib_err < tol:
                 raise AssertionError(f"SDPA yardstick != plain: {lib_err}")
-            row["ms"] = auto_time_ms(
-                lambda: ops.flash_prefill(q, k, v, window=w, chunk_size=ck))
+
+            def call():
+                return ops.flash_prefill(q, k, v, **kw)
+            row["ms"] = auto_time_ms(call)
+            if i >= FP_NEW[LV_ARCH][0]:
+                row["device_ms"] = device_ms_per_launch(call,
+                                                        "flash_prefill")
             row["plain_ms"] = auto_time_ms(
-                lambda: ops.flash_prefill_plain(q, k, v, window=w,
-                                                chunk_size=ck))
+                lambda: ops.flash_prefill_plain(q, k, v, **kw))
             row["library_ms"] = auto_time_ms(lib)
             row["library_causal_ms"] = None
-            if not ck and (not w or S <= w):
+            if causal and not ck and (not w or S <= w):
 
                 def lib_causal():
                     return F.scaled_dot_product_attention(
@@ -973,22 +1049,25 @@ def phase_graph_parity(dev) -> None:
          counters_bitwise=True, ring_bitwise=True)
 
 
-def _decode_graph_parity(arch: str, model, dev, layers: int) -> None:
+def _decode_graph_parity(arch: str, model, dev, layers: int,
+                         encoder_layers: int | None = None) -> None:
     """The serving decode step through the engine's CUDA graph against its
-    eager body at ``layers`` of depth: three prompts, then
-    DECODE_PARITY_STEPS steps, each step's logits and the cache it leaves
-    against the eager body run on a copy of the cache the step started
-    from; and each replay's decode-attention launches counted (one a
-    layer).  Bitwise, or else the same tokens within LOGIT_RTOL /
-    LOGIT_ATOL, recorded."""
+    eager body at ``layers`` of depth (and ``encoder_layers``): three
+    prompts (each with its frontend embeddings where the arch has a
+    frontend, ``_frontends``), then DECODE_PARITY_STEPS steps, each step's
+    logits and the cache it leaves, the memory caches included, against
+    the eager body run on a copy of the cache the step started from; and
+    each replay's decode-attention launches counted (one a self-attention,
+    ``cross`` or ``xattn`` layer).  Bitwise, or else the same tokens
+    within LOGIT_RTOL / LOGIT_ATOL, recorded."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
-    from repro_torch.models.transformer import ATTN_KINDS
-    cut = model.first_layers(layers)
-    n_attn = sum(k in ATTN_KINDS for k in cut.cfg.layer_kinds())
+    cut = model.first_layers(layers, encoder_layers)
+    n_attn = attention_launches(cut.cfg)["decode"]
+    fes = _frontends(cut.cfg, 3, dev, seed=3)
     eng = ServingEngine(cut.cfg, cut, max_batch=4, max_len=256, device=dev)
     graph = eng._decode
     rows = []
@@ -1007,7 +1086,7 @@ def _decode_graph_parity(arch: str, model, dev, layers: int) -> None:
     rng = np.random.default_rng(3)
     for i, n in enumerate((80, 12, 40)):
         eng.admit(Request(i, 0, list(rng.integers(0, cut.cfg.vocab, n)),
-                          2 * DECODE_PARITY_STEPS))
+                          2 * DECODE_PARITY_STEPS), fes[i])
     for _ in range(DECODE_PARITY_STEPS):
         eng.step()
     bitwise = all(torch.equal(a, b) and c for a, b, c, _ in rows)
@@ -2665,11 +2744,42 @@ def _launch_counts() -> dict:
     return {name: m.LAUNCHES for name, m in _kernel_ops().items()}
 
 
+def attention_launches(cfg) -> dict:
+    """Attention kernel launches of one call of a model of ``cfg``, by
+    layer role: ``decode``, decode attention a decode step (one a
+    self-attention, ``cross`` or ``xattn`` layer); ``causal``, ``encoder``
+    and ``memory``, flash prefill a prefill (one causal a self-attention
+    layer, one over the F frames an encoder layer, one against the F
+    memory rows a ``cross`` or ``xattn`` layer)."""
+    from repro_torch.models.transformer import ATTN_KINDS, has_xattn
+    kinds = cfg.layer_kinds()
+    causal = sum(k in ATTN_KINDS for k in kinds)
+    memory = kinds.count("cross") + sum(has_xattn(cfg, k) for k in kinds)
+    return dict(decode=causal + memory, causal=causal,
+                encoder=cfg.encoder_layers, memory=memory)
+
+
+def prefill_masks(cfg, prompts) -> dict:
+    """Flash-prefill launches by ``LAUNCHES_BY_MASK`` key of one prefill
+    of each prompt length in ``prompts``.  The wrapper files a non-causal
+    launch by its shape, so a memory layer's launch is ``full`` (Sq = Sk)
+    for a prompt F tokens long and ``full_cross`` for any other."""
+    per = attention_launches(cfg)
+    out = dict(causal=0, full=0, full_cross=0)
+    for n in prompts:
+        out["causal"] += per["causal"]
+        out["full"] += per["encoder"]
+        out["full" if n == cfg.frontend_len else "full_cross"] += \
+            per["memory"]
+    return out
+
+
 def _reset_launch_counts() -> None:
     for m in _kernel_ops().values():
         m.LAUNCHES = 0
-        for path in getattr(m, "LAUNCHES_BY_PATH", {}):
-            m.LAUNCHES_BY_PATH[path] = 0
+        for split in ("LAUNCHES_BY_PATH", "LAUNCHES_BY_MASK"):
+            for key in getattr(m, split, {}):
+                getattr(m, split)[key] = 0
 
 
 def _instrument(engine, keep_logits: bool = False) -> dict:
@@ -2766,22 +2876,23 @@ def _shadow_plain(engine, pairs: list, tape=None) -> None:
     def copy(cache):
         return [tuple(t.clone() for t in layer) for layer in cache]
 
-    def shadowed(kind, call, plain_call, cache, *args):
+    def shadowed(kind, call, plain_call, cache, *args, after=()):
         snap = copy(cache)
         if tape is not None:
             tape.record()
-        out = call(*args, cache)
+        out = call(*args, cache, *after)
         if tape is not None:
             tape.replay()
-        want = plain_call(model, *args, snap, plain=True)
+        want = plain_call(model, *args, snap, *after, plain=True)
         if tape is not None:
             tape.stop()
         pairs.append((kind, out[0] if kind == "prefill" else out,
                       want[0] if kind == "prefill" else want))
         return out
 
-    def prefill(tok, cache):
-        return shadowed("prefill", pre, T.prefill, cache, tok)
+    def prefill(tok, cache, frontend=None):
+        return shadowed("prefill", pre, T.prefill, cache, tok,
+                        after=(frontend,))
 
     def decode(tok, ln, cache):
         return shadowed("decode", dec, T.decode_step, cache, tok, ln)
@@ -2804,61 +2915,47 @@ def _logits_within(name, pairs) -> float:
     return worst
 
 
-def _run_path(name, model, dev, **kw) -> dict:
-    """Drive one serving path with the launch counts set to 0 just before
-    and read just after; check every request finished, the logits were
-    finite and each kernel launched once for each layer of its kind in each
-    call: decode attention per decode step and flash prefill per prefill
-    for each attention layer, the SSD scan per prefill for each ``ssd``
-    layer, the token bucket once per prefill and once per round."""
-    import numpy as np
+def _counted(drive) -> dict:
+    """Run ``drive()`` with every launch count and the peak memory set to 0
+    just before; the wall s, peak memory, launches and launches by kernel
+    path and by mask just after."""
     import torch
-    max_rounds = kw.pop("max_rounds", 2000)
-    duration = kw.pop("duration", 3.0)
-    sched, rec, rounds, n_req = _scheduler(model, dev, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
-    sched.run(duration, max_rounds=max_rounds)
+    drive()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launch_counts()
-    fp_paths = dict(_kernel_ops()["flash_prefill"].LAUNCHES_BY_PATH)
-    ssd_paths = dict(_kernel_ops()["ssd_scan"].LAUNCHES_BY_PATH)
-    tb_paths = dict(_kernel_ops()["token_bucket"].LAUNCHES_BY_PATH)
-    from repro_torch.models.transformer import ATTN_KINDS
-    L = model.cfg.n_layers
-    kinds = model.cfg.layer_kinds()
-    n_ssd = kinds.count("ssd")
-    n_attn = sum(k in ATTN_KINDS for k in kinds)
-    expect = dict(token_bucket=rec["prefills"] + rounds[0],
-                  decode_attention=rec["decodes"] * n_attn,
-                  flash_prefill=rec["prefills"] * n_attn,
-                  ssd_scan=rec["prefills"] * n_ssd)
-    finished = sum(st.finished for st in sched.stats.values())
-    stats = {str(t): dict(served_tokens=st.served_tokens,
-                          finished=st.finished,
-                          p99_ttft_ms=(float(np.percentile(st.ttft, 99)) * 1e3
-                                       if st.ttft else None))
-             for t, st in sorted(sched.stats.items())}
-    out = dict(layers=L, requests=n_req, finished=finished,
-               rounds=rounds[0], virtual_s=sched.now_s,
+    ops = _kernel_ops()
+    return dict(wall_s=wall,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=_launch_counts(),
+                flash_prefill_paths=dict(
+                    ops["flash_prefill"].LAUNCHES_BY_PATH),
+                flash_prefill_masks=dict(
+                    ops["flash_prefill"].LAUNCHES_BY_MASK),
+                ssd_scan_paths=dict(ops["ssd_scan"].LAUNCHES_BY_PATH),
+                token_bucket_paths=dict(ops["token_bucket"].LAUNCHES_BY_PATH))
+
+
+def _check_serving(name, model, rec, run, expect, n_req, finished,
+                   expect_masks=None) -> None:
+    """The fields and checks both serving drivers share, on ``run``
+    (``_counted``'s): every one of ``n_req`` requests finished with finite
+    logits, each kernel launched ``expect`` times (flash prefill by mask
+    ``expect_masks`` times, where given), and in a bf16 model every
+    flash-prefill and SSD-scan launch on the tensor-core path."""
+    launches = run["launches"]
+    run.update(layers=model.cfg.n_layers, requests=n_req, finished=finished,
                prefills=rec["prefills"], decode_steps=rec["decodes"],
-               wall_s=wall,
                ms_per_prefill=rec["prefill_s"] / max(rec["prefills"], 1)
                * 1e3,
                ms_per_decode_step=rec["decode_s"] / max(rec["decodes"], 1)
                * 1e3,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, launches_expected=expect,
-               flash_prefill_paths=fp_paths, ssd_scan_paths=ssd_paths,
-               token_bucket_paths=tb_paths,
-               longest_sequence=int(sched.engine.lengths.max()),
-               tenants=stats)
-    plain = kw.get("plain", False)
-    if plain:
-        expect.update(decode_attention=0, flash_prefill=0, ssd_scan=0)
+               launches_expected=expect)
+    if expect_masks is not None:
+        run["flash_prefill_masks_expected"] = expect_masks
     if not rec["finite"]:
         raise AssertionError(f"{name}: non-finite logits")
     if finished != n_req:
@@ -2867,19 +2964,56 @@ def _run_path(name, model, dev, **kw) -> dict:
     if launches != expect or not all(
             v > 0 for k, v in launches.items() if expect[k]):
         raise AssertionError(f"{name}: launches {launches} != {expect}")
-    # the scheduler's buckets take the step kernel, never the grant tick
-    if tb_paths != dict(step=launches["token_bucket"], grant_tick=0):
-        raise AssertionError(f"{name}: token-bucket launches {tb_paths}")
+    if expect_masks is not None and \
+            run["flash_prefill_masks"] != expect_masks:
+        raise AssertionError(f"{name}: flash-prefill launches by mask "
+                             f"{run['flash_prefill_masks']} != "
+                             f"{expect_masks}")
     # the models' q, k, v and x, B, C are bf16: every flash-prefill and
     # SSD-scan launch is the tensor-core kernel's
     if model.cfg.dtype == "bfloat16":
-        for kname, paths in (("flash_prefill", fp_paths),
-                             ("ssd_scan", ssd_paths)):
+        for kname in ("flash_prefill", "ssd_scan"):
+            paths = run[f"{kname}_paths"]
             if paths["tensor_core"] != launches[kname]:
                 raise AssertionError(f"{name}: {kname} off the tensor-core "
                                      f"path: {paths}")
-    out["sched"], out["rec"] = sched, rec
-    return out
+
+
+def _run_path(name, model, dev, **kw) -> dict:
+    """Drive one serving path with the launch counts set to 0 just before
+    and read just after; check every request finished, the logits were
+    finite and each kernel launched once for each layer of its kind in each
+    call: decode attention per decode step and flash prefill per prefill
+    for each attention layer, the SSD scan per prefill for each ``ssd``
+    layer, the token bucket once per prefill and once per round."""
+    import numpy as np
+    max_rounds = kw.pop("max_rounds", 2000)
+    duration = kw.pop("duration", 3.0)
+    sched, rec, rounds, n_req = _scheduler(model, dev, **kw)
+    run = _counted(lambda: sched.run(duration, max_rounds=max_rounds))
+    n_ssd = model.cfg.layer_kinds().count("ssd")
+    n_attn = attention_launches(model.cfg)["decode"]
+    expect = dict(token_bucket=rec["prefills"] + rounds[0],
+                  decode_attention=rec["decodes"] * n_attn,
+                  flash_prefill=rec["prefills"] * n_attn,
+                  ssd_scan=rec["prefills"] * n_ssd)
+    if kw.get("plain", False):
+        expect.update(decode_attention=0, flash_prefill=0, ssd_scan=0)
+    run.update(rounds=rounds[0], virtual_s=sched.now_s,
+               longest_sequence=int(sched.engine.lengths.max()),
+               tenants={str(t): dict(
+                   served_tokens=st.served_tokens, finished=st.finished,
+                   p99_ttft_ms=(float(np.percentile(st.ttft, 99)) * 1e3
+                                if st.ttft else None))
+                   for t, st in sorted(sched.stats.items())})
+    _check_serving(name, model, rec, run, expect, n_req,
+                   sum(st.finished for st in sched.stats.values()))
+    # the scheduler's buckets take the step kernel, never the grant tick
+    tb_paths = run["token_bucket_paths"]
+    if tb_paths != dict(step=run["launches"]["token_bucket"], grant_tick=0):
+        raise AssertionError(f"{name}: token-bucket launches {tb_paths}")
+    run["sched"], run["rec"] = sched, rec
+    return run
 
 
 def _public(run: dict) -> dict:
@@ -2939,16 +3073,18 @@ def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
     """Where a decode step and a prefill spend their time: 4 decode steps
     of a full batch (8 requests with 64-token prompts, max_len 256) through
     the engine's decode graph, then 4 through its eager body, and the
-    prefill of one ``long_prompt``-token prompt (max_len 2048)."""
+    prefill of one ``long_prompt``-token prompt (max_len 2048); each
+    request with its frontend embeddings where the arch has a frontend."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(2)
+    fes = _frontends(model.cfg, 9, dev, seed=2)
     engine = ServingEngine(model.cfg, model, max_batch=8, max_len=256,
                            device=dev)
     for i in range(8):
         engine.admit(Request(i, 0, list(rng.integers(0, model.cfg.vocab,
-                                                     64)), 64))
+                                                     64)), 64), fes[i])
     engine.step()
     decode = _profile(engine.step, 4)
     engine._decode = engine._decode_eager
@@ -2961,7 +3097,7 @@ def _profile_serving(model, dev, long_prompt=LONG_PROMPT) -> dict:
 
     def prefill():
         engine.active[:] = False
-        engine.admit(Request(0, 0, prompt, 2))
+        engine.admit(Request(0, 0, prompt, 2), fes[8])
     prefill()
     return {"decode_step": decode, "decode_step_eager": decode_eager,
             f"prefill_{long_prompt}": _profile(prefill, 2)}
@@ -3291,6 +3427,271 @@ def phase_serve_mixtral_parity(dev, model) -> None:
          logit_atol=LOGIT_ATOL, moe_forms=forms, mixes=report)
 
 
+# ---------------------------------------------------------------------------
+# serving: llama-3.2-vision-11b and seamless-m4t-medium (frontends)
+# ---------------------------------------------------------------------------
+
+
+def _frontends(cfg, n: int, dev, seed: int) -> list:
+    """``n`` frontend embeddings [1, F, frontend_dim] float32 on the card,
+    drawn from ``numpy.random.default_rng(seed)`` (not the reference's
+    ``frontend_stub``, which seeds with ``hash(kind)``: another value in
+    every process); ``n`` Nones for an arch without a frontend."""
+    import numpy as np
+    import torch
+    if not cfg.frontend:
+        return [None] * n
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(
+        (1, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32),
+        device=dev) for _ in range(n)]
+
+
+#: (scale, centre) of the seeded normal ``_liven`` draws each parameter of
+#: these leaf names from: the ``cross`` layers' gate (zero at init, so
+#: tanh(xgate) = 0 would silence them), every attention's QKV biases (the
+#: decoder's, ``xattn``'s and the encoder's) and every norm's scale and
+#: LayerNorm bias.  The CPU parity tests put the same noise on the
+#: reference's parameters (``tests/_torch_parity.py``'s ``CROSS_NOISE``).
+LIVEN = {"xgate": (0.5, 0.5), "bq": (0.1, 0.0), "bk": (0.1, 0.0),
+         "bv": (0.1, 0.0), "scale": (0.2, 1.0), "bias": (0.1, 0.0)}
+
+
+def _liven(model, seed: int) -> dict:
+    """Seeded noise (``LIVEN``) in place on the parameters the reference
+    initialises to zeros or ones, so that the card's checks see them act.
+    Returns how many of each were drawn, for the ``reduced`` line."""
+    import torch
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    done: dict[str, int] = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in LIVEN:
+            scale, centre = LIVEN[leaf]
+            noise = torch.randn(p.shape, generator=g, device=p.device)
+            p.data.copy_((centre + scale * noise).to(p.dtype))
+            done[leaf] = done.get(leaf, 0) + 1
+    return done
+
+
+def _frontend_mix(cfg, mix: str) -> list:
+    """(prompt, new tokens) of each request: ``"serve"`` is the launcher's
+    request shapes (24 prompts of 64 tokens with 16 new tokens, then 32 of
+    12 with 6), ``"long"`` LONG_REQUESTS prompts of FRONTEND_LONG_PROMPT."""
+    import numpy as np
+    rng = np.random.default_rng(0 if mix == "serve" else 1)
+    if mix == "serve":
+        return [(list(rng.integers(0, cfg.vocab, 64)), 16)
+                for _ in range(24)] + \
+            [(list(rng.integers(0, cfg.vocab, 12)), 6) for _ in range(32)]
+    return [(list(rng.integers(0, cfg.vocab, FRONTEND_LONG_PROMPT)),
+             LONG_NEW) for _ in range(LONG_REQUESTS)]
+
+
+def _run_frontend_path(name, model, dev, *, mix, max_batch, max_len,
+                       shadow=None) -> dict:
+    """Drive ``ServingEngine.admit(req, frontend)`` + ``step()`` over
+    ``mix`` (``_frontend_mix``): each request admitted with its own
+    frontend embeddings when a slot is free, steps until every request is
+    done.  The launch counts are set to 0 just before and read just after;
+    ``_check_serving``'s checks, with decode attention once a decode step
+    for each self-attention, ``cross`` or ``xattn`` layer, flash prefill
+    by mask as ``prefill_masks`` counts it, no token-bucket or SSD-scan
+    launch.  ``shadow`` (a list) receives each call's logits beside the
+    plain versions' on a copy of the same cache (``_shadow_plain``)."""
+    import collections
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    engine = ServingEngine(cfg, model, max_batch=max_batch, max_len=max_len,
+                           device=dev)
+    rec = _instrument(engine)
+    if shadow is not None:
+        _shadow_plain(engine, shadow)
+    reqs = _frontend_mix(cfg, mix)
+    fes = _frontends(cfg, len(reqs), dev, seed=FRONTEND_SEED)
+    pending = collections.deque(
+        (Request(i, 0, p, n), fe) for i, ((p, n), fe)
+        in enumerate(zip(reqs, fes)))
+    done = []
+
+    def drive():
+        while pending or engine.active_count:
+            while pending and engine.free_slots():
+                req, fe = pending.popleft()
+                engine.admit(req, fe)
+                done.append(req)
+            engine.step()
+    run = _counted(drive)
+    masks = prefill_masks(cfg, [len(p) for p, _ in reqs])
+    expect = dict(token_bucket=0, ssd_scan=0,
+                  decode_attention=rec["decodes"]
+                  * attention_launches(cfg)["decode"],
+                  flash_prefill=sum(masks.values()))
+    run.update(encoder_layers=cfg.encoder_layers,
+               longest_sequence=int(engine.lengths.max()))
+    if rec["prefills"] != len(reqs):
+        raise AssertionError(f"{name}: {rec['prefills']} prefills of "
+                             f"{len(reqs)} requests")
+    _check_serving(name, model, rec, run, expect, len(reqs),
+                   sum(r.done for r in done), masks)
+    run["rec"] = rec
+    return run
+
+
+def _decode_weight_gb(model) -> float:
+    """GB of weights a decode step reads: every decoder block's and the
+    head's (the tied head's bf16 copy), not the embedding (a gather), the
+    frontend projection or the encoder (prefill only)."""
+    blocks = sum(p.numel() * p.element_size()
+                 for p in model.blocks.parameters())
+    head = model.unembed_w if model.cfg.tie_embeddings else model.lm_head
+    norm = sum(p.numel() * p.element_size()
+               for p in model.final_norm.parameters())
+    return (blocks + head.numel() * head.element_size() + norm) / 1e9
+
+
+def _memory_cache_gb(cfg, max_batch: int) -> float:
+    """GB of float32 memory caches (cross and xattn K/V) an engine holds."""
+    rows = max_batch * cfg.frontend_len * cfg.n_kv_heads * cfg.head_dim_
+    return 2 * 4 * rows * attention_launches(cfg)["memory"] / 1e9
+
+
+def _emit_frontend_serve(phase, arch, model, init_s, gib, run, prof, notes
+                         ) -> None:
+    from repro_torch.models import module
+    cfg = model.cfg
+    emit(phase, arch=arch,
+         layer_kinds={k: cfg.layer_kinds().count(k)
+                      for k in sorted(set(cfg.layer_kinds()))},
+         d_model=cfg.d_model, vocab=cfg.vocab, frontend=cfg.frontend,
+         frontend_shape=[1, cfg.frontend_len, cfg.frontend_dim],
+         params=module.param_count(model), weights_gib=gib, init_s=init_s,
+         decode_weight_gb=_decode_weight_gb(model),
+         memory_cache_gb=_memory_cache_gb(cfg, 8), max_batch=8, max_len=256,
+         liven=notes, **_public(run), profile=prof)
+
+
+def _frontend_full_model(arch: str, dev):
+    """``_full_model`` with ``_liven``'s noise, stated on a ``reduced``
+    line: the card's weights are random, and the parameters the reference
+    starts at zero or one are drawn instead."""
+    model, init_s, gib = _full_model(arch, dev)
+    notes = _liven(model, SERVE_SEED + 1)
+    emit("reduced", what=f"{arch} weights", changed=notes,
+         why="random weights: xgate (zero at init) would silence every "
+             "cross layer, zero biases and unit norms would leave their "
+             "paths unchecked; each drawn from a seeded normal")
+    return model, init_s, gib, notes
+
+
+def phase_serve_llama_vision(dev) -> tuple:
+    """llama-3.2-vision-11b at full width and depth (32 global and 8 cross
+    layers), random weights drawn on the card with live gates: the
+    launcher's request shapes, each request admitted with its own
+    [1, 1600, 1280] patch embeddings; each prefill launches flash prefill
+    32 times causal and 8 times over the 1600 memory rows, each decode step
+    decode attention 40 times (8 over the memory)."""
+    model, init_s, gib, notes = _frontend_full_model(LV_ARCH, dev)
+    run = _run_frontend_path("serve_llama_vision", model, dev, mix="serve",
+                             max_batch=8, max_len=256)
+    prof = _profile_serving(model, dev, FRONTEND_LONG_PROMPT)
+    _emit_frontend_serve("serve_llama_vision", LV_ARCH, model, init_s, gib,
+                         run, prof, notes)
+    return model, run, prof
+
+
+def phase_frontend_long(phase: str, dev, model) -> dict:
+    """Four FRONTEND_LONG_PROMPT-token prompts: each cross-attention
+    prefill 1536 queries against the F memory rows."""
+    run = _run_frontend_path(phase, model, dev, mix="long",
+                             max_batch=LONG_REQUESTS, max_len=2048)
+    if run["longest_sequence"] < FRONTEND_LONG_PROMPT:
+        raise AssertionError(f"{phase}: longest sequence "
+                             f"{run['longest_sequence']}")
+    emit(phase, prompt=FRONTEND_LONG_PROMPT, new_tokens=LONG_NEW,
+         max_batch=LONG_REQUESTS, max_len=2048, **_public(run))
+    return run
+
+
+def _frontend_parity(phase: str, arch: str, model, dev, layers: int,
+                     encoder_layers: int | None = None) -> None:
+    """At full width and ``layers`` decoder layers (``encoder_layers``
+    encoder layers): the decode graph against its eager body, then both
+    mixes through the kernels, each call's logits held against the plain
+    versions run on a copy of the cache it started from, within one bf16
+    ulp of their scale."""
+    import torch
+    _decode_graph_parity(arch, model, dev, layers, encoder_layers)
+    cut = model.first_layers(layers, encoder_layers)
+    report = {}
+    for mix, max_batch, max_len in (("serve", 8, 256),
+                                    ("long", LONG_REQUESTS, 2048)):
+        pairs = []
+        run = _run_frontend_path(f"{phase}/{mix}", cut, dev, mix=mix,
+                                 max_batch=max_batch, max_len=max_len,
+                                 shadow=pairs)
+        report[mix] = dict(calls=len(pairs),
+                           max_abs_logit_diff=_logits_within(
+                               f"{phase}/{mix}", pairs),
+                           launches=run["launches"],
+                           flash_prefill_masks=run["flash_prefill_masks"])
+        del run, pairs
+        torch.cuda.empty_cache()
+    emit(phase, layers=layers, encoder_layers=cut.cfg.encoder_layers,
+         d_model=cut.cfg.d_model, logit_rtol=LOGIT_RTOL,
+         logit_atol=LOGIT_ATOL, mixes=report)
+
+
+def _encoder_share(model, dev) -> dict:
+    """Wall ms (synchronised) of a 64-token and a 12-token prefill and of
+    the frontend projection + encoder alone on one request's frames: the
+    encoder's share of a prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    fe = _frontends(model.cfg, 1, dev, seed=5)[0]
+    rng = np.random.default_rng(5)
+    cache = T.init_cache(model.cfg, 1, 256, torch.float32, device=dev)
+
+    def wall_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+    with torch.no_grad():
+        enc = wall_ms(lambda: model.encode(model.frontend_kv(fe)))
+        out = dict(encoder_ms=enc)
+        for S in (64, 12):
+            tok = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, S)),
+                                  device=dev)
+            ms = wall_ms(lambda: T.prefill(model, tok, cache, fe))
+            out[f"prefill_{S}_ms"] = ms
+            out[f"encoder_share_{S}"] = enc / ms
+    return out
+
+
+def phase_serve_seamless(dev) -> tuple:
+    """seamless-m4t-medium at full size (12 encoder and 12 decoder layers),
+    random weights drawn on the card with live QKV biases and LayerNorms:
+    the launcher's request shapes, each request admitted with its own
+    [1, 1024, 1024] audio frames; each prefill runs the encoder (12
+    non-causal 1024 x 1024 flash-prefill launches), 12 causal and 12
+    cross-attention launches; each decode step 24 decode-attention
+    launches."""
+    model, init_s, gib, notes = _frontend_full_model(SM_ARCH, dev)
+    run = _run_frontend_path("serve_seamless", model, dev, mix="serve",
+                             max_batch=8, max_len=256)
+    prof = _profile_serving(model, dev, FRONTEND_LONG_PROMPT)
+    prof["encoder"] = _encoder_share(model, dev)
+    _emit_frontend_serve("serve_seamless", SM_ARCH, model, init_s, gib, run,
+                         prof, notes)
+    return model, run, prof
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3375,12 +3776,28 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    model, lserve, _ = phase_serve_llama_vision(dev)
+    llong = phase_frontend_long("serve_llama_vision_long", dev, model)
+    _frontend_parity("serve_llama_vision_parity", LV_ARCH, model, dev,
+                     LV_PARITY_LAYERS)
+    lserve, llong = _public(lserve), _public(llong)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, sserve, _ = phase_serve_seamless(dev)
+    _frontend_parity("serve_seamless_parity", SM_ARCH, model, dev,
+                     SM_PARITY_LAYERS, SM_PARITY_LAYERS)
+    sserve = _public(sserve)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     n_main = 2
     t = gt["times"][n_main]
     runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
                 serve_mamba2_long=mlong, serve_recurrentgemma=rserve,
                 serve_recurrentgemma_long=rlong, serve_mixtral=xserve,
-                serve_mixtral_long=xlong)
+                serve_mixtral_long=xlong, serve_llama_vision=lserve,
+                serve_llama_vision_long=llong, serve_seamless=sserve)
     by_path = {name: dict(main_path=0, **{p: r["launches"][name]
                                           for p, r in runs.items()})
                for name in serve["launches"]}
@@ -3481,16 +3898,19 @@ def main() -> int:
                 arch: [{k: r[k] for k in keys} for r in rs]
                 for arch, rs in res["new"].items()}
         if name == "flash_prefill":
-            keys = ("shape", "window", "ms", "plain_ms", "library_ms",
-                    "library_causal_ms", "bound_ms", "bound_by",
-                    "bound_share", "tflops")
+            keys = ("shape", "sk", "causal", "window", "ms", "device_ms",
+                    "plain_ms", "library_ms", "library_causal_ms",
+                    "bound_ms", "bound_by", "bound_share", "tflops")
             rows[-1]["kernel_paths"] = {
                 p: r["flash_prefill_paths"] for p, r in runs.items()
                 if r["launches"]["flash_prefill"]}
-            rows[-1]["long_prompt"] = [{k: r[k] for k in keys}
+            rows[-1]["launches_by_mask"] = {
+                p: r["flash_prefill_masks"] for p, r in runs.items()
+                if r["launches"]["flash_prefill"]}
+            rows[-1]["long_prompt"] = [{k: r.get(k) for k in keys}
                                        for r in res["long"]]
             rows[-1]["new_shapes"] = {
-                arch: [{k: r[k] for k in keys} for r in rs]
+                arch: [{k: r.get(k) for k in keys} for r in rs]
                 for arch, rs in res["new"].items()}
         if name == "ssd_scan":
             pre = mprof[f"prefill_{MAMBA_LONG_PROMPT}"]

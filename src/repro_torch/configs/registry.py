@@ -1,10 +1,10 @@
 """--arch registry: maps architecture ids to their assigned configs.
 
 Port of ``src/repro/configs/registry.py``; the ten configs beside it are
-copies of the reference's.  The port's model runs the dense attention kinds
-(``global``, ``local``, ``chunk``), the recurrent ``rglru`` and ``ssd``
-kinds and MoE layers, and raises ``NotImplementedError`` for the rest
-(``cross``, encoders, frontends; see ``repro_torch.models.transformer``).
+copies of the reference's.  The port's model serves all ten: the dense
+attention kinds (``global``, ``local``, ``chunk``), the recurrent ``rglru``
+and ``ssd`` kinds, MoE layers, ``cross`` layers, the encoder and the
+frontends (see ``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ Two kernels, chosen by operand type alone (``kernel_path``):
 
 There is no fallback: if the chosen kernel fails to build or launch, the
 wrapper raises.  ``LAUNCHES`` counts kernel launches and nothing else;
-``LAUNCHES_BY_PATH`` splits them by kernel.
+``LAUNCHES_BY_PATH`` splits them by kernel and ``LAUNCHES_BY_MASK`` by
+mask.  Without ``causal`` the kernel masks no key but those past Sk, so Sq
+and Sk may differ (a cross-attention prefill: prompt against memory).
 """
 from __future__ import annotations
 
@@ -44,6 +46,10 @@ MAX_HEAD_DIM = 256
 LAUNCHES = 0
 #: the same launches by kernel: ``kernel_path``'s names
 LAUNCHES_BY_PATH = {"tensor_core": 0, "cuda_core": 0}
+#: the same launches by mask and shape: ``causal``; ``full`` (no mask,
+#: Sq = Sk: an encoder's self-attention, or a prompt as long as the
+#: cross-attention memory it attends); ``full_cross`` (no mask, Sq != Sk)
+LAUNCHES_BY_MASK = {"causal": 0, "full": 0, "full_cross": 0}
 
 
 def _launchers():
@@ -99,7 +105,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int = 0, chunk_size: int = 0, causal: bool = True
                   ) -> torch.Tensor:
     """q [B, Sq, H, D]; k, v [B, Sk, KvH, D] -> [B, Sq, H, D] in q's dtype.
-    Query i attends key j iff (without ``causal``, always) j <= i, and
+    Query i attends key j < Sk iff (without ``causal``, always) j <= i, and
     i - j < window when ``window > 0``, and i // chunk_size ==
     j // chunk_size when ``chunk_size > 0``."""
     if q.device.type == "cpu":
@@ -145,4 +151,6 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1
+    LAUNCHES_BY_MASK["causal" if causal else
+                     "full" if Sq == Sk else "full_cross"] += 1
     return out

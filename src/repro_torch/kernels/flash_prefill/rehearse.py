@@ -18,8 +18,11 @@ import os
 import sys
 import time
 
-# B, S, H, KvH, D, window, chunk, causal: gemma3-12b's prefills, then the
-# kernel's edges (tile and panel boundaries, G = 1 .. 8 and 5, D padded)
+# B, S, H, KvH, D, window, chunk, causal[, Sk]: gemma3-12b's prefills, then
+# the kernel's edges (tile and panel boundaries, G = 1 .. 8 and 5, D
+# padded), then non-causal rows over Sk keys (cross-attention to a memory:
+# llama-3.2-vision-11b's 1600 rows, seamless-m4t-medium's 1024 and its
+# encoder, 16 rows below one tile, Sk = 1000 not a multiple of it)
 CASES = [
     (1, 1536, 16, 8, 256, 1024, 0, True),
     (1, 1536, 16, 8, 256, 0, 0, True),
@@ -39,6 +42,12 @@ CASES = [
     (1, 90, 4, 2, 96, 0, 0, True),
     (2, 77, 6, 3, 200, 20, 0, True),
     (1, 1536, 40, 8, 128, 0, 0, True),
+    (1, 12, 32, 8, 128, 0, 0, False, 1600),
+    (1, 1536, 32, 8, 128, 0, 0, False, 1600),
+    (1, 1536, 16, 16, 64, 0, 0, False, 1024),
+    (1, 1024, 16, 16, 64, 0, 0, False, 1024),
+    (2, 40, 4, 1, 64, 0, 0, False, 16),
+    (1, 300, 8, 2, 128, 0, 0, False, 1000),
 ]
 TIMED = 3           # the first three: gemma3-12b's 1536-token prefill
 TOL = 2e-2
@@ -97,17 +106,19 @@ def main() -> int:
             print(" ".join(x.strip() for x in info[i:i + 3]), flush=True)
     dev = torch.device("cuda", 0)
     worst = 0.0
-    for n, (B, S, H, KvH, D, w, ck, causal) in enumerate(CASES):
+    for n, (B, S, H, KvH, D, w, ck, causal, *sk) in enumerate(CASES):
         g = torch.Generator(device=dev).manual_seed(S)
-        q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
-                   .to(torch.bfloat16) for h in (H, KvH, KvH))
+        Sk = sk[0] if sk else S
+        q, k, v = (torch.randn((B, rows, h, D), generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for rows, h in ((S, H), (Sk, KvH), (Sk, KvH)))
         kw = dict(window=w, chunk_size=ck, causal=causal)
         got = ops.flash_prefill(q, k, v, **kw)
         _finish_or_exit(str((B, S, H, KvH, D)))
         err = float((got.float() - ops.flash_prefill_plain(q, k, v, **kw)
                      .float()).abs().max())
         worst = max(worst, err)
-        row = dict(case=(B, S, H, KvH, D, w, ck, causal), max_abs_err=err,
+        row = dict(case=(B, S, H, KvH, D, w, ck, causal, Sk), max_abs_err=err,
                    paths=dict(ops.LAUNCHES_BY_PATH))
         if n < TIMED:
             qi = torch.arange(S, device=dev)[:, None]

@@ -6,10 +6,14 @@ selected arch (real token generation through the continuous-batching
 engine), virtual-clocked by the FULL config's roofline cost model, with
 per-tenant SLOs enforced by the Arcus token buckets.  It runs on the CUDA
 card (the port's default device; the attention, SSD-scan and token-bucket
-kernels are built at first use).  The archs it serves are those the port's
-model runs: every decoder-only config (the dense attention models,
-recurrentgemma-9b, mixtral-8x22b, llama4-maverick-400b-a17b and
-mamba2-780m), not yet the encoder and cross-attention ones.
+kernels are built at first use).  It serves every decoder-only config (the
+dense attention models, recurrentgemma-9b, mixtral-8x22b,
+llama4-maverick-400b-a17b and mamba2-780m).  It refuses a config with a
+frontend (llama-3.2-vision-11b, seamless-m4t-medium) with a ``ValueError``
+before building anything: its scheduler admits requests with no frontend
+embeddings, as the reference's launcher does, and the reference fails
+there.  The port's ``ServingEngine.admit(req, frontend)`` serves those
+configs (``chip_smoke.py`` drives it).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
         --tenants 1200,800 --duration 3
@@ -85,7 +89,15 @@ def serve(args: argparse.Namespace, *, device=None,
           hw: HardwareSpec | None = None):
     """Build the reduced model, engine and scheduler, submit the mix and
     run it.  Returns (scheduler, tenants, cfg).  ``hw`` replaces the cost
-    model's target (default: ``--chips`` cards of ``HardwareSpec()``)."""
+    model's target (default: ``--chips`` cards of ``HardwareSpec()``).
+    Raises ``ValueError`` for an arch with a frontend (module docstring)."""
+    frontend = get_config(args.arch).frontend
+    if frontend:
+        raise ValueError(
+            f"{args.arch}: the launcher's scheduler admits requests with no "
+            f"frontend embeddings, as the reference's launcher does, and "
+            f"the reference fails there; this arch needs its {frontend} "
+            f"frontend's (ServingEngine.admit(req, frontend))")
     cfg = get_reduced_config(args.arch)
     model = T.init_model(0, cfg, device=device)
     engine = ServingEngine(cfg, model, max_batch=args.max_batch,

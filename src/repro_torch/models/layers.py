@@ -3,8 +3,9 @@ top-k MoE feed-forward, the RG-LRU recurrent block and the Mamba2 SSD
 block.
 
 Port of ``src/repro/models/layers.py`` for the dense attention kinds
-(``global``, ``local``, ``chunk``), the ``rglru`` and ``ssd`` kinds and MoE
-layers.  Each layer is an ``nn.Module`` whose parameters keep the
+(``global``, ``local``, ``chunk``), the bidirectional ``encoder`` and the
+``cross`` kind (``Attention.block``), the ``rglru`` and ``ssd`` kinds and
+MoE layers.  Each layer is an ``nn.Module`` whose parameters keep the
 reference's names and layouts (``wq`` [E, H, Dh], ``wo`` [H * Dh, E],
 ``wi`` [E, g, F], the MoE's ``wi`` [X, E, 2, F], ``in_proj``
 [E, 2 Din + 2 G N + H] ...), so weights load one for one.  Storage dtypes
@@ -16,7 +17,9 @@ conv taps, decay and skip parameters stay float32.
 Full-sequence attention (prefill) goes through the flash-prefill kernel on
 CUDA and its plain version on the CPU (``repro_torch.kernels.flash_prefill``),
 where the reference computes the same masks inline in jnp
-(``layers.flash_attention``).  The Mamba2 prefill goes through the SSD-scan
+(``layers.flash_attention``): causal for the decoder kinds, none
+(``causal=False``) for the encoder and for cross-attention, whose Sk is the
+memory's length.  The Mamba2 prefill goes through the SSD-scan
 kernel on CUDA (``repro_torch.kernels.ssd_scan``), where the reference
 calls its sequential oracle ``ssd_ref.ssd_scan``.  The RG-LRU scan and
 the MoE dispatch have no kernel in the reference either (an
@@ -144,7 +147,7 @@ def rope(x, positions, *, theta: float, fraction: float = 1.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention block (GQA; global / local / chunk)
+# Attention block (GQA; global / local / chunk / encoder / cross)
 # ---------------------------------------------------------------------------
 
 
@@ -165,33 +168,56 @@ class Attention(nn.Module):
             self.bk = mk.zeros((KvH, Dh), dtype=dt)
             self.bv = mk.zeros((KvH, Dh), dtype=dt)
 
-    def qkv(self, x: torch.Tensor):
-        """Project x [B, S, E] to q [B, S, H, D] and k, v [B, S, KvH, D]."""
+    def q(self, x: torch.Tensor) -> torch.Tensor:
+        """Project x [B, S, E] to q [B, S, H, D] alone (a cross or
+        encoder-decoder layer's decode: its K/V are the memory's)."""
         B, S, E = x.shape
         q = (x @ self.wq.view(E, -1)).view(B, S, *self.wq.shape[1:])
-        k = (x @ self.wk.view(E, -1)).view(B, S, *self.wk.shape[1:])
-        v = (x @ self.wv.view(E, -1)).view(B, S, *self.wv.shape[1:])
+        return q + self.bq if self.has_bias else q
+
+    def kv(self, src: torch.Tensor):
+        """Project a memory src [B, F, E] to k, v [B, F, KvH, D]."""
+        B, F_, E = src.shape
+        k = (src @ self.wk.view(E, -1)).view(B, F_, *self.wk.shape[1:])
+        v = (src @ self.wv.view(E, -1)).view(B, F_, *self.wv.shape[1:])
         if self.has_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        return q, k, v
+            k, v = k + self.bk, v + self.bv
+        return k, v
+
+    def qkv(self, x: torch.Tensor):
+        """Project x [B, S, E] to q [B, S, H, D] and k, v [B, S, KvH, D]."""
+        return (self.q(x), *self.kv(x))
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
         B, S, H, Dh = o.shape
         return o.reshape(B, S, H * Dh) @ self.wo
 
     def block(self, x: torch.Tensor, kind: str, tables, *,
-              plain: bool = False):
-        """Full-sequence causal attention (prefill) over x [B, S, E] at
-        positions 0..S-1.  Returns (y [B, S, E], k, v), k rotated: the
-        cache takes both as they are.  ``plain`` runs the plain version on
-        a CUDA tensor too (for parity checks only)."""
+              memory: torch.Tensor | None = None, plain: bool = False):
+        """Full-sequence attention (prefill) over x [B, S, E]: causal at
+        positions 0..S-1 for the decoder kinds (``global``, ``local``,
+        ``chunk``); ``encoder``, bidirectional with RoPE at 0..S-1
+        (``tables``); ``cross``, q from x against K/V of ``memory``
+        [B, F, E], without RoPE or mask (Sq = S, Sk = F).  Returns
+        (y [B, S, E], k, v): k rotated for the decoder kinds, the memory's
+        K/V unrotated for ``cross``; a cache takes both as they are.
+        ``plain`` runs the plain version on a CUDA tensor too (for parity
+        checks only)."""
+        attn = fp_ops.flash_prefill_plain if plain else fp_ops.flash_prefill
+        if kind == "cross":
+            # no RoPE across modalities, as the reference
+            k, v = self.kv(memory)
+            o = attn(self.q(x), k, v, causal=False)
+            return self.out(o), k, v
         q, k, v = self.qkv(x)
         q = apply_rope(q, tables)
         k = apply_rope(k, tables)
-        window = self.cfg.window if kind == "local" else 0
-        chunk = self.cfg.window if kind == "chunk" else 0
-        attn = fp_ops.flash_prefill_plain if plain else fp_ops.flash_prefill
-        o = attn(q, k, v, window=window, chunk_size=chunk, causal=True)
+        if kind == "encoder":
+            o = attn(q, k, v, causal=False)
+        else:
+            window = self.cfg.window if kind == "local" else 0
+            chunk = self.cfg.window if kind == "chunk" else 0
+            o = attn(q, k, v, window=window, chunk_size=chunk, causal=True)
         return self.out(o), k, v
 
 

@@ -1,32 +1,51 @@
-"""Decoder-only transformer of the port: init, serving cache, prefill and
-decode.
+"""The port's transformer: init, serving cache, prefill and decode, for
+decoder-only, cross-attention (VLM) and encoder-decoder models.
 
-Port of ``src/repro/models/transformer.py`` for the dense attention
-kinds, the recurrent ``rglru`` and ``ssd`` kinds and MoE feed-forwards
-(``cfg.is_moe_layer``).  The reference stacks each period position's
-parameters across repetitions and scans over them; here every layer is its
-own ``Block`` module, layer ``li = rep * period + j`` of kind
-``cfg.layer_kinds()[li]``, and the model loops over them in Python.  The
-cache is a list with one pair of tensors per layer, updated in place (the
-reference returns new arrays with the same values): (k, v) of
-[B, W, KvH, Dh] for an attention layer, (conv [B, 3, W], h [B, W] float32)
-for an ``rglru`` layer, (conv [B, K-1, Din + 2 G N], state [B, H, P, N]
-float32) for an ``ssd`` layer.
+Port of ``src/repro/models/transformer.py`` for every layer kind (the
+self-attention kinds ``global``, ``local``, ``chunk``; ``cross``; the
+recurrent ``rglru`` and ``ssd``), MoE feed-forwards
+(``cfg.is_moe_layer``), the bidirectional encoder (``cfg.encoder_layers``)
+and the frontend projection (``cfg.frontend``).  The reference stacks each
+period position's parameters across repetitions and scans over them; here
+every layer is its own ``Block`` module, layer ``li = rep * period + j`` of
+kind ``cfg.layer_kinds()[li]``, every encoder layer its own
+``EncoderBlock``, and the model loops over them in Python.
+
+The cache is a list with one tuple of tensors per decoder layer, updated in
+place (the reference returns new arrays with the same values):
+
+* a self-attention layer: (k, v) of [B, W, KvH, Dh];
+* a ``cross`` layer: (k, v) of [B, F, KvH, Dh], the memory's K/V, F being
+  ``cfg.frontend_len``;
+* with encoder layers, an attention or ``cross`` layer appends the
+  encoder-decoder cross-attention's memory K/V: (k, v, xk, xv), xk and xv
+  [B, F, KvH, Dh];
+* an ``rglru`` layer: (conv [B, 3, W], h [B, W] float32);
+* an ``ssd`` layer: (conv [B, K-1, Din + 2 G N], state [B, H, P, N]
+  float32).
+
+Prefill projects the frontend embeddings (``frontend_kv``, a float32
+product cast to ``cfg.dtype``), runs the encoder over them where the config
+has one (``encode``), and writes each layer's memory K/V once; decode
+attends those rows and never writes them.
 
 Decode attention goes through the decode-attention kernel on CUDA
 (``repro_torch.kernels.decode_attention``), where the reference calls the
-kernel's oracle ``da_ref.decode_attention`` inline
-(``_decode_self_attention``); prefill attention goes through the
-flash-prefill kernel (``layers.Attention.block``) and the Mamba2 prefill
-through the SSD-scan kernel (``layers.Mamba2.prefill``).  ``plain=True``
-runs the plain versions on a CUDA tensor too, for parity checks only.  A
-MoE layer dispatches a prefill's tokens grouped by expert
-(``layers.MoE.grouped``, one host read) and a decode step's through every
-expert at fixed shapes (``layers.MoE.all_experts``, capturable).
+kernel's oracle ``da_ref.decode_attention`` inline: against the
+self-attention cache (``_decode_self_attention``) and against the memory
+with every one of its F rows valid (``_apply_block``'s ``cross`` and
+``xattn`` branches).  Prefill attention goes through the flash-prefill
+kernel (``layers.Attention.block``): causal for the decoder's
+self-attention, non-causal for the encoder and for cross-attention (Sq the
+prompt, Sk = F).  The Mamba2 prefill goes through the SSD-scan kernel
+(``layers.Mamba2.prefill``).  ``plain=True`` runs the plain versions on a
+CUDA tensor too, for parity checks only.  A MoE layer dispatches a
+prefill's tokens grouped by expert (``layers.MoE.grouped``, one host read)
+and a decode step's through every expert at fixed shapes
+(``layers.MoE.all_experts``, capturable).
 
-Out of this slice, and refused with ``NotImplementedError``: the ``cross``
-layer kind, encoder layers, frontends, and the full-sequence ``forward``
-(training and scoring, with the MoE auxiliary loss).
+Not ported: the full-sequence ``forward`` (training and scoring, with the
+MoE auxiliary loss).
 """
 from __future__ import annotations
 
@@ -41,36 +60,28 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-ATTN_KINDS = ("global", "local", "chunk")
+ATTN_KINDS = ("global", "local", "chunk")      # decoder self-attention
 RECURRENT_KINDS = ("rglru", "ssd")
-KINDS = ATTN_KINDS + RECURRENT_KINDS
 
-Cache = list   # one (k, v), (conv, h) or (conv, state) pair per layer
+Cache = list   # one tuple of tensors per decoder layer (module docstring)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    cfg.validate()
-    other = sorted(set(cfg.layer_pattern) - set(KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {other} are not ported (the port runs "
-            f"{list(KINDS)} only)")
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder layers are not "
-                                  "ported")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  "is not ported")
+def has_xattn(cfg: ArchConfig, kind: str) -> bool:
+    """Whether a decoder layer of ``kind`` carries the encoder-decoder
+    cross-attention (``xattn``, ``lnx``), as the reference's
+    ``_init_block``."""
+    return bool(cfg.encoder_layers) and kind in ATTN_KINDS + ("cross",)
 
 
 MIXERS = {"rglru": L.RGLRU, "ssd": L.Mamba2}
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention of ``kind``, the RG-LRU block
-    (``rglru``) or the Mamba2 mixer (``ssd``), then, where
-    ``cfg.d_ff > 0``, the MLP or (``moe``) the MoE feed-forward."""
+    """One pre-norm decoder layer: attention of ``kind`` (a gated
+    cross-attention to the memory for ``cross``), the RG-LRU block
+    (``rglru``) or the Mamba2 mixer (``ssd``); then, with encoder layers,
+    the cross-attention to the encoder's output (``lnx``, ``xattn``); then,
+    where ``cfg.d_ff > 0``, the MLP or (``moe``) the MoE feed-forward."""
 
     def __init__(self, cfg: ArchConfig, kind: str, mk: L.Maker, *,
                  moe: bool = False):
@@ -78,6 +89,13 @@ class Block(nn.Module):
         self.kind = kind
         self.ln1 = L.Norm(cfg, mk)
         self.mixer = MIXERS.get(kind, L.Attention)(cfg, mk)
+        if kind == "cross":
+            # float32 scalar, zero at init: the layer starts silent
+            self.xgate = mk.zeros(())
+        self.has_xattn = has_xattn(cfg, kind)
+        if self.has_xattn:
+            self.xattn = L.Attention(cfg, mk)
+            self.lnx = L.Norm(cfg, mk)
         self.has_ffn = cfg.d_ff > 0
         self.moe = moe and self.has_ffn
         if self.has_ffn:
@@ -93,39 +111,102 @@ class Block(nn.Module):
         return x + (self.ffn.all_experts(h) if decode
                     else self.ffn.grouped(h))
 
-    def prefill(self, x, tables, cache_kv, *, plain: bool = False):
-        """Full sequence at positions 0..S-1; writes the (rolling) cache,
-        or a recurrent layer's (conv, state)."""
-        if self.kind in RECURRENT_KINDS:
-            return self._ffn(x + self.mixer.prefill(self.ln1(x), cache_kv,
-                                                    plain=plain), False)
-        y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
-                                   plain=plain)
-        _build_attn_cache(self.kind, k, v, cache_kv)
-        return self._ffn(x + y, False)
+    def _gate(self, y: torch.Tensor) -> torch.Tensor:
+        """A ``cross`` layer's output scaled by tanh(xgate), cast to y's
+        dtype first, as the reference."""
+        return torch.tanh(self.xgate).to(y.dtype) * y
 
-    def decode(self, x, tables, cache_kv, slot, valid, *,
+    def prefill(self, x, tables, cache_kv, *, memory=None,
+                plain: bool = False):
+        """Full sequence at positions 0..S-1; writes the (rolling) cache,
+        a recurrent layer's (conv, state), or the memory's K/V (``memory``
+        [B, F, E]: the projected frontend, or the encoder's output)."""
+        if self.kind in RECURRENT_KINDS:
+            x = x + self.mixer.prefill(self.ln1(x), cache_kv, plain=plain)
+        elif self.kind == "cross":
+            y, k, v = self.mixer.block(self.ln1(x), "cross", None,
+                                       memory=memory, plain=plain)
+            _write_memory(k, v, cache_kv[:2])
+            x = x + self._gate(y)
+        else:
+            y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
+                                       plain=plain)
+            _build_attn_cache(self.kind, k, v, cache_kv[:2])
+            x = x + y
+        if self.has_xattn:
+            y, k, v = self.xattn.block(self.lnx(x), "cross", None,
+                                       memory=memory, plain=plain)
+            _write_memory(k, v, cache_kv[2:])
+            x = x + y
+        return self._ffn(x, False)
+
+    def decode(self, x, tables, cache_kv, slot, valid, mem_valid, *,
                plain: bool = False):
         """One token per sequence: writes its K/V at ``slot`` [B] (int64)
         and attends the first ``valid`` [B] (int32) cache rows; a recurrent
-        layer steps its (conv, state) instead."""
+        layer steps its (conv, state) instead; a ``cross`` layer and an
+        ``xattn`` attend the memory's first ``mem_valid`` [B] rows (all F)
+        with an unrotated q and write nothing."""
         if self.kind in RECURRENT_KINDS:
-            return self._ffn(x + self.mixer.decode(self.ln1(x), cache_kv),
-                             True)
-        q, k, v = self.mixer.qkv(self.ln1(x))
-        q = L.apply_rope(q, tables)
-        k = L.apply_rope(k, tables)
-        ck, cv = cache_kv
-        B, W, KvH, Dh = ck.shape
-        idx = slot.view(B, 1, 1).expand(B, 1, KvH * Dh)
-        ck.view(B, W, KvH * Dh).scatter_(
-            1, idx, k.reshape(B, 1, KvH * Dh).to(ck.dtype))
-        cv.view(B, W, KvH * Dh).scatter_(
-            1, idx, v.reshape(B, 1, KvH * Dh).to(cv.dtype))
-        attn = da_ops.decode_attention_plain if plain \
-            else da_ops.decode_attention
-        o = attn(q[:, 0], ck, cv, valid, window=0)
-        return self._ffn(x + self.mixer.out(o[:, None]), True)
+            x = x + self.mixer.decode(self.ln1(x), cache_kv)
+        elif self.kind == "cross":
+            x = x + self._gate(_attend_memory(
+                self.mixer, self.ln1(x), cache_kv[:2], mem_valid, plain))
+        else:
+            q, k, v = self.mixer.qkv(self.ln1(x))
+            q = L.apply_rope(q, tables)
+            k = L.apply_rope(k, tables)
+            ck, cv = cache_kv[:2]
+            B, W, KvH, Dh = ck.shape
+            idx = slot.view(B, 1, 1).expand(B, 1, KvH * Dh)
+            ck.view(B, W, KvH * Dh).scatter_(
+                1, idx, k.reshape(B, 1, KvH * Dh).to(ck.dtype))
+            cv.view(B, W, KvH * Dh).scatter_(
+                1, idx, v.reshape(B, 1, KvH * Dh).to(cv.dtype))
+            attn = da_ops.decode_attention_plain if plain \
+                else da_ops.decode_attention
+            o = attn(q[:, 0], ck, cv, valid, window=0)
+            x = x + self.mixer.out(o[:, None])
+        if self.has_xattn:
+            x = x + _attend_memory(self.xattn, self.lnx(x), cache_kv[2:],
+                                   mem_valid, plain)
+        return self._ffn(x, True)
+
+
+class EncoderBlock(nn.Module):
+    """One pre-norm bidirectional encoder layer: ``ln1``, attention with
+    RoPE and no mask, ``ln2``, the MLP (``_init_encoder_block``)."""
+
+    def __init__(self, cfg: ArchConfig, mk: L.Maker):
+        super().__init__()
+        self.ln1 = L.Norm(cfg, mk)
+        self.mixer = L.Attention(cfg, mk)
+        self.ln2 = L.Norm(cfg, mk)
+        self.ffn = L.MLP(cfg, mk)
+
+    def forward(self, x, tables, *, plain: bool = False) -> torch.Tensor:
+        y, _, _ = self.mixer.block(self.ln1(x), "encoder", tables,
+                                   plain=plain)
+        x = x + y
+        return x + self.ffn(self.ln2(x))
+
+
+def _attend_memory(attn: L.Attention, h, kv, valid, plain: bool):
+    """One query token a sequence, q = h's projection without RoPE,
+    against the memory's cached K/V ``kv`` (every row valid)."""
+    ck, cv = kv
+    fn = da_ops.decode_attention_plain if plain else da_ops.decode_attention
+    return attn.out(fn(attn.q(h)[:, 0], ck, cv, valid)[:, None])
+
+
+def _write_memory(k, v, cache_kv) -> None:
+    """The memory's K/V [B, F, KvH, Dh] into its cache slots, whole."""
+    ck, cv = cache_kv
+    if k.shape != ck.shape:
+        raise ValueError(f"memory K/V {list(k.shape)} do not fit the cache "
+                         f"{list(ck.shape)}")
+    ck.copy_(k)
+    cv.copy_(v)
 
 
 def _build_attn_cache(kind: str, k, v, cache_kv) -> None:
@@ -154,7 +235,9 @@ def cache_window(cfg: ArchConfig, kind: str, max_len: int) -> int:
 
 
 class Transformer(nn.Module):
-    """Embedding, ``cfg.n_layers`` blocks, final norm and (un)tied head.
+    """Embedding, the frontend projection (``cfg.frontend``),
+    ``cfg.n_layers`` decoder blocks, the encoder (``cfg.encoder_layers``
+    blocks and ``enc_norm``), final norm and (un)tied head.
 
     ``gen=None`` leaves the weights uninitialised, to be loaded (see
     ``repro_torch.models.convert``); then call ``tie()``."""
@@ -162,15 +245,20 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        check_supported(cfg)
+        cfg.validate()
         self.cfg = cfg
         dev = resolve_device(device)
         mk = L.Maker(gen, dev)
+        # the reference's draw order: embedding, frontend projection, the
+        # blocks period position-major, the tail, the encoder, the head
         self.embed = mk.embed(cfg.vocab, cfg.d_model)
+        if cfg.frontend:
+            # the reference computes with it in float32 (``_frontend_kv``)
+            self.frontend_proj = mk.dense(cfg.frontend_dim, cfg.d_model,
+                                          dtype=torch.float32)
         kinds = cfg.layer_kinds()
         period, reps = cfg.period, cfg.n_layers // cfg.period
         blocks: dict[int, Block] = {}
-        # the reference's draw order: period position-major, then the tail
         for j in range(period):
             for r in range(reps):
                 li = r * period + j
@@ -179,6 +267,10 @@ class Transformer(nn.Module):
         for li in range(reps * period, cfg.n_layers):
             blocks[li] = Block(cfg, kinds[li], mk, moe=cfg.is_moe_layer(li))
         self.blocks = nn.ModuleList(blocks[li] for li in range(cfg.n_layers))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(EncoderBlock(cfg, mk)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = L.Norm(cfg, mk)
         self.final_norm = L.Norm(cfg, mk)
         if not cfg.tie_embeddings:
             self.lm_head = mk.dense(cfg.d_model, cfg.vocab,
@@ -189,13 +281,19 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def first_layers(self, n: int) -> "Transformer":
-        """The model cut to its first ``n`` layers, sharing every weight
-        (a run at full width and reduced depth)."""
+    def first_layers(self, n: int, encoder_layers: int | None = None
+                     ) -> "Transformer":
+        """The model cut to its first ``n`` decoder layers (and its first
+        ``encoder_layers`` encoder layers, where given), sharing every
+        weight (a run at full width and reduced depth)."""
         cut = copy.copy(self)
         cut._modules = dict(self._modules)
         cut.blocks = nn.ModuleList(list(self.blocks)[:n])
-        cut.cfg = dataclasses.replace(self.cfg, n_layers=n)
+        depth = dict(n_layers=n)
+        if encoder_layers is not None:
+            cut.encoder = nn.ModuleList(list(self.encoder)[:encoder_layers])
+            depth["encoder_layers"] = encoder_layers
+        cut.cfg = dataclasses.replace(self.cfg, **depth)
         return cut
 
     def tie(self) -> None:
@@ -214,6 +312,34 @@ class Transformer(nn.Module):
                                device=x.device)
         return x.to(L.torch_dtype(self.cfg.dtype))
 
+    def frontend_kv(self, emb: torch.Tensor) -> torch.Tensor:
+        """Frontend embeddings [B, F, frontend_dim] projected to
+        [B, F, d_model]: a float32 product cast to ``cfg.dtype``, as the
+        reference's ``_frontend_kv`` (a plain matmul: the reference runs it
+        outside any kernel; on the card it relies on PyTorch's default of
+        no TF32 in float32 matmuls)."""
+        cfg = self.cfg
+        if tuple(emb.shape[1:]) != (cfg.frontend_len, cfg.frontend_dim):
+            raise ValueError(
+                f"{cfg.name}: frontend embeddings must be [B, "
+                f"{cfg.frontend_len}, {cfg.frontend_dim}] (got "
+                f"{list(emb.shape)})")
+        return (emb.float() @ self.frontend_proj).to(
+            L.torch_dtype(cfg.dtype))
+
+    def encode(self, x: torch.Tensor, *, plain: bool = False
+               ) -> torch.Tensor:
+        """The bidirectional encoder over the projected frontend x
+        [B, F, d_model] (RoPE at positions 0..F-1, no mask), then
+        ``enc_norm``, as the reference's ``_encode``."""
+        tables = L.rope_tables(
+            torch.arange(x.shape[1], device=x.device)[None, :],
+            self.cfg.head_dim_, theta=self.cfg.rope_theta,
+            fraction=self.cfg.rope_fraction)
+        for blk in self.encoder:
+            x = blk(x, tables, plain=plain)
+        return self.enc_norm(x)
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         if self.cfg.tie_embeddings:
@@ -222,7 +348,7 @@ class Transformer(nn.Module):
         return x @ self.lm_head
 
     def _tables(self, positions: torch.Tensor):
-        """RoPE tables for the attention layers; None without any."""
+        """RoPE tables for the self-attention layers; None without any."""
         if not any(b.kind in ATTN_KINDS for b in self.blocks):
             return None
         return L.rope_tables(positions, self.cfg.head_dim_,
@@ -240,15 +366,23 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Transformer:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> Cache:
-    """Zeroed per-layer (k, v) [batch, W, KvH, Dh] in ``dtype``, W being
-    ``max_len`` for a global layer and ``min(window, max_len)`` for a local
-    or chunk one; for an ``rglru`` layer (conv [batch, 3, W] in ``dtype``,
-    h [batch, W] float32, W = ``lru_width or d_model``); for an ``ssd`` layer
-    (conv [batch, K-1, Din + 2 G N] in ``dtype``, state [batch, H, P, N]
-    float32), as the reference."""
-    check_supported(cfg)
+    """Zeroed per-layer cache tensors, as the reference's ``init_cache``
+    (layout in the module docstring): (k, v) [batch, W, KvH, Dh] in
+    ``dtype``, W being ``max_len`` for a global layer,
+    ``min(window, max_len)`` for a local or chunk one and
+    ``cfg.frontend_len`` for a ``cross`` one, with (xk, xv)
+    [batch, frontend_len, KvH, Dh] after them for an encoder-decoder
+    layer; for an ``rglru`` layer (conv [batch, 3, W] in ``dtype``, h
+    [batch, W] float32, W = ``lru_width or d_model``); for an ``ssd``
+    layer (conv [batch, K-1, Din + 2 G N] in ``dtype``, state
+    [batch, H, P, N] float32)."""
+    cfg.validate()
     dev = resolve_device(device)
     KvH, Dh = cfg.n_kv_heads, cfg.head_dim_
+
+    def kv(rows: int) -> tuple:
+        return tuple(torch.zeros((batch, rows, KvH, Dh), dtype=dtype,
+                                 device=dev) for _ in range(2))
     cache = []
     for kind in cfg.layer_kinds():
         if kind == "rglru":
@@ -257,32 +391,49 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                 torch.zeros((batch, L.RGLRU.CONV - 1, W), dtype=dtype,
                             device=dev),
                 torch.zeros((batch, W), dtype=torch.float32, device=dev)))
-            continue
-        if kind == "ssd":
+        elif kind == "ssd":
             Din, H, G, N = L.mamba2_split(cfg)
             cache.append((
                 torch.zeros((batch, cfg.conv_kernel - 1, Din + 2 * G * N),
                             dtype=dtype, device=dev),
                 torch.zeros((batch, H, cfg.ssm_head_dim, N),
                             dtype=torch.float32, device=dev)))
-            continue
-        W = cache_window(cfg, kind, max_len)
-        cache.append(tuple(torch.zeros((batch, W, KvH, Dh), dtype=dtype,
-                                       device=dev) for _ in range(2)))
+        else:
+            layer = kv(cfg.frontend_len if kind == "cross"
+                       else cache_window(cfg, kind, max_len))
+            if has_xattn(cfg, kind):
+                layer += kv(cfg.frontend_len)
+            cache.append(layer)
     return cache
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache, *,
+def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache,
+            frontend_emb: torch.Tensor | None = None, *,
             plain: bool = False):
-    """Equal-length batched prefill of tokens [B, S]: runs the full
-    sequence and fills ``cache`` in place.  Returns (last-token logits
-    [B, V], lengths [B] int32)."""
+    """Equal-length batched prefill of tokens [B, S]: projects the
+    frontend embeddings [B, F, frontend_dim] (and runs the encoder over
+    them), runs the full sequence and fills ``cache`` in place, the
+    memory's K/V included.  Returns (last-token logits [B, V], lengths [B]
+    int32).  A config with a frontend needs ``frontend_emb`` (the
+    reference, given none, fails for every prompt whose length is not
+    F); one without takes none."""
+    cfg = model.cfg
+    if (frontend_emb is None) != (cfg.frontend is None):
+        raise ValueError(
+            f"{cfg.name}: " + (f"prefill needs the {cfg.frontend} frontend's "
+                               "embeddings" if cfg.frontend else
+                               "the config has no frontend"))
     B, S = tokens.shape
+    memory = None
+    if frontend_emb is not None:
+        memory = model.frontend_kv(frontend_emb)
+        if cfg.encoder_layers:
+            memory = model.encode(memory, plain=plain)
     x = model.embed_tokens(tokens)
     tables = model._tables(torch.arange(S, device=tokens.device)[None, :])
     for blk, kv in zip(model.blocks, cache):
-        x = blk.prefill(x, tables, kv, plain=plain)
+        x = blk.prefill(x, tables, kv, memory=memory, plain=plain)
     logits = model.unembed(x[:, -1:])[:, 0]
     return logits, torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
@@ -294,15 +445,20 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                 plain: bool = False) -> torch.Tensor:
     """One decode step: tokens [B, 1]; lengths [B] int32 = current cache
     length.  Writes each layer's new K/V into ``cache`` in place and returns
-    logits [B, V].  The valid rows a layer attends are ``lengths + 1``
-    (global), ``min(lengths + 1, W)`` (local, rolling) or
+    logits [B, V].  The valid rows a self-attention layer attends are
+    ``lengths + 1`` (global), ``min(lengths + 1, W)`` (local, rolling) or
     ``lengths % window + 1`` (chunk), always with window 0, as the
-    reference's ``_decode_self_attention``.  A recurrent layer steps its
+    reference's ``_decode_self_attention``; a ``cross`` layer and an
+    ``xattn`` attend all F memory rows.  A recurrent layer steps its
     recurrence (``layers.RGLRU.decode``, ``layers.Mamba2.decode``)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     tables = model._tables(lengths[:, None])
     ln = lengths.to(torch.int64)
+    mem_valid = None
+    if cfg.frontend:
+        mem_valid = torch.full(lengths.shape, cfg.frontend_len,
+                               dtype=torch.int32, device=lengths.device)
     where: dict = {}     # (kind, W) -> (slot, valid) of an attention layer
     for blk, kv in zip(model.blocks, cache):
         key = (blk.kind, kv[0].shape[1])
@@ -316,5 +472,5 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                 n = ln + 1
             where[key] = (ln % W, n.to(torch.int32))
         slot, valid = where.get(key, (None, None))
-        x = blk.decode(x, tables, kv, slot, valid, plain=plain)
+        x = blk.decode(x, tables, kv, slot, valid, mem_valid, plain=plain)
     return model.unembed(x)[:, 0]

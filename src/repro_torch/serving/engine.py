@@ -4,22 +4,28 @@ Port of ``src/repro/serving/engine.py``.  The engine is the "accelerator"
 of the serving adaptation: tenants' request streams are the flows, and the
 Arcus scheduler (``scheduler.py``) shapes what enters each engine step.
 Continuous batching: prefill one request at a time into a free slot,
-decode all slots together.
+decode all slots together.  It serves every config the port's model runs:
+decoder-only, cross-attention (``admit(req, frontend)`` with the request's
+frontend embeddings, e.g. llama-3.2-vision-11b's image patches) and
+encoder-decoder (seamless-m4t-medium's audio frames, encoded at admission).
 
 It mirrors the reference step for step, so that its cache holds the same
-values: ``admit`` zeroes the slot and prefills B=1 straight into it (the
-reference prefills into a fresh zeroed B=1 cache and copies the whole of it
-into the slot), and ``step`` decodes all ``max_batch`` slots, inactive ones
-with token 0 and their stale length, as the reference does.  The cache is
-updated in place.  The engine runs on the card unless ``device="cpu"`` is
-passed; ``plain_kernels=True`` runs the model kernels' plain versions
-(attention and the SSD scan) on the card too, for parity checks only.
+values: ``admit`` zeroes the slot, the memory caches included, and
+prefills B=1 straight into it (the reference prefills into a fresh zeroed
+B=1 cache and copies the whole of it into the slot), and ``step`` decodes
+all ``max_batch`` slots, inactive ones with token 0 and their stale length,
+as the reference does.  The cache is updated in place.  The engine runs on
+the card unless ``device="cpu"`` is passed; ``plain_kernels=True`` runs the
+model kernels' plain versions (attention and the SSD scan) on the card
+too, for parity checks only.
 
 The reference jits the decode step; on the card the port captures it as a
-CUDA graph once per engine (``_DecodeGraph``, over the engine's own cache)
-and every ``step`` replays it.  The CPU runs the eager body,
-``_decode_eager``; prefill stays eager on both (``admit`` prefills into a
-per-slot view of the cache, whose addresses change with the slot).
+CUDA graph once per engine (``_DecodeGraph``, over the engine's own cache,
+the memory caches too: their addresses are the engine's, so one capture
+holds for every request) and every ``step`` replays it.  The CPU runs the
+eager body, ``_decode_eager``; prefill stays eager on both (``admit``
+prefills into a per-slot view of the cache, whose addresses change with
+the slot).
 """
 from __future__ import annotations
 
@@ -58,8 +64,8 @@ class ServingEngine:
         self.active = np.zeros(self.max_batch, bool)
         self.requests: dict[int, Request] = {}
         plain = self.plain_kernels
-        self._prefill = lambda tok, cache: T.prefill(
-            self.params, tok, cache, plain=plain)
+        self._prefill = lambda tok, cache, frontend=None: T.prefill(
+            self.params, tok, cache, frontend, plain=plain)
         self._decode = _DecodeGraph(self) if self.device.type == "cuda" \
             else self._decode_eager
 
@@ -73,16 +79,23 @@ class ServingEngine:
     def free_slots(self) -> list[int]:
         return [i for i in range(self.max_batch) if not self.active[i]]
 
-    def admit(self, req: Request) -> int:
-        """Prefill one request into a free slot. Returns the slot."""
+    def admit(self, req: Request, frontend=None) -> int:
+        """Prefill one request into a free slot. Returns the slot.
+        ``frontend``: the request's frontend embeddings [1, F,
+        frontend_dim] (an array or a tensor), which a config with a
+        frontend needs."""
         slot = self.free_slots()[0]
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
+        if frontend is not None and not isinstance(frontend, torch.Tensor):
+            frontend = torch.as_tensor(np.asarray(frontend, np.float32))
+        if frontend is not None:
+            frontend = frontend.to(self.device)
         one = [tuple(t[slot:slot + 1] for t in layer) for layer in self.cache]
         for layer in one:
             for t in layer:
                 t.zero_()
-        logits, _ = self._prefill(tokens, one)
+        logits, _ = self._prefill(tokens, one, frontend)
         tok = int(torch.argmax(logits[0]))
         self.lengths[slot] = len(req.prompt)
         self.active[slot] = True

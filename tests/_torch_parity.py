@@ -1,10 +1,13 @@
 """Shared helpers for the parity tests of the PyTorch port (``repro_torch``)
 against the JAX package (``repro``): the same numpy inputs go through both,
 and outputs are compared bitwise (float32 leaves by their bit patterns)."""
+import contextlib
 import dataclasses
 
 import numpy as np
+import torch
 
+import chip_smoke
 from repro.core import flow as jflow
 from repro_torch.core import flow as tflow
 from repro_torch.core import engine as tengine
@@ -70,6 +73,21 @@ def assert_results_equal(r_ref, r_port) -> None:
     assert r_ref.seconds == r_port.seconds
 
 
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch's CPU ops on one thread inside the block (the count restored
+    after).  The reduced models' small matmuls gain nothing from threads,
+    and beside other test processes a pool of threads spin-waits: a
+    launcher case took 320 s with the default pool in each of six
+    processes side by side and 20 s on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 # --- models and serving -----------------------------------------------------
 
 
@@ -105,12 +123,36 @@ def add_noise(mixers: list, table: dict, seed: int) -> None:
                     mixer[name].shape)).astype(np.float32)
 
 
+#: the same for the cross-attention and encoder-decoder families
+#: (``jax_and_port_model(cross_seed=...)``), by leaf name anywhere in the
+#: tree: the table the smoke's card runs draw from (``chip_smoke.LIVEN``:
+#: the ``cross`` layers' gate, every attention's QKV biases, every norm's
+#: scale and LayerNorm bias)
+CROSS_NOISE = chip_smoke.LIVEN
+
+
+def add_noise_by_name(tree, table: dict, rng) -> None:
+    """Seeded noise (``table``: name -> (scale, centre)) in place on every
+    leaf of a nested dict / list of numpy arrays whose key is in
+    ``table``, in sorted-key order."""
+    items = sorted(tree.items()) if isinstance(tree, dict) \
+        else enumerate(tree)
+    for name, value in items:
+        if isinstance(value, (dict, list)):
+            add_noise_by_name(value, table, rng)
+        elif name in table:
+            scale, centre = table[name]
+            tree[name] = (centre + scale * rng.standard_normal(
+                np.shape(value))).astype(np.float32)
+
+
 def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
-                       ssd_seed=None, rglru_seed=None):
+                       ssd_seed=None, rglru_seed=None, cross_seed=None):
     """The reference's ``init_model(seed, cfg)`` parameters and the port's
     CPU model holding the same values.  ``bias_seed`` replaces the zero QKV
-    biases by random ones, and ``ssd_seed`` / ``rglru_seed`` put seeded
-    noise (``SSD_NOISE`` / ``RGLRU_NOISE``) on the Mamba2 / RG-LRU
+    biases by random ones, and ``ssd_seed`` / ``rglru_seed`` /
+    ``cross_seed`` put seeded noise (``SSD_NOISE`` / ``RGLRU_NOISE`` /
+    ``CROSS_NOISE``) on the Mamba2 / RG-LRU / gate, bias and norm
     parameters initialised to zeros or ones, in the numpy tree both
     packages load (so a test sees them act)."""
     import jax
@@ -131,6 +173,9 @@ def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
         add_noise(mixers, SSD_NOISE, ssd_seed)
     if rglru_seed is not None:
         add_noise(mixers, RGLRU_NOISE, rglru_seed)
+    if cross_seed is not None:
+        add_noise_by_name(params, CROSS_NOISE,
+                          np.random.default_rng(cross_seed))
     model = convert.params_from_jax(params, port_arch(cfg), device="cpu")
     return jax.tree.map(jnp.asarray, params), model
 

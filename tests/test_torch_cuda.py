@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from _engine_cases import (BATCH_HOLE, BATCH_WINDOW, CASES as ENGINE_CASES,
                            batch_masks, case_link, port_batch,
                            port_batch_registers, port_scenario)
@@ -271,12 +272,16 @@ def test_batch_elements_match_serial_on_card(dev):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-780m",
-                                  "recurrentgemma-9b", "mixtral-8x22b"])
+                                  "recurrentgemma-9b", "mixtral-8x22b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
 def test_captured_decode_matches_eager(dev, arch):
-    """The reduced config's decode step through the engine's CUDA graph
-    gives the eager body's logits (and so tokens) and cache bitwise, each
-    step against the eager body on a copy of the cache it started from;
-    each replay counts one decode-attention launch an attention layer."""
+    """The reduced config's decode step (``chip_smoke._liven``'s noise on
+    its gates, biases and norms) through the engine's CUDA graph gives the
+    eager body's logits (and so tokens) and cache bitwise, each
+    step against the eager body on a copy of the cache it started from
+    (the memory caches too); each replay counts one decode-attention
+    launch a self-attention, ``cross`` or ``xattn`` layer."""
     import dataclasses as dc
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.models import transformer as T
@@ -286,7 +291,8 @@ def test_captured_decode_matches_eager(dev, arch):
     if arch == "mamba2-780m":
         cfg = dc.replace(cfg, d_ff=0)
     model = T.init_model(0, cfg, device=dev)
-    n_attn = sum(k in T.ATTN_KINDS for k in cfg.layer_kinds())
+    chip_smoke._liven(model, 0)
+    n_attn = chip_smoke.attention_launches(cfg)["decode"]
     eng = ServingEngine(cfg, model, max_batch=4, max_len=128, device=dev)
     graph, rows = eng._decode, []
 
@@ -303,7 +309,8 @@ def test_captured_decode_matches_eager(dev, arch):
     eng._decode = decode
     rng = np.random.default_rng(0)
     for i, n in enumerate((80, 12, 40)):
-        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12))
+        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12),
+                  chip_smoke._frontends(cfg, 1, dev, seed=i)[0])
     for _ in range(10):
         eng.step()
     assert len(rows) == 10
@@ -372,6 +379,13 @@ DA_EDGE_CASES = {
     "d80": (2, 8, 2, 80, 200, 0, torch.float32, torch.bfloat16, [200, 9]),
     "d96": (2, 8, 4, 96, 200, 64, torch.bfloat16, torch.bfloat16,
             [190, 64]),
+    # a frontend's memory, every row valid: llama-3.2-vision-11b's cross
+    # layers (G = 4, D 128, 1600 rows: a partial last row tile) and
+    # seamless-m4t-medium's (G = 1, D 64, 1024 rows)
+    "memory_g4_s1600": (8, 32, 8, 128, 1600, 0, torch.bfloat16,
+                        torch.float32, [1600] * 8),
+    "memory_g1_d64_s1024": (8, 16, 16, 64, 1024, 0, torch.bfloat16,
+                            torch.float32, [1024] * 8),
 }
 DA_DTYPE_PAIRS = [(a, b) for a in (torch.float32, torch.bfloat16)
                   for b in (torch.float32, torch.bfloat16)]
@@ -442,7 +456,7 @@ def test_decode_attention_one_launch_no_scratch(dev):
 
 
 FP_CASES = [
-    # B, S, H, KvH, D, window, chunk, dtype[, causal]
+    # B, S, H, KvH, D, window, chunk, dtype[, causal[, Sk]]
     (2, 128, 4, 2, 64, 0, 0, torch.float32),
     (1, 200, 4, 1, 80, 0, 0, torch.float32),
     (2, 256, 4, 2, 64, 64, 0, torch.float32),
@@ -466,6 +480,16 @@ FP_CASES = [
     (1, 2560, 16, 1, 256, 2048, 0, torch.bfloat16),
     (1, 200, 48, 8, 128, 0, 0, torch.bfloat16),
     (1, 1536, 48, 8, 128, 4096, 0, torch.bfloat16),
+    # non-causal over a memory of Sk rows: llama-3.2-vision-11b's cross
+    # layers (12 queries against 1600 rows), seamless-m4t-medium's cross
+    # layers (1536 against 1024, Sq > Sk) and encoder (1024 x 1024), the
+    # reduced configs' memory (16 rows, below one 64-key tile) and Sk not a
+    # multiple of the tile
+    (1, 12, 32, 8, 128, 0, 0, torch.bfloat16, False, 1600),
+    (1, 1536, 16, 16, 64, 0, 0, torch.bfloat16, False, 1024),
+    (1, 1024, 16, 16, 64, 0, 0, torch.bfloat16, False, 1024),
+    (2, 40, 4, 1, 64, 0, 0, torch.bfloat16, False, 16),
+    (1, 300, 8, 2, 128, 0, 0, torch.bfloat16, False, 1000),
 ]
 
 
@@ -473,17 +497,21 @@ FP_CASES = [
 def test_flash_prefill_kernel_matches_plain(dev, case):
     B, S, H, KvH, D, w, ck, dt = case[:8]
     causal = case[8] if len(case) > 8 else True
+    Sk = case[9] if len(case) > 9 else S
     g = torch.Generator(device=dev).manual_seed(S)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
-    k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
-    v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Sk, KvH, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, Sk, KvH, D), generator=g, device=dev).to(dt)
     path = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
     before, by_path = fp_ops.LAUNCHES, dict(fp_ops.LAUNCHES_BY_PATH)
+    by_mask = dict(fp_ops.LAUNCHES_BY_MASK)
     got = fp_ops.flash_prefill(q, k, v, window=w, chunk_size=ck,
                                causal=causal)
     assert fp_ops.LAUNCHES == before + 1
     by_path[path] += 1
     assert fp_ops.LAUNCHES_BY_PATH == by_path
+    by_mask["causal" if causal else "full" if Sk == S else "full_cross"] += 1
+    assert fp_ops.LAUNCHES_BY_MASK == by_mask
     want = fp_ops.flash_prefill_plain(q, k, v, window=w, chunk_size=ck,
                                       causal=causal)
     torch.cuda.synchronize()
@@ -735,21 +763,23 @@ def _shadowed_engine_calls(cfg, model, dev) -> tuple:
     pairs = []
     pre, dec = eng._prefill, eng._decode_eager
 
-    def shadowed(kind, call, plain_call, cache, *args):
+    def shadowed(kind, call, plain_call, cache, *args, after=()):
         snap = [tuple(t.clone() for t in kv) for kv in cache]
         tape.record()
-        out = call(*args, cache)
+        out = call(*args, cache, *after)
         tape.replay()
-        want = plain_call(model, *args, snap, plain=True)
+        want = plain_call(model, *args, snap, *after, plain=True)
         tape.stop()
         pairs.append((out[0], want[0]) if kind == "prefill" else (out, want))
         return out
-    eng._prefill = lambda tok, c: shadowed("prefill", pre, T.prefill, c, tok)
+    eng._prefill = lambda tok, c, fe=None: shadowed(
+        "prefill", pre, T.prefill, c, tok, after=(fe,))
     eng._decode = lambda tok, ln, c: shadowed("decode", dec, T.decode_step,
                                               c, tok, ln)
     rng = np.random.default_rng(0)
     for i, n in enumerate((80, 12, 40)):
-        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12))
+        eng.admit(Request(i, 0, list(rng.integers(0, cfg.vocab, n)), 12),
+                  chip_smoke._frontends(cfg, 1, dev, seed=i)[0])
     for _ in range(10):
         eng.step()
     tape.remove()
@@ -775,6 +805,33 @@ def test_serving_engine_rglru_and_moe_kernels_match_plain(dev, arch):
         diff = (got.float() - want.float()).abs()
         assert bool((diff <= 0.0625 + 1e-2 * want.float().abs()).all()), \
             (float(diff.max()), routing)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_serving_engine_frontend_kernels_match_plain(dev, arch):
+    """Reduced llama-3.2-vision / seamless in bf16 on the card, with the
+    smoke's live gates, biases and norms (``chip_smoke._liven``),
+    each request with its frontend embeddings: every prefill's and
+    decode's logits through the kernels (flash prefill non-causal against
+    16 memory rows, and over the encoder's 16 frames; decode attention
+    over the memory) within one bf16 ulp of their scale of the plain
+    versions on the same cache; the flash-prefill launches counted by
+    mask."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    cfg = get_reduced_config(arch, dtype="bfloat16")
+    model = T.init_model(0, cfg, device=dev)
+    chip_smoke._liven(model, 0)
+    masks = dict(fp_ops.LAUNCHES_BY_MASK)
+    pairs, _ = _shadowed_engine_calls(cfg, model, dev)
+    assert {k: fp_ops.LAUNCHES_BY_MASK[k] - masks[k] for k in masks} == \
+        chip_smoke.prefill_masks(cfg, (80, 12, 40))
+    assert len(pairs) == 13
+    for got, want in pairs:
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= 0.0625 + 1e-2 * want.float().abs()).all()), \
+            float(diff.max())
 
 
 def test_moe_decode_form_matches_grouped_on_card(dev):

@@ -223,12 +223,31 @@ def test_norm_and_mlp_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
                                   "seamless-m4t-medium"])
-def test_out_of_slice_configs_are_refused(arch):
-    cfg = t_registry.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError):
-        TT.init_model(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TT.init_cache(cfg, 1, 16, device="cpu")
+def test_init_cache_has_reference_shapes_with_memory(arch):
+    """At full size, the port's cache holds the reference's tensors, with
+    their shapes and dtypes, layer for layer: (k, v) of max_len rows for a
+    self-attention layer and of ``frontend_len`` rows for a ``cross`` one,
+    then an encoder-decoder layer's (xk, xv) of ``frontend_len`` rows (the
+    port's built on the meta device, the reference's by ``eval_shape``:
+    no memory)."""
+    cfg = t_registry.get_config(arch)
+    ref = jax.eval_shape(lambda: JT.init_cache(cfg, 2, 256, jnp.float32))
+    period, reps = cfg.period, cfg.n_layers // cfg.period
+    want = []
+    for li in range(cfg.n_layers):
+        r, j = divmod(li, period)
+        layer, lead = (ref["blocks"][f"pos{j}"], 1) if r < reps \
+            else (ref["tail"][li - reps * period], 0)
+        want.append([(tuple(layer[n].shape[lead:]), str(layer[n].dtype))
+                     for n in ("k", "v", "xk", "xv") if n in layer])
+    got = TT.init_cache(cfg, 2, 256, torch.float32, device="meta")
+    assert [[(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+             for t in layer] for layer in got] == want
+    F, KvH, Dh = cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim_
+    assert [[t.shape[1] for t in layer] for layer in got] == [
+        [F, F] if k == "cross" else [256, 256] + [F, F] * bool(
+            cfg.encoder_layers) for k in cfg.layer_kinds()]
+    assert all(t.shape[2:] == (KvH, Dh) for layer in got for t in layer)
 
 
 def test_init_model_draws_reference_scales_and_storage_dtypes():
