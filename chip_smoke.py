@@ -77,6 +77,20 @@ type: bf16 (what the models pass) on the tensor cores, float32 on the CUDA
 cores; their phases check each call's path, and the serving phases check
 that every flash-prefill and SSD-scan launch took the tensor-core path.
 
+Training (``launch/train.py`` -> ``make_train_step`` -> ``loss_fn`` ->
+``forward`` -> AdamW): ``flash_backward`` holds the flash-attention
+backward kernel (two launches a call: bf16 at D <= 128 on the tensor
+cores, float32 and D 256 on the CUDA cores) and the forward kernels' LSE
+output against their plain versions at training's shapes (starcoder2-3b's
+4096 tokens, gemma3-12b's window, a chunked mask, a ragged 1000,
+seamless's non-causal G = 1, a cross case, float32, rows that reach no
+key) and times it against SDPA's backward; ``train_parity`` runs one train
+step of starcoder2-3b's first 2 layers at full width through the kernels
+and one through the plain versions; ``train`` trains starcoder2-3b at full
+size (30 layers, 3.03 B parameters, one 4096-token sequence a step, remat,
+5 steps) through the launcher, with exact launch counts, no plain-version
+call, every parameter moved, peak memory, ms a step and a profiled step.
+
 The fleet control plane runs the contention, churn and adaptive
 benchmarks' configurations uncut on the card (``resource_parity``,
 ``contention``, ``churn``, ``adaptive_churn``): the grant tick gating on
@@ -92,13 +106,15 @@ scenarios, two servers, 12,000 ticks, each under ``StaticHold`` and the
 bi-level adaptive policy), every deterministic field held equal to
 benchmarks/results/scenarios.json.
 
-Cuts against earlier versions of this script, made to fit the fleet
-phases in the time limit: ``fig6_batch`` runs 20,000 ticks (60,000 before;
-fig6's quick run is 60,000 and its full run 400,000; its digests are the
-JAX reference's at 20,000), ``profile`` profiles windows of 50 ticks (100
-before), ``profile_batch8`` holds its entries at 3,000 ticks and times
-12,000 (6,000 and 30,000 before), and ``parity`` / ``graph_parity`` run
-1,000 / 250 ticks (2,000 / 500 before).  The mamba2 and recurrentgemma
+Cuts against earlier versions of this script, made to fit the fleet and
+training phases in the time limit: ``fig6_batch`` runs 20,000 ticks
+(60,000 before; fig6's quick run is 60,000 and its full run 400,000; its
+digests are the JAX reference's at 20,000), ``profile`` profiles windows
+of 25 ticks (100, then 50 before), ``profile_batch8`` holds its entries at
+1,500 ticks and times 6,000 (6,000 and 30,000, then 3,000 and 12,000
+before), and ``parity`` / ``graph_parity`` run 500 / 250 ticks (2,000 /
+500, then 1,000 / 250 before; ``graph_parity``'s software-shaping window
+completes nothing in 125).  The mamba2 and recurrentgemma
 paths run more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so
 that their mixes reach 3 s of virtual time; mixtral's runs 6 s (its full
 config's cost model clocks a 33 ms decode step on one H100), and its depth
@@ -117,6 +133,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -131,8 +148,8 @@ SRC = os.path.join(ROOT, "src")
 PROFILE_TICKS = 2_000
 TOTAL_TICKS = 6_000
 WINDOW_TICKS = 2_000
-PARITY_TICKS = 1_000
-PROFILE_WINDOW = 50
+PARITY_TICKS = 500
+PROFILE_WINDOW = 25
 # eager windows beside the graph's (``engine._run_window_eager``, about
 # 9 ms a tick): the main path's comparison window and graph_parity's
 EAGER_TICKS = 300
@@ -197,6 +214,26 @@ FRONTEND_SEED = 23
 FRONTEND_LONG_PROMPT = 1536
 # kernel vs plain logits in bf16: about one bf16 ulp of their scale
 LOGIT_RTOL, LOGIT_ATOL = 1e-2, 0.0625
+
+# training (``train``): starcoder2-3b at full width and depth (30 local
+# layers, d_model 3072, 24 / 2 heads of 128, window 4096, tied embeddings;
+# 3.03 B float32 parameters and AdamW moments, 48.5 GB), one 4096-token
+# sequence a step (train_4k's length), remat, 5 launcher steps from seed 0;
+# ``train_parity``: its first 2 layers at full width, one 1024-token
+# sequence, kernels against plain versions
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--production", "--batch", "1",
+              "--seq", "4096", "--steps", "5"]
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 1024
+# kernels vs plain versions over one train step at full width in bf16:
+# the loss within 1e-2 (about 1e-3 of it; the attention output differs by
+# about one bf16 ulp), each parameter's gradient within 3e-2 relative
+# Frobenius error, each updated element within 2.5 lr of the plain step's
+# (AdamW's first step moves an element by lr (sign(g) + wd p): a gradient
+# element whose sign rounding flips moves by 2 lr; any larger gap is a bug)
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_UPDATE_LR = 1e-2, 3e-2, 2.5
+# flash_backward's timed rows (BACKWARD_CASES): starcoder2's and gemma3's
+BWD_TIMED = (0, 1)
 
 
 T0 = time.perf_counter()
@@ -1265,10 +1302,10 @@ FIG6_DIGESTS = [
     "a5cd4ea804ef7d7794267862c95b242ccbbe521f7e24b2912fb93d7be8ff8830",
 ]
 # benchmarks/sim_perf.py:180-211: the profiler's eight heterogeneous
-# contexts, entries held against serial profile_context calls at 3,000
-# ticks, the batched call timed alone at 12,000 (its quick and full
+# contexts, entries held against serial profile_context calls at 1,500
+# ticks, the batched call timed alone at 6,000 (its quick and full
 # settings are 6,000 and 30,000)
-PROFILE8_TICKS = (3_000, 12_000)
+PROFILE8_TICKS = (1_500, 6_000)
 # batch_parity: windows of the ragged B = 4 batch
 BATCH_PARITY_TICKS = 300
 # the profile phase's batched rows (fig6's configuration)
@@ -2777,7 +2814,8 @@ def prefill_masks(cfg, prompts) -> dict:
 def _reset_launch_counts() -> None:
     for m in _kernel_ops().values():
         m.LAUNCHES = 0
-        for split in ("LAUNCHES_BY_PATH", "LAUNCHES_BY_MASK"):
+        for split in ("LAUNCHES_BY_PATH", "LAUNCHES_BY_MASK",
+                      "LAUNCHES_WITH_LSE", "PLAIN_CALLS"):
             for key in getattr(m, split, {}):
                 getattr(m, split)[key] = 0
 
@@ -3028,6 +3066,11 @@ KERNEL_KINDS = {
     "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
                  "ssd_output_kernel"),
     "token_bucket": ("tb_step", "tb_grant_tick"),
+    "flash_backward": ("flash_backward",),
+    # the backward's two kernels apart (device_ms_per_launch; a profile
+    # files both under flash_backward, the first kind that matches)
+    "flash_backward_dq": ("flash_backward_dq",),
+    "flash_backward_dkdv": ("flash_backward_dkdv",),
     "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK"),
     "elementwise": ("elementwise", "vectorized", "unrolled"),
     "reduce": ("reduce",),
@@ -3692,6 +3735,382 @@ def phase_serve_seamless(dev) -> tuple:
     return model, run, prof
 
 
+# ---------------------------------------------------------------------------
+# Training: the flash-attention backward kernel, kernels vs plain over a
+# train step, and starcoder2-3b trained at full size through the launcher
+# ---------------------------------------------------------------------------
+
+
+def _reachable_pairs(Sq: int, Sk: int, w: int, ck: int, causal: bool) -> int:
+    """(query, key) pairs the mask lets through (per head)."""
+    if not causal:
+        return Sq * Sk
+    n = 0
+    for i in range(Sq):
+        hi = min(i + 1, Sk)
+        lo = max(0, i - w + 1) if w else 0
+        if ck:
+            lo, hi = max(lo, i // ck * ck), min(hi, (i // ck + 1) * ck)
+        n += max(hi - lo, 0)
+    return n
+
+
+def phase_flash_backward(dev) -> dict:
+    """The flash-attention backward kernel against its plain version on the
+    card at every ``rehearse.BACKWARD_CASES`` row (``check_backward``: the
+    forward kernel's LSE within 1e-2 bf16 / 1e-4 float32, dq, dk, dv within
+    1e-2 / 1e-4 of the plain gradients' max-abs; rows that reach no key
+    zero), each call checked on its kernels through ``LAUNCHES_BY_PATH``
+    and ``LAUNCHES_WITH_LSE`` (bf16 at D <= 128 on the tensor-core
+    backward, float32 and gemma3's D 256 on the CUDA-core one).  At
+    starcoder2-3b's and gemma3-12b's shapes: ms a call, device ms a launch
+    of each kernel (profiled, ``device_ms_per_launch``) and their sum, at starcoder2's the CUDA-core kernels on the
+    same bf16 inputs (``cuda_core_ms``, checked too), the plain backward's
+    ms, SDPA's backward (``library_ms``: autograd through
+    ``scaled_dot_product_attention`` with ``enable_gqa``, ``is_causal``
+    where the mask is the plain causal one and the explicit mask otherwise,
+    its forward not timed), and the bound (10 D flops a reachable pair and
+    head at the bf16 tensor peak, against q, k, v, o, dO and the LSE read
+    and dq, dk, dv written once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops, rehearse
+    rows = []
+    for i, case in enumerate(rehearse.BACKWARD_CASES):
+        path = ops.kernel_path(getattr(torch, case[-1]),
+                               getattr(torch, case[-1]))
+        before = (dict(ops.LAUNCHES_BY_PATH), dict(ops.LAUNCHES_WITH_LSE))
+        row = rehearse.check_backward(case, dev, 300 + i)
+        want = dict(before[0])
+        want[path] += 1
+        bpath = ops.backward_path(getattr(torch, case[-1]), case[4])
+        want["backward_" + bpath] += 2
+        if ops.LAUNCHES_BY_PATH != want or \
+                ops.LAUNCHES_WITH_LSE[path] != before[1][path] + 1:
+            raise AssertionError(f"flash_backward {case}: launches "
+                                 f"{ops.LAUNCHES_BY_PATH} != {want}")
+        row["path"], row["backward_path"] = path, bpath
+        if i in BWD_TIMED:
+            B, Sq, H, KvH, D, w, ck, causal, Sk, dn = case
+            q, k, v, do, kw = rehearse.backward_inputs(case, dev, 300 + i)
+            o, lse = ops.flash_prefill_lse(q, k, v, **kw)
+            pairs = _reachable_pairs(Sq, Sk, w, ck, causal)
+            esize = q.element_size()
+            n_bytes = (3 * q.numel() + 3 * k.numel() + 2 * do.numel()) \
+                * esize + 4 * lse.numel()
+            flops = 10 * B * H * D * pairs
+            row.update(reachable_pairs=pairs, flops=flops, bytes=n_bytes)
+            row["bound_ms"], row["bound_by"] = attn_bound(n_bytes, flops,
+                                                          "bfloat16")
+
+            def call():
+                return ops.flash_backward(q, k, v, o, lse, do, **kw)
+            row["ms"] = auto_time_ms(call, budget_s=0.5, max_iters=20)
+            row["device_ms_by_kernel"] = {
+                kind: device_ms_per_launch(call, kind, calls=10)
+                for kind in ("flash_backward_dq", "flash_backward_dkdv")}
+            row["device_ms"] = sum(row["device_ms_by_kernel"].values())
+            if bpath == "tensor_core":
+                # the CUDA-core kernels on the same bf16 inputs, through the
+                # same wrapper
+                path_of = ops.backward_path
+                ops.backward_path = lambda *_: "cuda_core"
+                try:
+                    cc = ops.flash_backward(q, k, v, o, lse, do, **kw)
+                    row["cuda_core_rel_err"] = max(
+                        _max_err(a, b) / max(float(b.float().abs().max()),
+                                             1e-30)
+                        for a, b in zip(cc, ops.flash_backward_plain(
+                            q, k, v, o, lse, do, **kw)))
+                    row["cuda_core_ms"] = auto_time_ms(
+                        lambda: ops.flash_backward(q, k, v, o, lse, do,
+                                                   **kw),
+                        budget_s=0.3, max_iters=10)
+                finally:
+                    ops.backward_path = path_of
+                if not row["cuda_core_rel_err"] < \
+                        rehearse.GRAD_RTOL["bfloat16"]:
+                    raise AssertionError(f"flash_backward cuda_core != "
+                                         f"plain: {row}")
+                del cc
+            row["plain_ms"] = auto_time_ms(
+                lambda: ops.flash_backward_plain(q, k, v, o, lse, do, **kw),
+                budget_s=0.5, max_iters=20)
+            row["forward_ms"] = auto_time_ms(
+                lambda: ops.flash_prefill(q, k, v, **kw))
+            row["forward_lse_ms"] = auto_time_ms(
+                lambda: ops.flash_prefill_lse(q, k, v, **kw))
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            sdpa_kw = dict(enable_gqa=True)
+            if causal and not ck and (not w or Sq <= w) and Sq == Sk:
+                sdpa_kw["is_causal"] = True
+                row["library"] = "sdpa is_causal"
+            else:
+                mask = _prefill_mask(Sq, w, ck, dev)
+                sdpa_kw["attn_mask"] = mask
+                row["library"] = "sdpa explicit mask"
+            ot = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+            dot = do.transpose(1, 2)
+            lib_grads = torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                            retain_graph=True)
+            want = ops.flash_backward_plain(q, k, v, o, lse, do, **kw)
+            lib_err = max(
+                _max_err(g.transpose(1, 2), w_) /
+                max(float(w_.float().abs().max()), 1e-30)
+                for g, w_ in zip(lib_grads, want))
+            row["library_rel_err"] = lib_err
+            if not lib_err < 5e-2:
+                raise AssertionError(f"SDPA backward yardstick != plain: "
+                                     f"{lib_err}")
+            row["library_ms"] = auto_time_ms(
+                lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                            retain_graph=True),
+                budget_s=0.5, max_iters=50)
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            del q, k, v, do, o, lse, qt, kt, vt, ot, lib_grads, want
+            torch.cuda.empty_cache()
+        rows.append(row)
+    emit("flash_backward", cases=rows)
+    return dict(rows=rows, main=rows[BWD_TIMED[0]],
+                gemma3=rows[BWD_TIMED[1]],
+                max_abs_err=max(max(r["max_abs_err"].values())
+                                for r in rows))
+
+
+def _train_config(n_layers: int | None = None):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return cfg if n_layers is None else \
+        dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def phase_train_parity(dev) -> dict:
+    """starcoder2-3b's first 2 layers at full width (training storage,
+    seeded ``LIVEN`` noise on its biases and norms), one 1024-token
+    sequence: one ``train_step`` through the kernels and one through the
+    plain versions, from the same weights and batch.  The loss within
+    TRAIN_LOSS_ATOL, every parameter's gradient within TRAIN_GRAD_RTOL
+    (relative Frobenius error), every updated element within
+    TRAIN_UPDATE_LR learning rates; the kernels' step launched the forward
+    kernel (with its LSE) twice a layer (remat recomputes it) and the
+    backward once, the plain step no kernel."""
+    import copy
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt, train as TR
+    cfg = _train_config(TRAIN_PARITY_LAYERS)
+    model = T.init_model(SERVE_SEED, cfg, device=dev, train=True)
+    liven = _liven(model, 7)
+    plain_model = copy.deepcopy(model)
+    b = next(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_PARITY_SEQ,
+                                    global_batch=1, seed=3)).batches())
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "mask": torch.as_tensor(b["mask"], device=dev)}
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=5)
+    out = {}
+    for name, m, plain in (("kernels", model, False),
+                           ("plain", plain_model, True)):
+        step = TR.make_train_step(cfg, ocfg, remat=True, plain=plain)
+        ost = opt.init(dict(m.named_parameters()))
+        got = {}
+
+        def drive():
+            got["metrics"] = step(m, ost, batch)[2]
+        run = _counted(drive)
+        out[name] = dict(metrics={k: float(v) for k, v in
+                                  got["metrics"].items()},
+                         launches=run["launches"],
+                         paths=run["flash_prefill_paths"],
+                         with_lse=dict(fp.LAUNCHES_WITH_LSE),
+                         plain_calls=dict(fp.PLAIN_CALLS),
+                         wall_s=run["wall_s"])
+    lr = out["kernels"]["metrics"]["lr"]
+    grad_err, update_err = {}, 0.0
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              plain_model.named_parameters()):
+        g, gp = p.grad.float(), q.grad.float()
+        grad_err[n] = float((g - gp).norm() / gp.norm().clamp_min(1e-30))
+        update_err = max(update_err, float((p - q).abs().max()))
+    worst = max(grad_err, key=grad_err.get)
+    n_layers = cfg.n_layers
+    k_paths = out["kernels"]["paths"]
+    res = dict(arch=TRAIN_ARCH, layers=n_layers, seq=TRAIN_PARITY_SEQ,
+               liven=liven, loss=out["kernels"]["metrics"]["loss"],
+               loss_plain=out["plain"]["metrics"]["loss"],
+               grad_norm=out["kernels"]["metrics"]["grad_norm"],
+               grad_norm_plain=out["plain"]["metrics"]["grad_norm"],
+               max_grad_rel_err=grad_err[worst], worst_param=worst,
+               max_update_err_lr=update_err / lr,
+               kernels_launches=out["kernels"]["launches"],
+               kernels_paths=k_paths,
+               kernels_with_lse=out["kernels"]["with_lse"],
+               kernels_plain_calls=out["kernels"]["plain_calls"],
+               plain_launches=out["plain"]["launches"],
+               plain_calls=out["plain"]["plain_calls"],
+               wall_s={k: v["wall_s"] for k, v in out.items()},
+               tol=dict(loss_abs=TRAIN_LOSS_ATOL, grad_rel=TRAIN_GRAD_RTOL,
+                        update_lr=TRAIN_UPDATE_LR))
+    emit("train_parity", **res)
+    if abs(res["loss"] - res["loss_plain"]) > TRAIN_LOSS_ATOL or \
+            res["max_grad_rel_err"] > TRAIN_GRAD_RTOL or \
+            res["max_update_err_lr"] > TRAIN_UPDATE_LR:
+        raise AssertionError(f"train_parity: kernels != plain: {res}")
+    want = dict(tensor_core=2 * n_layers, cuda_core=0,
+                backward_tensor_core=2 * n_layers, backward_cuda_core=0)
+    if k_paths != want or any(out["plain"]["launches"].values()) or \
+            out["kernels"]["launches"]["flash_prefill"] != 2 * n_layers or \
+            res["kernels_with_lse"]["tensor_core"] != 2 * n_layers or \
+            any(res["kernels_plain_calls"].values()) or \
+            res["plain_calls"]["backward"] != n_layers:
+        raise AssertionError(f"train_parity: launches {res}")
+    del model, plain_model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_model_flops(cfg, seq: int, batch: int) -> float:
+    """Model FLOPs of one training step (forward and backward, no
+    recompute): 3 x (2 x tokens x the matmul weights, the tied head
+    included, + 4 D flops a reachable pair and query head of each
+    attention layer)."""
+    E, H, KvH, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim_, cfg.d_ff
+    per_layer = E * H * Dh + 2 * E * KvH * Dh + H * Dh * E + \
+        E * Fd * (2 if cfg.gated_mlp else 1) + Fd * E
+    weights = cfg.n_layers * per_layer + cfg.vocab * E
+    attn = 0
+    for kind in cfg.layer_kinds():
+        w = cfg.window if kind == "local" else 0
+        ck = cfg.window if kind == "chunk" else 0
+        attn += 4 * Dh * H * _reachable_pairs(seq, seq, w, ck, True)
+    return 3.0 * (2 * batch * seq * weights + batch * attn)
+
+
+def phase_train(dev) -> dict:
+    """``repro_torch.launch.train`` with TRAIN_ARGV (starcoder2-3b at full
+    size on the synthetic pipeline, remat, 5 steps) with every launch count
+    set to 0 and the peak memory reset just before its first step
+    (``on_start``): every loss finite, every parameter moved (a strided
+    sample of each against its value before the first step), flash prefill
+    launched exactly steps x 30 x 2 times with its LSE (remat recomputes
+    the forward) and its backward steps x 30 times each launch, no
+    plain-version call and no other kernel; peak memory, ms a step (the
+    first apart), tokens a second; then one more step profiled by kernel
+    kind (the forward and backward, then the optimizer alone), and the
+    model FLOPs a step against the bf16 peak."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.launch import train as LT
+    from repro_torch.models import convert, module
+    from repro_torch.training import optimizer as opt, train as TR
+    args = LT.parser().parse_args(TRAIN_ARGV)
+    samples = {}
+
+    def on_start(model):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                flat = p.detach().reshape(-1)
+                samples[n] = flat[::max(1, flat.numel() // 4096)].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+
+    t0 = time.perf_counter()
+    run = LT.train(args, device=dev, on_start=on_start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    paths, lse = dict(fp.LAUNCHES_BY_PATH), dict(fp.LAUNCHES_WITH_LSE)
+    plain_calls = dict(fp.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, ost, cfg = run["model"], run["opt_state"], run["cfg"]
+    unmoved = []
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            flat = p.detach().reshape(-1)
+            now = flat[::max(1, flat.numel() // 4096)]
+            if torch.equal(now, samples[n]):
+                unmoved.append(n)
+    steps, L = args.steps, cfg.n_layers
+    n_params = module.param_count(model)
+    step_s = run["step_s"]
+    steady = step_s[1:] if len(step_s) > 1 else step_s
+    ms_step = sum(steady) / len(steady) * 1e3
+    tokens = args.batch * args.seq
+    flops = train_model_flops(cfg, args.seq, args.batch)
+    # one more step, profiled: the forward and backward, then the optimizer
+    b = next(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch)).batches(
+        start_step=steps))
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "mask": torch.as_tensor(b["mask"], device=dev)}
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
+    groups = convert.leaf_groups(model)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        loss, _ = TR.loss_fn(model, batch, remat=True)
+        loss.backward()
+
+    def optimizer():
+        params = dict(model.named_parameters())
+        opt.apply(ocfg, params, {n: p.grad for n, p in params.items()}, ost,
+                  groups=groups)
+    prof_fb = _profile(fwd_bwd, 1)
+    prof_opt = _profile(optimizer, 1)
+    by_kind = dict(prof_fb["device_ms_by_kind"])
+    by_kind["optimizer"] = prof_opt["device_busy_ms"]
+    res = dict(
+        arch=TRAIN_ARCH, argv=TRAIN_ARGV, layers=L, d_model=cfg.d_model,
+        params=n_params, params_b=n_params / 1e9,
+        state_gib=n_params * 16 / 2**30, losses=run["losses"],
+        step_s=step_s, ms_per_step=ms_step, first_step_ms=step_s[0] * 1e3,
+        tokens_per_s=tokens / (ms_step / 1e3), wall_s=wall,
+        peak_mem_gib=peak, launches=launches, flash_prefill_paths=paths,
+        flash_prefill_with_lse=lse, plain_calls=plain_calls,
+        unmoved_params=unmoved,
+        profiled_step=dict(
+            wall_ms=prof_fb["wall_ms"] + prof_opt["wall_ms"],
+            device_busy_ms=prof_fb["device_busy_ms"]
+            + prof_opt["device_busy_ms"],
+            device_kernels=prof_fb["device_kernels"]
+            + prof_opt["device_kernels"],
+            device_ms_by_kind=by_kind,
+            top_kernels_ms=prof_fb["top_kernels_ms"],
+            optimizer_wall_ms=prof_opt["wall_ms"]),
+        model_flops_per_step=flops,
+        model_flops_share_of_bf16_peak=flops / (ms_step / 1e3)
+        / PEAK_FLOPS["bfloat16"])
+    emit("train", **res)
+    want_paths = dict(tensor_core=steps * L * 2, cuda_core=0,
+                      backward_tensor_core=steps * L * 2,
+                      backward_cuda_core=0)
+    if not all(map(math.isfinite, run["losses"])) or \
+            len(run["losses"]) != steps:
+        raise AssertionError(f"train: losses {run['losses']}")
+    if unmoved:
+        raise AssertionError(f"train: parameters did not move: {unmoved}")
+    if paths != want_paths or lse != dict(tensor_core=steps * L * 2,
+                                          cuda_core=0) or \
+            launches != dict(token_bucket=0, decode_attention=0,
+                             flash_prefill=steps * L * 2, ssd_scan=0) or \
+            any(plain_calls.values()):
+        raise AssertionError(f"train: launches {launches}, paths {paths}, "
+                             f"with LSE {lse}, plain calls {plain_calls}")
+    del run, model, ost
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(res, backward_launches=paths["backward_tensor_core"])
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3719,8 +4138,8 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build_many([
         ("token_bucket", tb_ops._SRC), (da_ops.NAME, da_ops.SOURCE),
-        (fp_ops.NAME, fp_ops.SOURCE), (ssd_ops.NAME, ssd_ops.SOURCE),
-        (ssd_ops.TC_NAME, ssd_ops.TC_SOURCE)])
+        (fp_ops.NAME, fp_ops.SOURCE), (fp_ops.BWD_NAME, fp_ops.BWD_SOURCE),
+        (ssd_ops.NAME, ssd_ops.SOURCE), (ssd_ops.TC_NAME, ssd_ops.TC_SOURCE)])
     emit("build", kernels=list(seconds), seconds=seconds,
          wall_s=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in v.splitlines()
@@ -3732,6 +4151,7 @@ def main() -> int:
     res = phase_resource_parity(dev)
     da = phase_kernel_decode_attention(dev)
     fp = phase_kernel_flash_prefill(dev)
+    fbw = phase_flash_backward(dev)
     ssd = phase_kernel_ssd_scan(dev)
     phase_interp(dev)
     main = phase_main_path(dev)
@@ -3791,6 +4211,8 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    tpar = phase_train_parity(dev)
+    train = phase_train(dev)
     n_main = 2
     t = gt["times"][n_main]
     runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
@@ -3909,6 +4331,10 @@ def main() -> int:
                 if r["launches"]["flash_prefill"]}
             rows[-1]["long_prompt"] = [{k: r.get(k) for k in keys}
                                        for r in res["long"]]
+            # training's forward launches, each also writing the LSE
+            rows[-1]["training_launches_with_lse"] = dict(
+                train_parity=tpar["kernels_with_lse"]["tensor_core"],
+                train=train["flash_prefill_with_lse"]["tensor_core"])
             rows[-1]["new_shapes"] = {
                 arch: [{k: r.get(k) for k in keys} for r in rs]
                 for arch, rs in res["new"].items()}
@@ -3924,6 +4350,33 @@ def main() -> int:
                 {k: r.get(k) for k in ("shape", "ms", "cuda_core_ms",
                                        "plain_ms", "bound_ms", "bound_by",
                                        "bound_share")} for r in res["timed"]]
+    # the flash-prefill kernel's gradient: its own kernel (two launches a
+    # call), launched on the training path
+    m = fbw["main"]
+    rows.insert([r["name"] for r in rows].index("flash_prefill") + 1, {
+        "name": "flash_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_prefill/csrc/"
+                  "flash_backward.cu",
+        "replaces": "src/repro/kernels/flash_prefill/kernel.py:24",
+        "gradient_of": "src/repro/models/layers.py:70 (XLA's autodiff of "
+                       "the jnp flash_attention the reference trains "
+                       "through; the Pallas kernel has no backward)",
+        "launches": train["backward_launches"],
+        "max_abs_err": fbw["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "library": m["library"],
+        "shape": "q [1,4096,24,128], k/v [1,4096,2,128] bf16, window 4096 "
+                 "(starcoder2-3b)",
+        "device_ms_per_call": m["device_ms"],
+        "device_ms_by_kernel": m["device_ms_by_kernel"],
+        "bound_share": m["bound_share"], "tflops": m["tflops"],
+        "gemma3": {k: fbw["gemma3"][k] for k in (
+            "case", "ms", "device_ms", "plain_ms", "library_ms", "library",
+            "bound_ms", "bound_by", "bound_share")},
+        "launches_by_path": dict(
+            train_parity=tpar["kernels_paths"]["backward_tensor_core"],
+            train=train["backward_launches"])})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,10 @@
 // apply the element mask only on tiles that cross a mask boundary or the
 // end of the sequence.  Query i sits at position i and key j at position
 // j, as in the reference; a row with no reachable key returns 0; output in
-// q's dtype.  D <= 256.
+// q's dtype.  D <= 256.  Given a non-null `lse` [B, H, Sq] float32, both
+// also write each row's natural log-sum-exp of its scaled scores (-inf for
+// a row with no reachable key), from which training's backward
+// (flash_backward.cu) recomputes P; serving passes null.
 //
 // What remains (PERF.md): at 1536 tokens the kernel reaches about 0.3 of
 // its bound.  A consumer still waits for S = Q K^T, then runs its softmax,
@@ -100,8 +103,9 @@ __host__ __device__ constexpr int smem_floats(int D) {
 template <int DPT, typename TQ, typename TK>
 __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
     const TQ* __restrict__ q, const TK* __restrict__ k,
-    const TK* __restrict__ v, TQ* __restrict__ out, int Sq, int Sk, int H,
-    int KvH, int D, int window, int chunk, int causal, float scale) {
+    const TK* __restrict__ v, TQ* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Sk, int H, int KvH, int D, int window, int chunk, int causal,
+    float scale) {
   extern __shared__ float smem[];
   const int ldq = D + 1;
   float* Qs = smem;                 // [BQ][D + 1]
@@ -244,6 +248,11 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + r0 + rr;
     if (qi >= Sq) continue;
+    // natural log-sum-exp of the row's scaled scores (training's backward
+    // recomputes P from it); -inf for a row that reached no key
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + qi] =
+          l[rr] > 0.f ? m[rr] + logf(l[rr]) : -INFINITY;
     const float denom = fmaxf(l[rr], 1e-30f);
     TQ* orow = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
 #pragma unroll
@@ -255,9 +264,9 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
 }
 
 template <int DPT, typename TQ, typename TK>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KvH, int D, int window, int chunk,
-           int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Sk, int H, int KvH, int D, int window,
+           int chunk, int causal, float scale, cudaStream_t stream) {
   auto kern = flash_prefill_kernel<DPT, TQ, TK>;
   const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -266,22 +275,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k),
-      static_cast<const TK*>(v), static_cast<TQ*>(out), Sq, Sk, H, KvH, D,
-      window, chunk, causal, scale);
+      static_cast<const TK*>(v), static_cast<TQ*>(out), lse, Sq, Sk, H, KvH,
+      D, window, chunk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TK>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KvH, int D, int window, int chunk,
-               int causal, float scale, cudaStream_t st) {
+int dispatch_d(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Sk, int H, int KvH, int D,
+               int window, int chunk, int causal, float scale,
+               cudaStream_t st) {
   if (D <= 64)
-    return launch<8, TQ, TK>(q, k, v, out, B, Sq, Sk, H, KvH, D, window,
+    return launch<8, TQ, TK>(q, k, v, out, lse, B, Sq, Sk, H, KvH, D, window,
                              chunk, causal, scale, st);
   if (D <= 128)
-    return launch<16, TQ, TK>(q, k, v, out, B, Sq, Sk, H, KvH, D, window,
-                              chunk, causal, scale, st);
-  return launch<32, TQ, TK>(q, k, v, out, B, Sq, Sk, H, KvH, D, window,
+    return launch<16, TQ, TK>(q, k, v, out, lse, B, Sq, Sk, H, KvH, D,
+                              window, chunk, causal, scale, st);
+  return launch<32, TQ, TK>(q, k, v, out, lse, B, Sq, Sk, H, KvH, D, window,
                             chunk, causal, scale, st);
 }
 
@@ -308,6 +318,7 @@ __host__ __device__ constexpr int tc_smem_bytes(int NP) {
 struct TcParams {
   const __nv_bfloat16* q;
   __nv_bfloat16* out;
+  float* lse;       // [B, H, Sq] natural log-sum-exp, or null (serving)
   int B, Sq, Sk, H, KvH, G, D;
   int window, chunk, causal;
   float scale_log2; // D^-0.5 * log2(e)
@@ -592,6 +603,22 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_prefill_tc_kernel(
     }
     const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    // the row's natural log-sum-exp for training's backward: m is in log2
+    // units of the scaled score and l sums the bf16-rounded exp2(s - m);
+    // -inf for a row that reached no key.  One thread of each quad writes.
+    if (p.lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int prow = wrow0 + ra + 8 * half;
+        if (prow >= rows_total) continue;
+        const int i = prow / p.G;
+        const int g = prow - i * p.G;
+        const float l = half ? l_b : l_a;
+        const float m = half ? m_b : m_a;
+        p.lse[(static_cast<int64_t>(b) * p.H + kvh * p.G + g) * p.Sq + i] =
+            l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int prow = wrow0 + ra + 8 * half;
@@ -707,15 +734,16 @@ int launch_tc(const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  q [B, Sq, H, D], k / v
-// [B, Sk, KvH, D], out [B, Sq, H, D] (q's dtype), all contiguous.  Launches
+// [B, Sk, KvH, D], out [B, Sq, H, D] (q's dtype), all contiguous; lse
+// [B, H, Sq] float32 or null (then the kernel writes no LSE).  Launches
 // on `stream`, does not synchronise, allocates nothing.  Returns
 // cudaGetLastError() of the launch (or of the shared-memory attribute), or
 // cudaErrorInvalidValue for an unsupported shape.
 extern "C" int flash_prefill_launch(int q_bf16, int kv_bf16, const void* q,
                                     const void* k, const void* v, void* out,
-                                    int B, int Sq, int Sk, int H, int KvH,
-                                    int D, int window, int chunk, int causal,
-                                    float scale, void* stream) {
+                                    float* lse, int B, int Sq, int Sk, int H,
+                                    int KvH, int D, int window, int chunk,
+                                    int causal, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KvH <= 0 || H % KvH != 0 || D <= 0 || D > 256 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -723,31 +751,33 @@ extern "C" int flash_prefill_launch(int q_bf16, int kv_bf16, const void* q,
   if (q_bf16) {
     if (kv_bf16)
       return dispatch_d<__nv_bfloat16, __nv_bfloat16>(
-          q, k, v, out, B, Sq, Sk, H, KvH, D, window, chunk, causal, scale,
-          st);
-    return dispatch_d<__nv_bfloat16, float>(q, k, v, out, B, Sq, Sk, H, KvH,
-                                            D, window, chunk, causal, scale,
-                                            st);
+          q, k, v, out, lse, B, Sq, Sk, H, KvH, D, window, chunk, causal,
+          scale, st);
+    return dispatch_d<__nv_bfloat16, float>(q, k, v, out, lse, B, Sq, Sk, H,
+                                            KvH, D, window, chunk, causal,
+                                            scale, st);
   }
   if (kv_bf16)
-    return dispatch_d<float, __nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KvH,
-                                            D, window, chunk, causal, scale,
-                                            st);
-  return dispatch_d<float, float>(q, k, v, out, B, Sq, Sk, H, KvH, D, window,
-                                  chunk, causal, scale, st);
+    return dispatch_d<float, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H,
+                                            KvH, D, window, chunk, causal,
+                                            scale, st);
+  return dispatch_d<float, float>(q, k, v, out, lse, B, Sq, Sk, H, KvH, D,
+                                  window, chunk, causal, scale, st);
 }
 
 // Plain C entry point of the tensor-core kernel (loaded with ctypes).  q
 // [B, Sq, H, D], k / v [B, Sk, KvH, D], out [B, Sq, H, D], all contiguous
-// bf16, 16-byte aligned, D % 8 == 0.  Launches on `stream`, does not
-// synchronise, allocates nothing.  Returns cudaGetLastError() of the
-// launch, the error of the tensor maps or of the shared-memory attribute,
-// or cudaErrorInvalidValue for an unsupported shape or alignment.
+// bf16, 16-byte aligned, D % 8 == 0; lse [B, H, Sq] float32 or null.
+// Launches on `stream`, does not synchronise, allocates nothing.  Returns
+// cudaGetLastError() of the launch, the error of the tensor maps or of the
+// shared-memory attribute, or cudaErrorInvalidValue for an unsupported
+// shape or alignment.
 extern "C" int flash_prefill_tc_launch(const void* q, const void* k,
-                                       const void* v, void* out, int B,
-                                       int Sq, int Sk, int H, int KvH, int D,
-                                       int window, int chunk, int causal,
-                                       float scale, void* stream) {
+                                       const void* v, void* out, float* lse,
+                                       int B, int Sq, int Sk, int H, int KvH,
+                                       int D, int window, int chunk,
+                                       int causal, float scale,
+                                       void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KvH <= 0 || H % KvH != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
       Sk < 0)
@@ -762,6 +792,7 @@ extern "C" int flash_prefill_tc_launch(const void* q, const void* k,
   TcParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;

@@ -23,7 +23,11 @@ Two kernels, chosen by operand type alone (``kernel_path``):
 There is no fallback: if the chosen kernel fails to build or launch, the
 wrapper raises.  ``LAUNCHES`` counts wrapper calls that launched a kernel
 (the tensor-core path's three launches count once) and nothing else;
-``LAUNCHES_BY_PATH`` splits them by kernel.
+``LAUNCHES_BY_PATH`` splits them by kernel.  Neither kernel has a
+backward yet: on CUDA the wrapper refuses a call whose output would need a
+gradient (grad enabled and an input that requires grad) with a
+``RuntimeError``, rather than return an output that autograd would treat
+as a constant.
 """
 from __future__ import annotations
 
@@ -106,6 +110,13 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
         return ssd_scan_plain(x, a, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, B, C)):
+        # the kernel's output has no gradient: autograd would take it for a
+        # constant and drop every gradient into x, a, B and C
+        raise RuntimeError(
+            "ssd_scan: the SSD-scan kernel has no backward yet, so it cannot "
+            "run in a graph that needs gradients (training an ssd layer on "
+            "CUDA); run under torch.no_grad() or train on the CPU")
     global LAUNCHES
     dev = x.device
     if x.ndim != 4 or a.ndim != 3 or B.ndim != 4:

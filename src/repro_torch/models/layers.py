@@ -8,14 +8,25 @@ Port of ``src/repro/models/layers.py`` for the dense attention kinds
 MoE layers.  Each layer is an ``nn.Module`` whose parameters keep the
 reference's names and layouts (``wq`` [E, H, Dh], ``wo`` [H * Dh, E],
 ``wi`` [E, g, F], the MoE's ``wi`` [X, E, 2, F], ``in_proj``
-[E, 2 Din + 2 G N + H] ...), so weights load one for one.  Storage dtypes
-follow what the reference computes with: the projection weights are cast
-to ``cfg.dtype`` at every use there, so they are stored in it; norm scales,
-the MoE router, the RG-LRU gates (``wa``, ``wi``, used in float32) and the
-conv taps, decay and skip parameters stay float32.
+[E, 2 Din + 2 G N + H] ...), so weights load one for one.  Two storage
+modes (``Maker(train=...)``):
+
+* serving: dtypes follow what the reference computes with.  The
+  projection weights are cast to ``cfg.dtype`` at every use there, so they
+  are stored in it; norm scales, the MoE router, the RG-LRU gates (``wa``,
+  ``wi``, used in float32) and the conv taps, decay and skip parameters
+  stay float32.  No parameter requires grad.
+* training: every parameter is float32 and requires grad, as the
+  reference's parameters are float32 leaves of its gradient.
+
+Every use casts a weight to the activations' dtype (``.to(x.dtype)``, a
+no-op on serving storage), so both modes compute the reference's values
+and, in training, gradients reach the float32 leaves through the casts.
 
 Full-sequence attention (prefill) goes through the flash-prefill kernel on
-CUDA and its plain version on the CPU (``repro_torch.kernels.flash_prefill``),
+CUDA and its plain version on the CPU (``repro_torch.kernels.flash_prefill``;
+with grad enabled, ``flash_attention``: the same kernel and its backward
+kernel),
 where the reference computes the same masks inline in jnp
 (``layers.flash_attention``): causal for the decoder kinds, none
 (``causal=False``) for the encoder and for cross-attention, whose Sk is the
@@ -24,8 +35,10 @@ kernel on CUDA (``repro_torch.kernels.ssd_scan``), where the reference
 calls its sequential oracle ``ssd_ref.ssd_scan``.  The RG-LRU scan and
 the MoE dispatch have no kernel in the reference either (an
 ``associative_scan`` in jnp and XLA's ``ragged_dot``): the port mirrors
-them in torch ops.  The reference's ``actsharding`` hooks are the identity
-on one device and have no counterpart here.
+them in torch ops.  ``MoE.capacity`` is the reference's training dispatch
+(``dropless=False``: capacity-bounded, overflow dropped) and
+``moe_aux_loss`` its load-balance loss.  The reference's ``actsharding``
+hooks are the identity on one device and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -50,16 +63,22 @@ def torch_dtype(name: str) -> torch.dtype:
 class Maker:
     """Makes parameters: drawn from ``gen`` in the reference's order and
     distributions, or left uninitialised (``gen=None``) for weights that
-    are loaded afterwards (``repro_torch.models.convert``)."""
+    are loaded afterwards (``repro_torch.models.convert``).  ``train``
+    makes every parameter float32 and requiring grad (the training
+    storage, module docstring)."""
 
-    def __init__(self, gen: torch.Generator | None, device):
+    def __init__(self, gen: torch.Generator | None, device, *,
+                 train: bool = False):
         self.gen = gen
         self.device = device
+        self.train = train
 
     def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=False)
+        return nn.Parameter(t, requires_grad=self.train)
 
     def dense(self, in_dim, out_dims, *, dtype, scale=None) -> nn.Parameter:
+        if self.train:
+            dtype = torch.float32
         if self.gen is None:
             out = (out_dims,) if isinstance(out_dims, int) else out_dims
             return self._param(torch.empty((in_dim, *out), dtype=dtype,
@@ -75,6 +94,7 @@ class Maker:
                                       device=self.device))
 
     def zeros(self, shape, *, dtype=torch.float32) -> nn.Parameter:
+        dtype = torch.float32 if self.train else dtype
         return self._param(init.zeros(shape, dtype=dtype, device=self.device))
 
     def ones(self, shape, *, dtype=torch.float32) -> nn.Parameter:
@@ -172,16 +192,20 @@ class Attention(nn.Module):
         """Project x [B, S, E] to q [B, S, H, D] alone (a cross or
         encoder-decoder layer's decode: its K/V are the memory's)."""
         B, S, E = x.shape
-        q = (x @ self.wq.view(E, -1)).view(B, S, *self.wq.shape[1:])
-        return q + self.bq if self.has_bias else q
+        dt = x.dtype
+        q = (x @ self.wq.to(dt).view(E, -1)).view(B, S, *self.wq.shape[1:])
+        return q + self.bq.to(dt) if self.has_bias else q
 
     def kv(self, src: torch.Tensor):
         """Project a memory src [B, F, E] to k, v [B, F, KvH, D]."""
         B, F_, E = src.shape
-        k = (src @ self.wk.view(E, -1)).view(B, F_, *self.wk.shape[1:])
-        v = (src @ self.wv.view(E, -1)).view(B, F_, *self.wv.shape[1:])
+        dt = src.dtype
+        k = (src @ self.wk.to(dt).view(E, -1)).view(B, F_,
+                                                    *self.wk.shape[1:])
+        v = (src @ self.wv.to(dt).view(E, -1)).view(B, F_,
+                                                    *self.wv.shape[1:])
         if self.has_bias:
-            k, v = k + self.bk, v + self.bv
+            k, v = k + self.bk.to(dt), v + self.bv.to(dt)
         return k, v
 
     def qkv(self, x: torch.Tensor):
@@ -190,7 +214,7 @@ class Attention(nn.Module):
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
         B, S, H, Dh = o.shape
-        return o.reshape(B, S, H * Dh) @ self.wo
+        return o.reshape(B, S, H * Dh) @ self.wo.to(o.dtype)
 
     def block(self, x: torch.Tensor, kind: str, tables, *,
               memory: torch.Tensor | None = None, plain: bool = False):
@@ -202,8 +226,14 @@ class Attention(nn.Module):
         (y [B, S, E], k, v): k rotated for the decoder kinds, the memory's
         K/V unrotated for ``cross``; a cache takes both as they are.
         ``plain`` runs the plain version on a CUDA tensor too (for parity
-        checks only)."""
-        attn = fp_ops.flash_prefill_plain if plain else fp_ops.flash_prefill
+        checks only).  With grad enabled (training) the attention is
+        ``flash_attention``, whose backward is a kernel too."""
+        if torch.is_grad_enabled():
+            def attn(q, k, v, **kw):
+                return fp_ops.flash_attention(q, k, v, plain=plain, **kw)
+        else:
+            attn = fp_ops.flash_prefill_plain if plain \
+                else fp_ops.flash_prefill
         if kind == "cross":
             # no RoPE across modalities, as the reference
             k, v = self.kv(memory)
@@ -242,12 +272,13 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         E, g, Fd = self.wi.shape
-        h = (x @ self.wi.view(E, g * Fd)).view(*x.shape[:-1], g, Fd)
+        dt = x.dtype
+        h = (x @ self.wi.to(dt).view(E, g * Fd)).view(*x.shape[:-1], g, Fd)
         if self.cfg.gated_mlp:
             h = act(h[..., 0, :], self.cfg.act) * h[..., 1, :]
         else:
             h = act(h[..., 0, :], self.cfg.act)
-        return h @ self.wo
+        return h @ self.wo.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +332,11 @@ class MoE(nn.Module):
     def _expert(self, e: int, xs: torch.Tensor) -> torch.Tensor:
         """Expert ``e``'s gated MLP on rows xs [n, E] -> [n, E]."""
         E, _, Fd = self.wi.shape[1:]
-        h = (xs @ self.wi[e].view(E, 2 * Fd)).view(-1, 2, Fd)
+        dt = xs.dtype
+        h = (xs @ self.wi[e].to(dt).view(E, 2 * Fd)).view(-1, 2, Fd)
         h = act(h[:, 0], self.cfg.act) * h[:, 1] if self.cfg.gated_mlp \
             else act(h[:, 0], self.cfg.act)
-        return h @ self.wo[e]
+        return h @ self.wo[e].to(dt)
 
     def grouped(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, S, E] through the dropless dispatch (one host read)."""
@@ -327,6 +359,46 @@ class MoE(nn.Module):
             start += n
         return y.to(x.dtype).view(B, S, E)
 
+    def capacity(self, x: torch.Tensor):
+        """x [B, S, E] through the reference's training dispatch
+        (``moe_block(dropless=False)``): capacity C = int(capacity_factor
+        T K / X) + 1 rows an expert; the routed (token, expert) pairs sorted
+        stably by expert, each expert's first C kept and the rest sent to
+        the dump slot X C and dropped; every expert's gated MLP over its
+        [C, E] buffer (the gated form always, as the reference); each
+        token's kept outputs times its gates summed in float32 in expert
+        order (``segment_sum``) and cast once.  Returns (y [B, S, E],
+        probs [T, X] float32, the router's softmax for ``moe_aux_loss``)."""
+        B, S, E = x.shape
+        X, K = self.cfg.n_experts, self.cfg.top_k
+        T = B * S
+        xt = x.reshape(T, E)
+        probs = torch.softmax(xt.float() @ self.router, -1)
+        gate, idx = self.route(xt)
+        flat = idx.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        sorted_e = flat[order]
+        counts = torch.bincount(flat, minlength=X)
+        src = order // K
+        C = int(self.cfg.capacity_factor * T * K / X) + 1
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(T * K, device=x.device) - starts[sorted_e]
+        keep = pos < C
+        slot = torch.where(keep, sorted_e * C + pos, X * C)
+        # the dump row X C takes every dropped pair and is cut off
+        buf = xt.new_zeros((X * C + 1, E)).index_copy(0, slot, xt[src])
+        dt = xt.dtype
+        h = torch.einsum("xce,xegf->xcgf", buf[:-1].view(X, C, E),
+                         self.wi.to(dt))
+        h = act(h[..., 0, :], self.cfg.act) * h[..., 1, :]
+        out = torch.einsum("xcf,xfe->xce", h, self.wo.to(dt))
+        routed = torch.where(keep[:, None], out.reshape(X * C, E)[
+            torch.clamp(slot, max=X * C - 1)], 0.0)
+        g = gate.reshape(-1)[order]
+        y = torch.zeros((T, E), dtype=torch.float32, device=x.device) \
+            .index_add(0, src, routed * g[:, None])
+        return y.to(x.dtype).view(B, S, E), probs
+
     def all_experts(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, S, E] through the fixed-shape dispatch (no host read)."""
         B, S, E = x.shape
@@ -340,6 +412,14 @@ class MoE(nn.Module):
             y = torch.where(hit.any(-1, keepdim=True),
                             y + self._expert(e, xt) * g, y)
         return y.to(x.dtype).view(B, S, E)
+
+
+def moe_aux_loss(probs: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance loss of the router's softmax probs [T, X]
+    (the reference's ``moe_aux_loss``): X * sum of the squared mean
+    probabilities."""
+    me = probs.mean(0)
+    return (me * me * probs.shape[-1]).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -464,15 +544,20 @@ class RGLRU(nn.Module):
         """The block on x [B, S, E] from (conv_state, h0), or from zeros
         when both are None.  Returns (out, new conv state, last h)."""
         dt = x.dtype
-        gate = act(x @ self.wy, "gelu")
+        gate = act(x @ self.wy.to(dt), "gelu")
         w, b = conv_taps(self.conv_w, self.conv_b, dt)
-        u, new_conv = causal_conv1d(x @ self.wx, w, b, conv_state)
+        u, new_conv = causal_conv1d(x @ self.wx.to(dt), w, b, conv_state)
         uf = u.float()
         r = torch.sigmoid(uf @ self.wa + self.ba)
         i = torch.sigmoid(uf @ self.wi + self.bi)
         a = torch.exp(-8.0 * r * softplus(self.lam))   # c = 8 (the paper)
         h, h_last = rglru_scan(a, i * uf, h0)
-        return (h.to(dt) * gate) @ self.wo, new_conv, h_last
+        return (h.to(dt) * gate) @ self.wo.to(dt), new_conv, h_last
+
+    def forward(self, x, *, plain: bool = False):
+        """Whole sequence x [B, S, E] from a zero state, no cache (training;
+        ``plain`` as in ``prefill``)."""
+        return self._mix(x, None, None)[0]
 
     def prefill(self, x, cache, *, plain: bool = False):
         """Whole prompt x [B, S, E] from a zero state into ``cache`` =
@@ -535,7 +620,7 @@ class Mamba2(nn.Module):
         Bsz, S, _ = x.shape
         Din, H, G, N = mamba2_split(self.cfg)
         P = self.cfg.ssm_head_dim
-        zxbcdt = x @ self.in_proj
+        zxbcdt = x @ self.in_proj.to(dt_)
         z, xbc, dt = torch.split(zxbcdt, [Din, Din + 2 * G * N, H], -1)
         w, b = conv_taps(self.conv_w, self.conv_b, dt_)
         xbc, new_conv = causal_conv1d(xbc, w, b, conv_state)
@@ -565,7 +650,14 @@ class Mamba2(nn.Module):
         yf = yf * silu(z.float())
         yf = yf * torch.rsqrt((yf ** 2).mean(-1, keepdim=True) + 1e-6)
         y = (yf * self.norm_scale).to(dt_)
-        return y @ self.out_proj, new_conv, new_ssd
+        return y @ self.out_proj.to(dt_), new_conv, new_ssd
+
+    def forward(self, x, *, plain: bool = False):
+        """Whole sequence x [B, S, E] from a zero state, no cache (training).
+        The SSD-scan kernel has no backward yet: on CUDA, with grad
+        enabled, ``ssd_ops.ssd_scan`` refuses (``plain`` trains through the
+        plain scan's torch ops)."""
+        return self._mix(x, None, None, plain=plain)[0]
 
     def prefill(self, x, cache, *, plain: bool = False):
         """Whole prompt x [B, S, E] from a zero state; writes the prompt's

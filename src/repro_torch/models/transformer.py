@@ -1,5 +1,6 @@
-"""The port's transformer: init, serving cache, prefill and decode, for
-decoder-only, cross-attention (VLM) and encoder-decoder models.
+"""The port's transformer: init, the full-sequence forward (training and
+scoring), serving cache, prefill and decode, for decoder-only,
+cross-attention (VLM) and encoder-decoder models.
 
 Port of ``src/repro/models/transformer.py`` for every layer kind (the
 self-attention kinds ``global``, ``local``, ``chunk``; ``cross``; the
@@ -44,8 +45,13 @@ prefill's tokens grouped by expert (``layers.MoE.grouped``, one host read)
 and a decode step's through every expert at fixed shapes
 (``layers.MoE.all_experts``, capturable).
 
-Not ported: the full-sequence ``forward`` (training and scoring, with the
-MoE auxiliary loss).
+``forward`` is the reference's full-sequence pass with no cache (training
+and scoring): every layer kind from a zero state, MoE layers in their
+training form (``layers.MoE.capacity``, the auxiliary loss summed over
+them), attention through ``flash_attention`` when grad is enabled (the
+flash-prefill kernel and its backward kernel).  Training needs the
+training storage (``init_model(..., train=True)``: float32 parameters that
+require grad, cast at each use, the tied head too).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -116,29 +123,52 @@ class Block(nn.Module):
         dtype first, as the reference."""
         return torch.tanh(self.xgate).to(y.dtype) * y
 
+    def _mixers(self, x, tables, cache_kv, memory, plain: bool):
+        """The full-sequence mixers (and ``xattn``) at positions 0..S-1,
+        before the feed-forward; writes ``cache_kv`` where given (a
+        prefill), nothing where it is None (``forward``)."""
+        if self.kind in RECURRENT_KINDS:
+            h = self.ln1(x)
+            y = self.mixer(h, plain=plain) if cache_kv is None \
+                else self.mixer.prefill(h, cache_kv, plain=plain)
+            x = x + y
+        elif self.kind == "cross":
+            y, k, v = self.mixer.block(self.ln1(x), "cross", None,
+                                       memory=memory, plain=plain)
+            if cache_kv is not None:
+                _write_memory(k, v, cache_kv[:2])
+            x = x + self._gate(y)
+        else:
+            y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
+                                       plain=plain)
+            if cache_kv is not None:
+                _build_attn_cache(self.kind, k, v, cache_kv[:2])
+            x = x + y
+        if self.has_xattn:
+            y, k, v = self.xattn.block(self.lnx(x), "cross", None,
+                                       memory=memory, plain=plain)
+            if cache_kv is not None:
+                _write_memory(k, v, cache_kv[2:])
+            x = x + y
+        return x
+
     def prefill(self, x, tables, cache_kv, *, memory=None,
                 plain: bool = False):
         """Full sequence at positions 0..S-1; writes the (rolling) cache,
         a recurrent layer's (conv, state), or the memory's K/V (``memory``
         [B, F, E]: the projected frontend, or the encoder's output)."""
-        if self.kind in RECURRENT_KINDS:
-            x = x + self.mixer.prefill(self.ln1(x), cache_kv, plain=plain)
-        elif self.kind == "cross":
-            y, k, v = self.mixer.block(self.ln1(x), "cross", None,
-                                       memory=memory, plain=plain)
-            _write_memory(k, v, cache_kv[:2])
-            x = x + self._gate(y)
-        else:
-            y, k, v = self.mixer.block(self.ln1(x), self.kind, tables,
-                                       plain=plain)
-            _build_attn_cache(self.kind, k, v, cache_kv[:2])
-            x = x + y
-        if self.has_xattn:
-            y, k, v = self.xattn.block(self.lnx(x), "cross", None,
-                                       memory=memory, plain=plain)
-            _write_memory(k, v, cache_kv[2:])
-            x = x + y
-        return self._ffn(x, False)
+        return self._ffn(self._mixers(x, tables, cache_kv, memory, plain),
+                         False)
+
+    def forward(self, x, tables, *, memory=None, plain: bool = False):
+        """Full sequence at positions 0..S-1 with no cache (training): (x,
+        aux), aux the MoE load-balance loss of a MoE layer (its training
+        dispatch, ``layers.MoE.capacity``) and None otherwise."""
+        x = self._mixers(x, tables, None, memory, plain)
+        if not self.moe:
+            return self._ffn(x, False), None
+        y, probs = self.ffn.capacity(self.ln2(x))
+        return x + y, L.moe_aux_loss(probs)
 
     def decode(self, x, tables, cache_kv, slot, valid, mem_valid, *,
                plain: bool = False):
@@ -240,15 +270,17 @@ class Transformer(nn.Module):
     blocks and ``enc_norm``), final norm and (un)tied head.
 
     ``gen=None`` leaves the weights uninitialised, to be loaded (see
-    ``repro_torch.models.convert``); then call ``tie()``."""
+    ``repro_torch.models.convert``); then call ``tie()``.  ``train`` builds
+    the training storage (``layers`` module docstring)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None, train: bool = False):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.train_storage = train
         dev = resolve_device(device)
-        mk = L.Maker(gen, dev)
+        mk = L.Maker(gen, dev, train=train)
         # the reference's draw order: embedding, frontend projection, the
         # blocks period position-major, the tail, the encoder, the head
         self.embed = mk.embed(cfg.vocab, cfg.d_model)
@@ -275,6 +307,7 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = mk.dense(cfg.d_model, cfg.vocab,
                                     dtype=L.torch_dtype(cfg.dtype))
+        self.unembed_w = None
         self.tie()
 
     @property
@@ -298,8 +331,10 @@ class Transformer(nn.Module):
 
     def tie(self) -> None:
         """The tied head's weight as the reference computes with it:
-        ``embed`` cast to ``cfg.dtype`` (kept once, not cast every step)."""
-        if self.cfg.tie_embeddings:
+        ``embed`` cast to ``cfg.dtype`` (kept once, not cast every step).
+        The training storage keeps none: ``unembed`` casts ``embed`` inside
+        the graph at every call, so the head's gradient reaches it."""
+        if self.cfg.tie_embeddings and not self.train_storage:
             dt = L.torch_dtype(self.cfg.dtype)
             self.unembed_w = self.embed.detach() if dt == torch.float32 \
                 else self.embed.detach().to(dt)
@@ -343,9 +378,11 @@ class Transformer(nn.Module):
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         if self.cfg.tie_embeddings:
+            w = self.embed.to(x.dtype) if self.unembed_w is None \
+                else self.unembed_w
             # T5-style 1/sqrt(d) scaling of the tied logits, as the reference
-            return (x @ self.unembed_w.t()) * (self.cfg.d_model ** -0.5)
-        return x @ self.lm_head
+            return (x @ w.t()) * (self.cfg.d_model ** -0.5)
+        return x @ self.lm_head.to(x.dtype)
 
     def _tables(self, positions: torch.Tensor):
         """RoPE tables for the self-attention layers; None without any."""
@@ -356,12 +393,74 @@ class Transformer(nn.Module):
                              fraction=self.cfg.rope_fraction)
 
 
-def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Transformer:
+def init_model(seed: int, cfg: ArchConfig, *, device=None,
+               train: bool = False) -> Transformer:
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
-    the reference's distributions and scales (not its bits)."""
+    the reference's distributions and scales (not its bits); ``train``
+    builds the training storage."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return Transformer(cfg, device=dev, gen=gen)
+    return Transformer(cfg, device=dev, gen=gen, train=train)
+
+
+def _memory(model: Transformer, frontend_emb, plain: bool):
+    """The memory the ``cross`` and ``xattn`` layers attend: the projected
+    frontend embeddings, through the encoder where the config has one; None
+    without a frontend.  A config with a frontend needs the embeddings, one
+    without takes none."""
+    cfg = model.cfg
+    if (frontend_emb is None) != (cfg.frontend is None):
+        raise ValueError(
+            f"{cfg.name}: " + (f"the model needs the {cfg.frontend} "
+                               "frontend's embeddings" if cfg.frontend else
+                               "the config has no frontend"))
+    if frontend_emb is None:
+        return None
+    memory = model.frontend_kv(frontend_emb)
+    if cfg.encoder_layers:
+        memory = model.encode(memory, plain=plain)
+    return memory
+
+
+def forward(model: Transformer, tokens: torch.Tensor,
+            frontend_emb: torch.Tensor | None = None, *, remat: bool = False,
+            plain: bool = False):
+    """Full-sequence forward of tokens [B, S] with no cache -> (logits
+    [B, S, V], aux), aux the float32 sum of the MoE layers' load-balance
+    losses (0 without MoE layers): the reference's ``forward``.  A config
+    with a frontend takes its embeddings [B, F, frontend_dim] (projected,
+    and encoded where the config has an encoder).  ``remat`` recomputes
+    each repetition of the layer period in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
+    scan body in ``jax.checkpoint``; the remainder (``tail``) layers are
+    not, as there.  The reference's ``kv_chunk`` (its jnp attention's KV
+    chunk) and ``unroll`` change no value beyond summation order and have
+    no counterpart.  ``plain`` runs the plain versions on a CUDA tensor too
+    (parity checks only)."""
+    cfg = model.cfg
+    memory = _memory(model, frontend_emb, plain)
+    x = model.embed_tokens(tokens)
+    tables = model._tables(torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :])
+    period, reps = cfg.period, cfg.n_layers // cfg.period
+    blocks = list(model.blocks)
+
+    def body(x, aux, blks):
+        for blk in blks:
+            x, a = blk(x, tables, memory=memory, plain=plain)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for r in range(reps):
+        blks = blocks[r * period:(r + 1) * period]
+        if remat:
+            x, aux = checkpoint(body, x, aux, blks, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, blks)
+    x, aux = body(x, aux, blocks[reps * period:])
+    return model.unembed(x), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -418,18 +517,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache,
     int32).  A config with a frontend needs ``frontend_emb`` (the
     reference, given none, fails for every prompt whose length is not
     F); one without takes none."""
-    cfg = model.cfg
-    if (frontend_emb is None) != (cfg.frontend is None):
-        raise ValueError(
-            f"{cfg.name}: " + (f"prefill needs the {cfg.frontend} frontend's "
-                               "embeddings" if cfg.frontend else
-                               "the config has no frontend"))
     B, S = tokens.shape
-    memory = None
-    if frontend_emb is not None:
-        memory = model.frontend_kv(frontend_emb)
-        if cfg.encoder_layers:
-            memory = model.encode(memory, plain=plain)
+    memory = _memory(model, frontend_emb, plain)
     x = model.embed_tokens(tokens)
     tables = model._tables(torch.arange(S, device=tokens.device)[None, :])
     for blk, kv in zip(model.blocks, cache):

@@ -147,14 +147,16 @@ def add_noise_by_name(tree, table: dict, rng) -> None:
 
 
 def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
-                       ssd_seed=None, rglru_seed=None, cross_seed=None):
+                       ssd_seed=None, rglru_seed=None, cross_seed=None,
+                       train: bool = False):
     """The reference's ``init_model(seed, cfg)`` parameters and the port's
     CPU model holding the same values.  ``bias_seed`` replaces the zero QKV
     biases by random ones, and ``ssd_seed`` / ``rglru_seed`` /
     ``cross_seed`` put seeded noise (``SSD_NOISE`` / ``RGLRU_NOISE`` /
     ``CROSS_NOISE``) on the Mamba2 / RG-LRU / gate, bias and norm
     parameters initialised to zeros or ones, in the numpy tree both
-    packages load (so a test sees them act)."""
+    packages load (so a test sees them act).  ``train`` loads the port's
+    training storage (float32 parameters that require grad)."""
     import jax
     import jax.numpy as jnp
     from repro.models import transformer as JT
@@ -176,7 +178,8 @@ def jax_and_port_model(cfg, seed: int = 0, *, bias_seed=None,
     if cross_seed is not None:
         add_noise_by_name(params, CROSS_NOISE,
                           np.random.default_rng(cross_seed))
-    model = convert.params_from_jax(params, port_arch(cfg), device="cpu")
+    model = convert.params_from_jax(params, port_arch(cfg), device="cpu",
+                                    train=train)
     return jax.tree.map(jnp.asarray, params), model
 
 

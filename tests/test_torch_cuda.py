@@ -1,11 +1,12 @@
 """On-card tests of the port: the Hopper token-bucket (step and grant
-tick, serial and over a batch), decode-attention, flash-prefill and
-SSD-scan kernels against their plain versions, CUDA dataplane windows
-(every engine parity case, and a ragged mixed-mode batch) against the same
-windows on the CPU, and the serving engine
-(gemma3 and mamba2) through the kernels against the same engine through the
-plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card
-run them with
+tick, serial and over a batch), decode-attention, flash-prefill (forward
+and backward) and SSD-scan kernels against their plain versions, CUDA
+dataplane windows (every engine parity case, and a ragged mixed-mode
+batch) against the same windows on the CPU, the serving engine (gemma3
+and mamba2) through the kernels against the same engine through the plain
+versions, and a training step through the kernels against one through the
+plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere;
+on the card run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -29,7 +30,8 @@ from repro_torch.core.interconnect import LinkSpec, ResourceSpec
 from repro_torch.core.sim import (SimConfig, gen_arrivals, simulate,
                                   simulate_batch)
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops, \
+    rehearse as fp_rehearse
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.token_bucket import ops, rehearse as tb_rehearse
 
@@ -851,3 +853,124 @@ def test_moe_decode_form_matches_grouped_on_card(dev):
     ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
     assert bool(((dense - grouped).abs() <= ulp + 1e-2 * grouped.abs()
                  ).all()), float((dense - grouped).abs().max())
+
+
+# --- training: the flash-attention backward kernel and the train step ------
+
+@pytest.mark.parametrize("n", range(len(fp_rehearse.BACKWARD_CASES)))
+def test_flash_backward_kernel_matches_plain(dev, n):
+    """The backward kernel's dq, dk, dv and the forward kernel's LSE
+    against the plain versions on the same inputs, at every
+    ``rehearse.BACKWARD_CASES`` row (starcoder2-3b's and gemma3-12b's
+    shapes, a chunked mask, a ragged 1000, seamless's non-causal G = 1, a
+    cross case, float32, rows that reach no key): within
+    ``rehearse.LSE_TOL`` / ``GRAD_RTOL``; two launches on the backward
+    kernels of ``backward_path`` (tensor cores for bf16 at D <= 128)."""
+    case = fp_rehearse.BACKWARD_CASES[n]
+    path = "backward_" + fp_ops.backward_path(getattr(torch, case[-1]),
+                                              case[4])
+    before = dict(fp_ops.LAUNCHES_BY_PATH)
+    fp_rehearse.check_backward(case, dev, n)
+    before[path] += 2
+    before["tensor_core" if case[-1] == "bfloat16" else "cuda_core"] += 1
+    assert fp_ops.LAUNCHES_BY_PATH == before
+
+
+def _train_batch(cfg, dev, seed: int = 1) -> dict:
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (2, 40)), device=dev),
+        "mask": torch.ones((2, 40), dtype=torch.int32, device=dev)}
+    if cfg.frontend:
+        batch["frontend"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32),
+            device=dev)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "seamless-m4t-medium",
+                                  "recurrentgemma-9b", "mixtral-8x22b"])
+def test_train_step_kernels_match_plain_on_card(dev, arch):
+    """One ``train_step`` of the reduced float32 config (live gates, biases
+    and norms, ``chip_smoke._liven``) through the kernels (the float32
+    flash forward and backward kernels; seamless's non-causal encoder and
+    cross-attention backward) against one through the plain versions from
+    the same weights (mixtral on the same MoE routing): the loss within
+    1e-5, each gradient within 1e-4 relative Frobenius error (or 1e-6
+    absolute: a key bias's gradient is zero in exact arithmetic), each
+    updated element within 2.5 learning rates; the flash forward kernel
+    launched twice a decoder attention (remat recomputes it) and once an
+    encoder layer, the backward kernels twice (dQ, then dK and dV) an
+    attention."""
+    import copy
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.routing import RoutingTape
+    from repro_torch.training import optimizer as opt, train as TR
+    cfg = get_reduced_config(arch)
+    model = T.init_model(0, cfg, device=dev, train=True)
+    chip_smoke._liven(model, 1)
+    plain = copy.deepcopy(model)
+    batch = _train_batch(cfg, dev)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    tapes = [RoutingTape(m) for m in (model, plain)] if cfg.n_experts \
+        else None
+    per = chip_smoke.attention_launches(cfg)
+    n_attn = per["causal"] + per["encoder"] + per["memory"]
+    # remat recomputes the decoder's attention; the encoder runs once
+    n_fwd = 2 * (per["causal"] + per["memory"]) + per["encoder"]
+    metrics = []
+    for i, m in enumerate((model, plain)):
+        if tapes and i == 0:
+            tapes[0].record()
+        elif tapes:
+            # the kernels' routing, the forward's and remat's recompute's
+            tapes[1].tape = tapes[0].tape
+            tapes[1].replay()
+        before = dict(fp_ops.LAUNCHES_BY_PATH)
+        step = TR.make_train_step(cfg, ocfg, remat=True, plain=i == 1)
+        metrics.append(step(m, opt.init(dict(m.named_parameters())),
+                            batch)[2])
+        got = {k: fp_ops.LAUNCHES_BY_PATH[k] - before[k] for k in before}
+        want = dict(tensor_core=0, cuda_core=n_fwd,
+                    backward_tensor_core=0, backward_cuda_core=2 * n_attn)
+        assert got == (want if i == 0 else {k: 0 for k in want})
+        if tapes and i == 1:
+            tapes[1].stop()
+    torch.cuda.synchronize()
+    assert float(metrics[0]["loss"]) == pytest.approx(
+        float(metrics[1]["loss"]), rel=1e-5)
+    lr = float(metrics[0]["lr"])
+    for (name, p), (_, q) in zip(model.named_parameters(),
+                                 plain.named_parameters()):
+        err = float((p.grad - q.grad).norm())
+        assert err <= 1e-4 * float(q.grad.norm()) or err <= 1e-6, name
+        assert float((p - q).abs().max()) <= 2.5 * lr, name
+
+
+def test_ssd_training_refused_on_card(dev, monkeypatch):
+    """mamba2's ssd layers have no SSD-scan backward: on the card a graph
+    that needs their gradient raises (never a silently constant output),
+    and the launcher refuses the arch before building a model; serving
+    (no grad) and the plain scan (``plain=True``) still run."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train as TR
+    cfg = get_reduced_config("mamba2-780m")
+    model = T.init_model(0, cfg, device=dev, train=True)
+    batch = _train_batch(cfg, dev)
+    with pytest.raises(RuntimeError, match="SSD-scan kernel has no backward"):
+        TR.loss_fn(model, batch)
+    with torch.no_grad():
+        logits, _ = T.forward(model, batch["tokens"])
+    loss, _ = TR.loss_fn(model, batch, plain=True)
+    loss.backward()
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
+
+    def built(*_, **__):
+        raise AssertionError("a model was built")
+    monkeypatch.setattr(LT.T, "init_model", built)
+    with pytest.raises(ValueError, match="SSD-scan"):
+        LT.train(LT.parser().parse_args(["--arch", "mamba2-780m"]),
+                 device=dev)
