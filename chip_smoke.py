@@ -79,8 +79,9 @@ that every flash-prefill and SSD-scan launch took the tensor-core path.
 
 Training (``launch/train.py`` -> ``make_train_step`` -> ``loss_fn`` ->
 ``forward`` -> AdamW): ``flash_backward`` holds the flash-attention
-backward kernel (two launches a call: bf16 at D <= 128 on the tensor
-cores, float32 and D 256 on the CUDA cores) and the forward kernels' LSE
+backward kernels (bf16 on the tensor cores, TMA and wgmma, three launches
+a call, bitwise the same run to run; float32 on the CUDA cores, two
+launches) and the forward kernels' LSE
 output against their plain versions at training's shapes (starcoder2-3b's
 4096 tokens, gemma3-12b's window, a chunked mask, a ragged 1000,
 seamless's non-causal G = 1, a cross case, float32, rows that reach no
@@ -3067,10 +3068,13 @@ KERNEL_KINDS = {
                  "ssd_output_kernel"),
     "token_bucket": ("tb_step", "tb_grant_tick"),
     "flash_backward": ("flash_backward",),
-    # the backward's two kernels apart (device_ms_per_launch; a profile
-    # files both under flash_backward, the first kind that matches)
+    # the backward's kernels apart (device_ms_per_launch; a profile files
+    # them all under flash_backward, the first kind that matches): dQ, the
+    # dK / dV partial sums, their reduction (dK / dV's too)
     "flash_backward_dq": ("flash_backward_dq",),
-    "flash_backward_dkdv": ("flash_backward_dkdv",),
+    "flash_backward_dkdv": ("flash_backward_dkdv_tc",
+                            "flash_backward_dkdv_kernel"),
+    "flash_backward_dkdv_reduce": ("flash_backward_dkdv_reduce",),
     "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK"),
     "elementwise": ("elementwise", "vectorized", "unrolled"),
     "reduce": ("reduce",),
@@ -3761,10 +3765,13 @@ def phase_flash_backward(dev) -> dict:
     forward kernel's LSE within 1e-2 bf16 / 1e-4 float32, dq, dk, dv within
     1e-2 / 1e-4 of the plain gradients' max-abs; rows that reach no key
     zero), each call checked on its kernels through ``LAUNCHES_BY_PATH``
-    and ``LAUNCHES_WITH_LSE`` (bf16 at D <= 128 on the tensor-core
-    backward, float32 and gemma3's D 256 on the CUDA-core one).  At
+    (``ops.BACKWARD_LAUNCHES``) and ``LAUNCHES_WITH_LSE`` (bf16 on the
+    tensor-core backward, float32 on the CUDA-core one), and every bf16
+    row's two calls bitwise equal (``check_deterministic``).  At
     starcoder2-3b's and gemma3-12b's shapes: ms a call, device ms a launch
-    of each kernel (profiled, ``device_ms_per_launch``) and their sum, at starcoder2's the CUDA-core kernels on the
+    of each kernel (profiled, ``device_ms_per_launch``: dQ, the dK / dV
+    partials, their reduction) and their sum, the head slices
+    (``ops.dkdv_splits``), at starcoder2's the CUDA-core kernels on the
     same bf16 inputs (``cuda_core_ms``, checked too), the plain backward's
     ms, SDPA's backward (``library_ms``: autograd through
     ``scaled_dot_product_attention`` with ``enable_gqa``, ``is_causal``
@@ -3784,12 +3791,15 @@ def phase_flash_backward(dev) -> dict:
         want = dict(before[0])
         want[path] += 1
         bpath = ops.backward_path(getattr(torch, case[-1]), case[4])
-        want["backward_" + bpath] += 2
+        want["backward_" + bpath] += ops.BACKWARD_LAUNCHES[bpath]
         if ops.LAUNCHES_BY_PATH != want or \
                 ops.LAUNCHES_WITH_LSE[path] != before[1][path] + 1:
             raise AssertionError(f"flash_backward {case}: launches "
                                  f"{ops.LAUNCHES_BY_PATH} != {want}")
         row["path"], row["backward_path"] = path, bpath
+        if bpath == "tensor_core":
+            row["deterministic"] = rehearse.check_deterministic(
+                case, dev, 300 + i)
         if i in BWD_TIMED:
             B, Sq, H, KvH, D, w, ck, causal, Sk, dn = case
             q, k, v, do, kw = rehearse.backward_inputs(case, dev, 300 + i)
@@ -3799,16 +3809,24 @@ def phase_flash_backward(dev) -> dict:
             n_bytes = (3 * q.numel() + 3 * k.numel() + 2 * do.numel()) \
                 * esize + 4 * lse.numel()
             flops = 10 * B * H * D * pairs
-            row.update(reachable_pairs=pairs, flops=flops, bytes=n_bytes)
+            row.update(reachable_pairs=pairs, flops=flops, bytes=n_bytes,
+                       splits=ops.dkdv_splits(
+                           B, Sq, Sk, KvH, H // KvH, D, window=w,
+                           chunk_size=ck, causal=causal,
+                           sms=torch.cuda.get_device_properties(
+                               dev).multi_processor_count))
             row["bound_ms"], row["bound_by"] = attn_bound(n_bytes, flops,
                                                           "bfloat16")
 
             def call():
                 return ops.flash_backward(q, k, v, o, lse, do, **kw)
             row["ms"] = auto_time_ms(call, budget_s=0.5, max_iters=20)
+            kinds = ("flash_backward_dq", "flash_backward_dkdv") + (
+                ("flash_backward_dkdv_reduce",) if bpath == "tensor_core"
+                else ())
             row["device_ms_by_kernel"] = {
                 kind: device_ms_per_launch(call, kind, calls=10)
-                for kind in ("flash_backward_dq", "flash_backward_dkdv")}
+                for kind in kinds}
             row["device_ms"] = sum(row["device_ms_by_kernel"].values())
             if bpath == "tensor_core":
                 # the CUDA-core kernels on the same bf16 inputs, through the
@@ -3896,7 +3914,8 @@ def phase_train_parity(dev) -> dict:
     (relative Frobenius error), every updated element within
     TRAIN_UPDATE_LR learning rates; the kernels' step launched the forward
     kernel (with its LSE) twice a layer (remat recomputes it) and the
-    backward once, the plain step no kernel."""
+    backward once (``ops.BACKWARD_LAUNCHES`` launches), the plain step no
+    kernel."""
     import copy
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3961,7 +3980,8 @@ def phase_train_parity(dev) -> dict:
             res["max_update_err_lr"] > TRAIN_UPDATE_LR:
         raise AssertionError(f"train_parity: kernels != plain: {res}")
     want = dict(tensor_core=2 * n_layers, cuda_core=0,
-                backward_tensor_core=2 * n_layers, backward_cuda_core=0)
+                backward_tensor_core=fp.BACKWARD_LAUNCHES["tensor_core"]
+                * n_layers, backward_cuda_core=0)
     if k_paths != want or any(out["plain"]["launches"].values()) or \
             out["kernels"]["launches"]["flash_prefill"] != 2 * n_layers or \
             res["kernels_with_lse"]["tensor_core"] != 2 * n_layers or \
@@ -3999,7 +4019,8 @@ def phase_train(dev) -> dict:
     (``on_start``): every loss finite, every parameter moved (a strided
     sample of each against its value before the first step), flash prefill
     launched exactly steps x 30 x 2 times with its LSE (remat recomputes
-    the forward) and its backward steps x 30 times each launch, no
+    the forward) and its backward steps x 30 times (each call
+    ``ops.BACKWARD_LAUNCHES["tensor_core"]`` launches), no
     plain-version call and no other kernel; peak memory, ms a step (the
     first apart), tokens a second; then one more step profiled by kernel
     kind (the forward and backward, then the optimizer alone), and the
@@ -4090,7 +4111,8 @@ def phase_train(dev) -> dict:
         / PEAK_FLOPS["bfloat16"])
     emit("train", **res)
     want_paths = dict(tensor_core=steps * L * 2, cuda_core=0,
-                      backward_tensor_core=steps * L * 2,
+                      backward_tensor_core=steps * L
+                      * fp.BACKWARD_LAUNCHES["tensor_core"],
                       backward_cuda_core=0)
     if not all(map(math.isfinite, run["losses"])) or \
             len(run["losses"]) != steps:
@@ -4350,8 +4372,8 @@ def main() -> int:
                 {k: r.get(k) for k in ("shape", "ms", "cuda_core_ms",
                                        "plain_ms", "bound_ms", "bound_by",
                                        "bound_share")} for r in res["timed"]]
-    # the flash-prefill kernel's gradient: its own kernel (two launches a
-    # call), launched on the training path
+    # the flash-prefill kernel's gradient: its own kernels (three launches
+    # a call in bf16), launched on the training path
     m = fbw["main"]
     rows.insert([r["name"] for r in rows].index("flash_prefill") + 1, {
         "name": "flash_backward", "route": "cuda",
@@ -4371,9 +4393,13 @@ def main() -> int:
         "device_ms_per_call": m["device_ms"],
         "device_ms_by_kernel": m["device_ms_by_kernel"],
         "bound_share": m["bound_share"], "tflops": m["tflops"],
+        "splits": m["splits"],
         "gemma3": {k: fbw["gemma3"][k] for k in (
-            "case", "ms", "device_ms", "plain_ms", "library_ms", "library",
-            "bound_ms", "bound_by", "bound_share")},
+            "case", "ms", "device_ms", "device_ms_by_kernel", "plain_ms",
+            "library_ms", "library", "bound_ms", "bound_by", "bound_share",
+            "tflops", "splits")},
+        "bitwise_repeatable_rows": sum(
+            bool(r.get("deterministic")) for r in fbw["rows"]),
         "launches_by_path": dict(
             train_parity=tpar["kernels_paths"]["backward_tensor_core"],
             train=train["backward_launches"])})

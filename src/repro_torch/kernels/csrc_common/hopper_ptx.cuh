@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels (flash
-// prefill, the SSD scan, decode attention): mbarriers, TMA tile loads and
+// prefill and its backward, the SSD scan, decode attention): mbarriers,
+// TMA tile loads and
 // 1-D bulk copies, asynchronous copies, register rebalancing and warpgroup
 // matrix multiplies (wgmma) on bf16 tiles held in 128-byte-swizzled shared
 // memory.  Every kernel library is built with -I on this directory and
@@ -172,6 +173,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // The accumulator must stay in registers across the asynchronous product:

@@ -70,9 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "hopper_ptx.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -302,7 +301,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 constexpr int TC_WG_ROWS = 64;                 // packed rows a consumer
 constexpr int TC_CONSUMERS = 2;                // consumer warpgroups
 constexpr int TC_ROWS = TC_WG_ROWS * TC_CONSUMERS;
-constexpr int TC_BK = 64;                      // keys a tile
+constexpr int TC_BK = hopper::TILE_ROWS;       // keys a tile
 constexpr int TC_THREADS = 128 * (TC_CONSUMERS + 1);
 constexpr int TC_PANEL = 64 * 128;             // 64 rows x 128 bytes
 constexpr int TC_PRODUCER_REGS = 40;
@@ -643,81 +642,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_prefill_tc_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, found through the runtime (so the
-// library needs no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(ptr);
-  }();
-  return fn;
-}
-
-// Tensor map of a [B, Sk, KvH, D] bf16 tensor: boxes of 64 columns x 64
-// keys of one (batch, KV head), 128-byte swizzle, zeros out of bounds.
-// Cached by (pointer, shape): encoding is pure, so a hit is always valid.
-struct MapEntry {
-  const void* ptr;
-  int B, Sk, KvH, D;
-  CUtensorMap map;
-};
-constexpr int MAP_CACHE = 16;
-MapEntry g_maps[MAP_CACHE];
-int g_maps_used = 0, g_maps_next = 0;
-std::mutex g_maps_mu;
-
-int kv_map(const void* ptr, int B, int Sk, int KvH, int D, CUtensorMap* out) {
-  std::lock_guard<std::mutex> lock(g_maps_mu);
-  for (int i = 0; i < g_maps_used; ++i) {
-    const MapEntry& e = g_maps[i];
-    if (e.ptr == ptr && e.B == B && e.Sk == Sk && e.KvH == KvH && e.D == D) {
-      *out = e.map;
-      return 0;
-    }
-  }
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  // a sequence of no keys still gets a valid map; no tile is loaded
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(KvH),
-                              static_cast<cuuint64_t>(max(Sk, 1)),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(KvH) * D * 2,
-      static_cast<cuuint64_t>(max(Sk, 1)) * KvH * D * 2};
-  const cuuint32_t box[4] = {64, 1, TC_BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  MapEntry e{ptr, B, Sk, KvH, D, {}};
-  const CUresult r = enc(
-      &e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  g_maps[g_maps_next] = e;
-  g_maps_next = (g_maps_next + 1) % MAP_CACHE;
-  g_maps_used = min(g_maps_used + 1, MAP_CACHE);
-  *out = e.map;
-  return 0;
-}
-
 template <int D16>
 int launch_tc(const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p,
               cudaStream_t stream) {
@@ -786,8 +710,8 @@ extern "C" int flash_prefill_tc_launch(const void* q, const void* k,
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mk, mv;
-  int err = kv_map(k, B, Sk, KvH, D, &mk);
-  if (err == 0) err = kv_map(v, B, Sk, KvH, D, &mv);
+  int err = hopper::tile_map(k, B, Sk, KvH, D, &mk);
+  if (err == 0) err = hopper::tile_map(v, B, Sk, KvH, D, &mv);
   if (err != 0) return err;
   TcParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);

@@ -27,15 +27,18 @@ Training (``flash_attention``, a ``torch.autograd.Function``): the forward
 is the same kernel asked for each row's log-sum-exp too
 (``flash_prefill_lse``: a nullable output of both kernels, so serving's
 launches write none), and the backward is a kernel of its own,
-``csrc/flash_backward.cu`` (``flash_backward``: two launches a call, dQ
-with Di = rowsum(dO O), then dK and dV summed over each KV head's query
-heads, no atomics), chosen by ``backward_path``: bf16 operands with D <=
-128 (the models' path) on the tensor cores (warp-level ``mma.sync``),
-float32 ones and wider heads on the CUDA cores.  On a CPU tensor both run
-their plain versions (``ref.py``).  ``LAUNCHES_WITH_LSE`` counts the
-forward's launches that wrote the LSE (they count in ``LAUNCHES`` too);
+``csrc/flash_backward.cu`` (``flash_backward``), chosen by
+``backward_path``: bf16 operands with D <= 256 (the models' path) on the
+tensor cores (TMA and wgmma; three launches a call: dQ with Di =
+rowsum(dO O), then dK and dV as float32 partial sums over slices of each
+KV head's query heads, ``dkdv_splits`` / ``head_splits``, then their sum
+in slice order: no atomics, the same bits run to run), float32 ones on
+the CUDA cores (two launches a call: dQ with Di, then dK and dV summed
+over each KV head's query heads).  On a CPU tensor both run their plain
+versions (``ref.py``).  ``LAUNCHES_WITH_LSE`` counts the forward's
+launches that wrote the LSE (they count in ``LAUNCHES`` too);
 ``LAUNCHES_BY_PATH`` gains ``backward_tensor_core`` and
-``backward_cuda_core``, two launches each a backward call.
+``backward_cuda_core``, ``BACKWARD_LAUNCHES[path]`` each a backward call.
 ``PLAIN_CALLS`` counts calls of the plain versions, on any device.
 """
 from __future__ import annotations
@@ -61,8 +64,10 @@ MAX_HEAD_DIM = 256
 
 #: kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+#: the backward kernels' launches a call, by ``backward_path``
+BACKWARD_LAUNCHES = {"tensor_core": 3, "cuda_core": 2}
 #: the same launches by kernel: ``kernel_path``'s names; and the backward
-#: kernels' launches (two a call) by ``backward_path``
+#: kernels' launches (``BACKWARD_LAUNCHES`` a call) by ``backward_path``
 LAUNCHES_BY_PATH = {"tensor_core": 0, "cuda_core": 0,
                     "backward_tensor_core": 0, "backward_cuda_core": 0}
 #: the forward launches that also wrote each row's LSE (training), by kernel
@@ -97,9 +102,11 @@ def _backward_launchers():
     if _BWD is None:
         lib = _build.build(BWD_NAME, BWD_SOURCE)
         tc, cc = lib.flash_backward_tc_launch, lib.flash_backward_launch
-        tc.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
-        cc.argtypes = [ctypes.c_int] + tc.argtypes
+        tc.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        cc.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                               ctypes.c_void_p])
         tc.restype = cc.restype = ctypes.c_int
         _BWD = (tc, cc)
     return _BWD
@@ -148,11 +155,78 @@ def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
 
 def backward_path(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels a CUDA call launches: ``"tensor_core"`` for
-    bf16 operands with a head dim that is a multiple of 8 up to 128,
-    ``"cuda_core"`` otherwise (float32, or gemma3's 256)."""
-    if dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 128:
+    bf16 operands (any head dim up to ``MAX_HEAD_DIM``, padded as the
+    forward pads it), ``"cuda_core"`` for float32 ones."""
+    if dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core"
+
+
+#: rows of a tensor-core tile: query rows, or keys a consumer warpgroup
+TILE = 64
+
+
+def dkdv_keys(head_dim: int) -> int:
+    """Keys a dK / dV CTA of the tensor-core backward owns: two consumer
+    warpgroups of ``TILE`` keys up to D 128, one at D 256 (whose CTAs own
+    one half of the output columns each)."""
+    return TILE * (1 if head_dim > 128 else 2)
+
+
+def _q_tiles(k0: int, k_last: int, Sq: int, window: int, chunk_size: int,
+             causal: bool) -> int:
+    """Query tiles of ``TILE`` rows that reach some key in [k0, k_last]:
+    the queries the kernel streams past that key block."""
+    lo, hi = 0, Sq
+    if causal:
+        lo = k0
+        if window > 0:
+            hi = min(hi, k_last + window)
+        if chunk_size > 0:
+            hi = min(hi, (k_last // chunk_size + 1) * chunk_size)
+    return -(-hi // TILE) - lo // TILE if hi > lo else 0
+
+
+def dkdv_splits(B: int, Sq: int, Sk: int, KvH: int, G: int, head_dim: int,
+                *, sms: int, window: int = 0, chunk_size: int = 0,
+                causal: bool = True) -> int:
+    """Slices of each KV head's G query heads in the dK / dV launch on a
+    card of ``sms`` SMs: the fewest whose heaviest CTA (``ceil(G /
+    splits)`` heads over the most query tiles any key block streams) is no
+    longer than an SM's mean share of the whole launch's work, so the
+    causal triangle's first blocks do not outlast the rest; G when no
+    split is that short.  More slices mean more partial sums to write and
+    add."""
+    keys = dkdv_keys(head_dim)
+    tiles = [_q_tiles(k0, min(k0 + keys, Sk) - 1, Sq, window, chunk_size,
+                      causal) for k0 in range(0, Sk, keys)]
+    if not tiles or not max(tiles):
+        return 1
+    halves = 2 if head_dim > 128 else 1
+    total = sum(tiles) * G * KvH * B * halves
+    for splits in range(1, G + 1):
+        if -(-G // splits) * max(tiles) * sms <= total:
+            return splits
+    return G
+
+
+def head_splits(G: int, splits: int) -> list[tuple[int, int]]:
+    """The query heads [g0, g1) of each slice of a KV head's G, in the
+    order the dK / dV partial sums are added (the kernel's formula)."""
+    return [(s * G // splits, (s + 1) * G // splits) for s in range(splits)]
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    """The card's SM count (cached by device index)."""
+    idx = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _tc_operand(x: torch.Tensor, d8: int) -> torch.Tensor:
@@ -267,8 +341,9 @@ def flash_backward(q, k, v, o, lse, do, *, window: int = 0,
                    chunk_size: int = 0, causal: bool = True):
     """Gradients (dq, dk, dv) of ``flash_prefill`` at (q, k, v), in their
     dtypes, from the forward's o and lse and the output's gradient do: on a
-    CUDA tensor the backward kernels of ``backward_path`` (two launches),
-    on a CPU tensor ``flash_backward_plain``.  q, k, v, o and do are all
+    CUDA tensor the backward kernels of ``backward_path``
+    (``BACKWARD_LAUNCHES`` launches), on a CPU tensor
+    ``flash_backward_plain``.  q, k, v, o and do are all
     float32 or all bf16."""
     if not _device("flash_backward", q):
         return flash_backward_plain(q, k, v, o, lse, do, window=window,
@@ -287,25 +362,41 @@ def flash_backward(q, k, v, o, lse, do, *, window: int = 0,
     _check("lse", lse, (B, H, Sq), (torch.float32,), dev)
     path = backward_path(q.dtype, D)
     tc, cc = _backward_launchers()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mask = (int(window), int(chunk_size), int(causal))
     if path == "tensor_core":
-        # 16-byte aligned starts for the kernels' vector loads (the models'
-        # tensors are; a view may not be)
-        q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone()
-                          for x in (q, k, v, o, do))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
-    di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), di.data_ptr(), B, Sq, Sk, H, KvH, D, int(window),
-            int(chunk_size), int(causal), D ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
-    err = tc(*args) if path == "tensor_core" \
-        else cc(int(q.dtype == torch.bfloat16), *args)
+        # head dim padded to a multiple of 8, 16-byte aligned starts (the
+        # models' tensors pass unchanged)
+        d8 = -(-D // 8) * 8
+        q, k, v, o, do = (_tc_operand(x, d8) for x in (q, k, v, o, do))
+        splits = dkdv_splits(B, Sq, Sk, KvH, H // KvH, d8, window=window,
+                             chunk_size=chunk_size, causal=causal,
+                             sms=_sms(dev))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+            torch.empty_like(v)
+        part = torch.empty((2, splits, B, Sk, KvH, d8), dtype=torch.float32,
+                           device=dev)
+        rows = torch.empty((2, B, H, -(-Sq // TILE) * TILE),
+                           dtype=torch.float32, device=dev)
+        err = tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), part.data_ptr(), rows[0].data_ptr(),
+                 rows[1].data_ptr(), B, Sq, Sk, H, KvH, d8, *mask,
+                 D ** -0.5, splits, stream)
+        if d8 != D:
+            dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
+    else:
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+            torch.empty_like(v)
+        di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        err = cc(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+                 B, Sq, Sk, H, KvH, D, *mask, D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_backward {path} kernel launch failed: "
                            f"CUDA error {err}")
-    LAUNCHES_BY_PATH["backward_" + path] += 2
+    LAUNCHES_BY_PATH["backward_" + path] += BACKWARD_LAUNCHES[path]
     return dq, dk, dv
 
 

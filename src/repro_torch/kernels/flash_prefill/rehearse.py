@@ -15,15 +15,18 @@ it.
 
 ``--backward`` does the same for training's kernels: the forward's LSE
 output (both kernels) and the backward kernel's dq, dk and dv against the
-plain versions on the same inputs at ``BACKWARD_CASES`` (``check_backward``,
-which ``chip_smoke.py`` and the card tests call too), and times the
-backward at starcoder2-3b's 4096-token shape, on its tensor-core kernels
-and on the CUDA-core ones.
+plain versions on the same inputs at ``BACKWARD_CASES`` (``check_backward``
+and ``check_deterministic``, which ``chip_smoke.py`` and the card tests
+call too), and times the backward at starcoder2-3b's 4096-token shape
+(on its tensor-core kernels and on the CUDA-core ones) and at
+gemma3-12b's, with the device ms of each kernel, and at other head
+slicings of the dK / dV launch than ``ops.dkdv_splits`` picks.
 """
 from __future__ import annotations
 
 import collections
 import os
+import re
 import sys
 import time
 
@@ -66,7 +69,12 @@ TOL = 2e-2
 # local layers; a chunked mask; a ragged 1000; seamless-m4t-medium's
 # encoder, G = 1, D 64; a cross case with Sq != Sk; float32, the reduced
 # configs' type), then the edges: rows that reach no key (Sq > Sk + window:
-# LSE -inf and no gradient), D not a multiple of 8, G = 5
+# LSE -inf and no gradient), D not a multiple of 8, G = 5; then the
+# tensor-core design's edges in bf16: D 256 (column halves) off gemma3's
+# shape with a window and a ragged length, D 80 and D 200 (zero columns
+# from TMA's fill), G = 5 cut into head slices of 1, 2 and 2
+# (``ops.dkdv_splits`` picks 3 at 27 key blocks of one query tile), B = 2,
+# rows that reach no key, a chunk that is not a multiple of a tile
 BACKWARD_CASES = [
     (1, 4096, 24, 2, 128, 4096, 0, True, 4096, "bfloat16"),
     (1, 1536, 16, 8, 256, 1024, 0, True, 1536, "bfloat16"),
@@ -77,6 +85,13 @@ BACKWARD_CASES = [
     (2, 200, 4, 2, 64, 64, 0, True, 200, "float32"),
     (1, 100, 4, 2, 64, 16, 0, True, 40, "float32"),
     (1, 77, 10, 2, 36, 0, 0, True, 77, "float32"),
+    (1, 300, 8, 2, 256, 100, 0, True, 300, "bfloat16"),
+    (1, 129, 4, 1, 80, 0, 0, True, 129, "bfloat16"),
+    (1, 150, 6, 3, 200, 40, 0, True, 150, "bfloat16"),
+    (1, 64, 10, 2, 64, 0, 0, False, 3456, "bfloat16"),
+    (2, 200, 8, 2, 128, 64, 0, True, 200, "bfloat16"),
+    (1, 100, 4, 2, 64, 16, 0, True, 40, "bfloat16"),
+    (1, 400, 8, 4, 128, 0, 96, True, 400, "bfloat16"),
 ]
 #: the forward's LSE against the plain one, by operand type (the
 #: tensor-core kernel sums bf16-rounded probabilities); the gradients'
@@ -144,6 +159,24 @@ def check_backward(case, dev, seed: int) -> dict:
     return row
 
 
+def check_deterministic(case, dev, seed: int) -> bool:
+    """Two backward calls on the same inputs of a ``BACKWARD_CASES`` row
+    give bitwise-equal dq, dk and dv (the tensor-core kernels sum in a
+    fixed order, without atomics); raises otherwise."""
+    import torch
+    from repro_torch.kernels.flash_prefill import ops
+    q, k, v, do, kw = backward_inputs(case, dev, seed)
+    o, lse = ops.flash_prefill_lse(q, k, v, **kw)
+    first = ops.flash_backward(q, k, v, o, lse, do, **kw)
+    second = ops.flash_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_backward {case}: two calls give "
+                                 f"different {name}")
+    return True
+
+
 def _finish_or_exit(tag: str, limit_s: float = 20.0) -> None:
     """Wait for the card's queue, ending the process if it does not drain
     within ``limit_s`` (a kernel that never finishes)."""
@@ -173,10 +206,33 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def backward_main(dev) -> int:
-    """``--backward``: every ``BACKWARD_CASES`` row under the watchdog, then
-    the backward's time at the first row's shape."""
+def _device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (``torch.profiler``
+    over ``calls`` calls), by kernel name."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"flash_\w+(<[^>]*>)?", e.name)
+            name = found.group(0) if found else e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / calls
+    return by_name
+
+
+def backward_main(dev) -> int:
+    """``--backward``: every ``BACKWARD_CASES`` row under the watchdog (and
+    two calls of each bf16 row bitwise equal), then the backward's time and
+    device ms by kernel at the first two rows' shapes (starcoder2-3b's and
+    gemma3-12b's), at the first the CUDA-core kernels' time, and at both
+    the time at other head slicings of the dK / dV launch."""
     from repro_torch.kernels.flash_prefill import ops
     for n, case in enumerate(BACKWARD_CASES):
         q, k, v, do, kw = backward_inputs(case, dev, n)
@@ -184,23 +240,43 @@ def backward_main(dev) -> int:
                            do, **kw)
         _finish_or_exit(str(case))
         try:
-            print(check_backward(case, dev, n), flush=True)
+            row = check_backward(case, dev, n)
+            if case[-1] == "bfloat16":
+                row["deterministic"] = check_deterministic(case, dev, n)
+            print(row, flush=True)
         except AssertionError as e:
             print(f"FAILED {e}", flush=True)
             return 1
-    q, k, v, do, kw = backward_inputs(BACKWARD_CASES[0], dev, 0)
-    o, lse = ops.flash_prefill_lse(q, k, v, **kw)
-    row = dict(case=BACKWARD_CASES[0], ms=_time_ms(
-        lambda: ops.flash_backward(q, k, v, o, lse, do, **kw), iters=5),
-        forward_lse_ms=_time_ms(lambda: ops.flash_prefill_lse(q, k, v, **kw)))
-    path = ops.backward_path
-    ops.backward_path = lambda *_: "cuda_core"
-    try:
-        row["cuda_core_ms"] = _time_ms(
-            lambda: ops.flash_backward(q, k, v, o, lse, do, **kw), iters=3)
-    finally:
-        ops.backward_path = path
-    print("backward", row, flush=True)
+    for n in (0, 1):
+        q, k, v, do, kw = backward_inputs(BACKWARD_CASES[n], dev, n)
+        o, lse = ops.flash_prefill_lse(q, k, v, **kw)
+
+        def call():
+            return ops.flash_backward(q, k, v, o, lse, do, **kw)
+        row = dict(case=BACKWARD_CASES[n], ms=_time_ms(call, iters=10),
+                   device_ms_by_kernel=_device_ms_by_kernel(call),
+                   forward_lse_ms=_time_ms(
+                       lambda: ops.flash_prefill_lse(q, k, v, **kw)))
+        if n == 0:
+            path = ops.backward_path
+            ops.backward_path = lambda *_: "cuda_core"
+            try:
+                row["cuda_core_ms"] = _time_ms(call, iters=3)
+            finally:
+                ops.backward_path = path
+        print("backward", row, flush=True)
+        # the dK / dV launch at other head slicings than dkdv_splits's
+        G = BACKWARD_CASES[n][2] // BACKWARD_CASES[n][3]
+        chosen = ops.dkdv_splits
+        try:
+            for s in sorted({1, 2, 3, 4, 6, G} & set(range(1, G + 1))):
+                ops.dkdv_splits = lambda *_, s=s, **__: s
+                print("  splits", s, dict(
+                    ms=_time_ms(call, iters=10),
+                    device_ms_by_kernel=_device_ms_by_kernel(call)),
+                    flush=True)
+        finally:
+            ops.dkdv_splits = chosen
     return 0
 
 

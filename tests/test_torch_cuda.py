@@ -863,17 +863,30 @@ def test_flash_backward_kernel_matches_plain(dev, n):
     against the plain versions on the same inputs, at every
     ``rehearse.BACKWARD_CASES`` row (starcoder2-3b's and gemma3-12b's
     shapes, a chunked mask, a ragged 1000, seamless's non-causal G = 1, a
-    cross case, float32, rows that reach no key): within
-    ``rehearse.LSE_TOL`` / ``GRAD_RTOL``; two launches on the backward
-    kernels of ``backward_path`` (tensor cores for bf16 at D <= 128)."""
+    cross case, float32, rows that reach no key; in bf16 D 256 off
+    gemma3's shape, D 80 and 200, G = 5 in uneven head slices, B = 2, a
+    chunk across tiles): within ``rehearse.LSE_TOL`` / ``GRAD_RTOL``;
+    ``BACKWARD_LAUNCHES`` launches on the backward kernels of
+    ``backward_path`` (tensor cores for bf16, three; CUDA cores for
+    float32, two)."""
     case = fp_rehearse.BACKWARD_CASES[n]
-    path = "backward_" + fp_ops.backward_path(getattr(torch, case[-1]),
-                                              case[4])
+    bpath = fp_ops.backward_path(getattr(torch, case[-1]), case[4])
     before = dict(fp_ops.LAUNCHES_BY_PATH)
     fp_rehearse.check_backward(case, dev, n)
-    before[path] += 2
+    before["backward_" + bpath] += fp_ops.BACKWARD_LAUNCHES[bpath]
     before["tensor_core" if case[-1] == "bfloat16" else "cuda_core"] += 1
     assert fp_ops.LAUNCHES_BY_PATH == before
+
+
+@pytest.mark.parametrize("n", [
+    i for i, case in enumerate(fp_rehearse.BACKWARD_CASES)
+    if case[-1] == "bfloat16"])
+def test_flash_backward_bitwise_repeatable(dev, n):
+    """Two calls of the tensor-core backward on the same inputs give
+    bitwise-equal dq, dk and dv at every bf16 ``BACKWARD_CASES`` row (the
+    head slices' partial sums are added in a fixed order; no atomics)."""
+    assert fp_rehearse.check_deterministic(fp_rehearse.BACKWARD_CASES[n],
+                                           dev, 100 + n)
 
 
 def _train_batch(cfg, dev, seed: int = 1) -> dict:
@@ -900,7 +913,8 @@ def test_train_step_kernels_match_plain_on_card(dev, arch):
     absolute: a key bias's gradient is zero in exact arithmetic), each
     updated element within 2.5 learning rates; the flash forward kernel
     launched twice a decoder attention (remat recomputes it) and once an
-    encoder layer, the backward kernels twice (dQ, then dK and dV) an
+    encoder layer, the float32 backward kernels
+    ``BACKWARD_LAUNCHES["cuda_core"]`` times (dQ, then dK and dV) an
     attention."""
     import copy
     from repro_torch.configs.registry import get_reduced_config
@@ -933,7 +947,9 @@ def test_train_step_kernels_match_plain_on_card(dev, arch):
                             batch)[2])
         got = {k: fp_ops.LAUNCHES_BY_PATH[k] - before[k] for k in before}
         want = dict(tensor_core=0, cuda_core=n_fwd,
-                    backward_tensor_core=0, backward_cuda_core=2 * n_attn)
+                    backward_tensor_core=0,
+                    backward_cuda_core=fp_ops.BACKWARD_LAUNCHES["cuda_core"]
+                    * n_attn)
         assert got == (want if i == 0 else {k: 0 for k in want})
         if tapes and i == 1:
             tapes[1].stop()
