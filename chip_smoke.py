@@ -91,6 +91,17 @@ and one through the plain versions; ``train`` trains starcoder2-3b at full
 size (30 layers, 3.03 B parameters, one 4096-token sequence a step, remat,
 5 steps) through the launcher, with exact launch counts, no plain-version
 call, every parameter moved, peak memory, ms a step and a profiled step.
+The SSD scan's gradient: ``kernel_ssd_backward`` (after
+``kernel_ssd_scan``) holds its kernels (bf16 with N <= 128 on the tensor
+cores, the rest on the CUDA cores; five launches a call, bitwise the same
+run to run) against the chunked mirror of their arithmetic, small shapes
+against autograd of the sequential scan and the tensor-core kernel
+against the CUDA-core one, and times them at mamba2-780m's training
+shape; after ``train``, ``train_mamba2_parity`` runs one train step
+of mamba2-780m's first 4 layers at full width through the kernels and one
+through the plain sequential scan; ``train_mamba2`` trains mamba2-780m at
+full size (48 ssd layers, 0.78 B parameters, one 4096-token sequence a
+step, remat, 5 steps) through the launcher, as ``train`` does.
 
 The fleet control plane runs the contention, churn and adaptive
 benchmarks' configurations uncut on the card (``resource_parity``,
@@ -235,6 +246,16 @@ TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 1024
 TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_UPDATE_LR = 1e-2, 3e-2, 2.5
 # flash_backward's timed rows (BACKWARD_CASES): starcoder2's and gemma3's
 BWD_TIMED = (0, 1)
+# training mamba2-780m (``train_mamba2``): full width and depth (48 ssd
+# layers, d_model 1536, 48 heads of 64, N 128, vocab 50280; 0.78 B float32
+# parameters and AdamW moments), one 4096-token sequence a step (its batch
+# of 256 cut to 1), remat, 5 launcher steps; ``train_mamba2_parity``: its
+# first 4 layers at full width, one 1024-token sequence, the SSD-scan
+# kernels against the plain sequential scan (seeded ``LIVEN_SSD`` noise on
+# the conv taps, decay, skip and norm parameters), at TRAIN_* tolerances
+MAMBA_TRAIN_ARGV = ["--arch", MAMBA_ARCH, "--production", "--batch", "1",
+                    "--seq", "4096", "--steps", "5"]
+MAMBA_TRAIN_PARITY_LAYERS, MAMBA_TRAIN_PARITY_SEQ = 4, 1024
 
 
 T0 = time.perf_counter()
@@ -2816,7 +2837,8 @@ def _reset_launch_counts() -> None:
     for m in _kernel_ops().values():
         m.LAUNCHES = 0
         for split in ("LAUNCHES_BY_PATH", "LAUNCHES_BY_MASK",
-                      "LAUNCHES_WITH_LSE", "PLAIN_CALLS"):
+                      "LAUNCHES_WITH_LSE", "LAUNCHES_WITH_SPREV",
+                      "PLAIN_CALLS"):
             for key in getattr(m, split, {}):
                 getattr(m, split)[key] = 0
 
@@ -3062,6 +3084,12 @@ def _public(run: dict) -> dict:
 #: kernel-name patterns of each kind in a profile (cuBLAS's Hopper GEMMs
 #: are named nvjet_*)
 KERNEL_KINDS = {
+    # first: the backward's names hold their files', ssd_scan_(tc_)bwd
+    "ssd_backward": ("bwd_chunk_kernel", "bwd_state_pass_kernel",
+                     "bwd_head_kernel", "bwd_dcb_sum_kernel",
+                     "bwd_group_kernel", "tcb_chunk_kernel",
+                     "tcb_state_pass_kernel", "tcb_head_kernel",
+                     "tcb_dcb_sum_kernel", "tcb_group_kernel"),
     "decode_attention": ("decode_attention_cluster",),
     "flash_prefill": ("flash_prefill",),
     "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
@@ -3502,19 +3530,26 @@ def _frontends(cfg, n: int, dev, seed: int) -> list:
 #: reference's parameters (``tests/_torch_parity.py``'s ``CROSS_NOISE``).
 LIVEN = {"xgate": (0.5, 0.5), "bq": (0.1, 0.0), "bk": (0.1, 0.0),
          "bv": (0.1, 0.0), "scale": (0.2, 1.0), "bias": (0.1, 0.0)}
+# the same for a Mamba2 mixer's zero / one parameters (the CPU tests'
+# ``_torch_parity.SSD_NOISE``): conv taps and bias, decay, dt bias, skip,
+# norm scale
+LIVEN_SSD = {"conv_w": (0.3, 0.0), "conv_b": (0.1, 0.0), "a_log": (0.5, 0.0),
+             "dt_bias": (0.5, 0.0), "d_skip": (0.2, 1.0),
+             "norm_scale": (0.2, 1.0)}
 
 
-def _liven(model, seed: int) -> dict:
-    """Seeded noise (``LIVEN``) in place on the parameters the reference
-    initialises to zeros or ones, so that the card's checks see them act.
-    Returns how many of each were drawn, for the ``reduced`` line."""
+def _liven(model, seed: int, table: dict = LIVEN) -> dict:
+    """Seeded noise (``table``: ``LIVEN`` by default) in place on the
+    parameters the reference initialises to zeros or ones, so that the
+    card's checks see them act.  Returns how many of each were drawn, for
+    the ``reduced`` line."""
     import torch
     g = torch.Generator(device=model.device).manual_seed(seed)
     done: dict[str, int] = {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in LIVEN:
-            scale, centre = LIVEN[leaf]
+        if leaf in table:
+            scale, centre = table[leaf]
             noise = torch.randn(p.shape, generator=g, device=p.device)
             p.data.copy_((centre + scale * noise).to(p.dtype))
             done[leaf] = done.get(leaf, 0) + 1
@@ -4132,6 +4167,286 @@ def phase_train(dev) -> dict:
     return dict(res, backward_launches=paths["backward_tensor_core"])
 
 
+def phase_kernel_ssd_backward(dev) -> dict:
+    """The SSD-scan gradient's kernel (``csrc/ssd_scan_bwd.cu``, float32
+    arithmetic for both operand types) at every ``rehearse.BACKWARD_CASES``
+    row: the forward kernel writing S_prev, then the backward's dx, da, dB
+    and dC against ``ref.ssd_scan_chunked_backward`` on the same inputs and
+    cotangents (a nonzero d_state) within ``rehearse.TOL_BWD_MIRROR``, at
+    L <= 512 against autograd of the sequential scan within
+    ``TOL_BWD_PLAIN``, two calls bitwise equal (``check_backward``); then
+    at mamba2-780m's training shape [1,4096,48,64], G 1, N 128 bf16 its ms
+    a call (CUDA events), device ms by kernel (``torch.profiler``), the
+    plain mirror's ms and the bound (``time_backward``)."""
+    from repro_torch.kernels.ssd_scan import rehearse
+    t0 = time.perf_counter()
+    rows = [rehearse.check_backward(case, dev, seed=5)
+            for case in rehearse.BACKWARD_CASES]
+    main = rehearse.time_backward(dev)
+    res = dict(rows=rows, main=main, tol_mirror={
+        "float32": rehearse.TOL_BWD_MIRROR[False],
+        "bfloat16": rehearse.TOL_BWD_MIRROR[True]}, tol_plain={
+        "float32": rehearse.TOL_BWD_PLAIN[False],
+        "bfloat16": rehearse.TOL_BWD_PLAIN[True]},
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        bitwise_rows=sum(r["bitwise"] for r in rows),
+        seconds=time.perf_counter() - t0)
+    emit("kernel_ssd_backward", **res)
+    return res
+
+
+def mamba2_train_parity(dev, cfg, seq: int, seed: int = 7) -> dict:
+    """One ``train_step`` of ``cfg`` (a mamba2 config; training storage,
+    seeded ``LIVEN_SSD`` and ``LIVEN`` noise) on one ``seq``-token batch
+    through the SSD-scan kernels and one through the plain sequential scan
+    (``plain=True``), from the same weights: the losses, the worst
+    relative Frobenius error of a gradient, the worst update gap in
+    learning rates, and each step's launches (``_counted``), forward
+    launches with S_prev and plain-scan calls."""
+    import copy
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt, train as TR
+    model = T.init_model(SERVE_SEED, cfg, device=dev, train=True)
+    liven = dict(_liven(model, seed, LIVEN_SSD), **_liven(model, seed + 1))
+    plain_model = copy.deepcopy(model)
+    b = next(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=1, seed=3)).batches())
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "mask": torch.as_tensor(b["mask"], device=dev)}
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=5)
+    out = {}
+    for name, m, plain in (("kernels", model, False),
+                           ("plain", plain_model, True)):
+        step = TR.make_train_step(cfg, ocfg, remat=True, plain=plain)
+        ost = opt.init(dict(m.named_parameters()))
+        got = {}
+
+        def drive():
+            got["metrics"] = step(m, ost, batch)[2]
+        run = _counted(drive)
+        out[name] = dict(metrics={k: float(v) for k, v in
+                                  got["metrics"].items()},
+                         launches=run["launches"],
+                         paths=run["ssd_scan_paths"],
+                         with_sprev=dict(ssd.LAUNCHES_WITH_SPREV),
+                         plain_calls=dict(ssd.PLAIN_CALLS),
+                         wall_s=run["wall_s"])
+    lr = out["kernels"]["metrics"]["lr"]
+    grad_err, update_err = {}, 0.0
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(model.named_parameters(),
+                                  plain_model.named_parameters()):
+            g, gp = p.grad.float(), q.grad.float()
+            grad_err[n] = float((g - gp).norm()
+                                / gp.norm().clamp_min(1e-30))
+            update_err = max(update_err, float((p - q).abs().max()))
+    worst = max(grad_err, key=grad_err.get)
+    res = dict(layers=cfg.n_layers, seq=seq, dtype=cfg.dtype, liven=liven,
+               loss=out["kernels"]["metrics"]["loss"],
+               loss_plain=out["plain"]["metrics"]["loss"],
+               grad_norm=out["kernels"]["metrics"]["grad_norm"],
+               grad_norm_plain=out["plain"]["metrics"]["grad_norm"],
+               max_grad_rel_err=grad_err[worst], worst_param=worst,
+               max_update_err_lr=update_err / lr,
+               kernels_launches=out["kernels"]["launches"],
+               kernels_paths=out["kernels"]["paths"],
+               kernels_with_sprev=out["kernels"]["with_sprev"],
+               kernels_plain_calls=out["kernels"]["plain_calls"],
+               plain_launches=out["plain"]["launches"],
+               plain_calls=out["plain"]["plain_calls"],
+               wall_s={k: v["wall_s"] for k, v in out.items()})
+    del model, plain_model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mamba2_train_launches_ok(res: dict, path: str) -> bool:
+    """Whether ``mamba2_train_parity``'s kernel step launched the forward
+    kernel of ``path`` twice a layer with S_prev (remat recomputes it) and
+    the backward of the same path (mamba2's N is 128) once
+    (``BACKWARD_LAUNCHES`` launches), no flash or other kernel and no
+    plain scan; and the plain step no kernel."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    n = res["layers"]
+    other = "cuda_core" if path == "tensor_core" else "tensor_core"
+    return res["kernels_paths"] == {
+        path: 2 * n, other: 0, "backward_" + other: 0,
+        "backward_" + path: n * ssd.BACKWARD_LAUNCHES[path]} and \
+        res["kernels_with_sprev"] == {path: 2 * n, other: 0} and \
+        res["kernels_launches"] == dict(token_bucket=0, decode_attention=0,
+                                        flash_prefill=0, ssd_scan=2 * n) \
+        and res["kernels_plain_calls"] == {"scan": 0} and \
+        not any(res["plain_launches"].values()) and \
+        res["plain_calls"] == {"scan": 2 * n}
+
+
+def phase_train_mamba2_parity(dev) -> dict:
+    """mamba2-780m's first MAMBA_TRAIN_PARITY_LAYERS layers at full width
+    (bf16 activations: the tensor-core forward and backward), one
+    MAMBA_TRAIN_PARITY_SEQ-token sequence, kernels against the
+    plain sequential scan (``mamba2_train_parity``): the loss within
+    TRAIN_LOSS_ATOL, every gradient within TRAIN_GRAD_RTOL, every updated
+    element within TRAIN_UPDATE_LR learning rates, and the launches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
+                              n_layers=MAMBA_TRAIN_PARITY_LAYERS)
+    res = dict(arch=MAMBA_ARCH, **mamba2_train_parity(
+        dev, cfg, MAMBA_TRAIN_PARITY_SEQ),
+        tol=dict(loss_abs=TRAIN_LOSS_ATOL, grad_rel=TRAIN_GRAD_RTOL,
+                 update_lr=TRAIN_UPDATE_LR))
+    emit("train_mamba2_parity", **res)
+    if abs(res["loss"] - res["loss_plain"]) > TRAIN_LOSS_ATOL or \
+            res["max_grad_rel_err"] > TRAIN_GRAD_RTOL or \
+            res["max_update_err_lr"] > TRAIN_UPDATE_LR:
+        raise AssertionError(f"train_mamba2_parity: kernels != plain: {res}")
+    if not mamba2_train_launches_ok(res, "tensor_core"):
+        raise AssertionError(f"train_mamba2_parity: launches {res}")
+    return res
+
+
+def mamba2_model_flops(cfg, seq: int, batch: int) -> float:
+    """Model FLOPs of one mamba2 training step (forward and backward, no
+    recompute): 3 x 2 x (tokens x the matmul weights, the tied head
+    included, + the chunked scan's multiply-adds: per head and chunk of
+    Q = 128 tokens M x (Q^2 P), the chunk state and C S_prev^T (Q P N
+    each), per group C B^T (Q^2 N))."""
+    from repro_torch.models.layers import mamba2_split
+    E = cfg.d_model
+    Din, H, G, N = mamba2_split(cfg)
+    P = cfg.ssm_head_dim
+    per_layer = E * (2 * Din + 2 * G * N + H) + Din * E
+    weights = cfg.n_layers * per_layer + cfg.vocab * E
+    nc = -(-seq // 128)
+    scan = cfg.n_layers * nc * (H * (128 * 128 * P + 2 * 128 * P * N)
+                                + G * 128 * 128 * N)
+    return 3.0 * 2 * (batch * seq * weights + batch * scan)
+
+
+def phase_train_mamba2(dev) -> dict:
+    """``repro_torch.launch.train`` with MAMBA_TRAIN_ARGV (mamba2-780m at
+    full size, remat, 5 steps), every launch count set to 0 and the peak
+    memory reset just before its first step: every loss finite, every
+    parameter moved, the SSD-scan forward launched steps x 48 x 2 times,
+    all on the tensor cores with S_prev (remat recomputes it), its
+    tensor-core backward steps x 48 x ``BACKWARD_LAUNCHES`` times, no
+    plain scan and no other kernel; peak memory, ms a step (the first
+    apart), tokens a second; one more step profiled by kernel kind (the
+    SSD backward a kind of its own), the optimizer apart."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import train as LT
+    from repro_torch.models import convert, module
+    from repro_torch.training import optimizer as opt, train as TR
+    args = LT.parser().parse_args(MAMBA_TRAIN_ARGV)
+    samples = {}
+
+    def on_start(model):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                flat = p.detach().reshape(-1)
+                samples[n] = flat[::max(1, flat.numel() // 4096)].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+
+    t0 = time.perf_counter()
+    run = LT.train(args, device=dev, on_start=on_start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    paths, sprev = dict(ssd.LAUNCHES_BY_PATH), dict(ssd.LAUNCHES_WITH_SPREV)
+    plain_calls = dict(ssd.PLAIN_CALLS, **fp.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, ost, cfg = run["model"], run["opt_state"], run["cfg"]
+    unmoved = []
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            flat = p.detach().reshape(-1)
+            now = flat[::max(1, flat.numel() // 4096)]
+            if torch.equal(now, samples[n]):
+                unmoved.append(n)
+    steps, L = args.steps, cfg.n_layers
+    n_params = module.param_count(model)
+    step_s = run["step_s"]
+    steady = step_s[1:] if len(step_s) > 1 else step_s
+    ms_step = sum(steady) / len(steady) * 1e3
+    tokens = args.batch * args.seq
+    flops = mamba2_model_flops(cfg, args.seq, args.batch)
+    b = next(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch)).batches(
+        start_step=steps))
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "mask": torch.as_tensor(b["mask"], device=dev)}
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
+    groups = convert.leaf_groups(model)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        loss, _ = TR.loss_fn(model, batch, remat=True)
+        loss.backward()
+
+    def optimizer():
+        params = dict(model.named_parameters())
+        opt.apply(ocfg, params, {n: p.grad for n, p in params.items()}, ost,
+                  groups=groups)
+    prof_fb = _profile(fwd_bwd, 1)
+    prof_opt = _profile(optimizer, 1)
+    by_kind = dict(prof_fb["device_ms_by_kind"])
+    by_kind["optimizer"] = prof_opt["device_busy_ms"]
+    res = dict(
+        arch=MAMBA_ARCH, argv=MAMBA_TRAIN_ARGV, layers=L,
+        d_model=cfg.d_model, params=n_params, params_b=n_params / 1e9,
+        state_gib=n_params * 16 / 2**30, losses=run["losses"],
+        step_s=step_s, ms_per_step=ms_step, first_step_ms=step_s[0] * 1e3,
+        tokens_per_s=tokens / (ms_step / 1e3), wall_s=wall,
+        peak_mem_gib=peak, launches=launches, ssd_scan_paths=paths,
+        ssd_scan_with_sprev=sprev, plain_calls=plain_calls,
+        unmoved_params=unmoved,
+        profiled_step=dict(
+            wall_ms=prof_fb["wall_ms"] + prof_opt["wall_ms"],
+            device_busy_ms=prof_fb["device_busy_ms"]
+            + prof_opt["device_busy_ms"],
+            device_idle_share=prof_fb["device_idle_share"],
+            device_kernels=prof_fb["device_kernels"]
+            + prof_opt["device_kernels"],
+            device_ms_by_kind=by_kind,
+            top_kernels_ms=prof_fb["top_kernels_ms"],
+            optimizer_wall_ms=prof_opt["wall_ms"]),
+        model_flops_per_step=flops,
+        model_flops_share_of_bf16_peak=flops / (ms_step / 1e3)
+        / PEAK_FLOPS["bfloat16"])
+    emit("train_mamba2", **res)
+    n_fwd = steps * L * 2
+    want_paths = dict(tensor_core=n_fwd, cuda_core=0,
+                      backward_tensor_core=steps * L
+                      * ssd.BACKWARD_LAUNCHES["tensor_core"],
+                      backward_cuda_core=0)
+    if not all(map(math.isfinite, run["losses"])) or \
+            len(run["losses"]) != steps:
+        raise AssertionError(f"train_mamba2: losses {run['losses']}")
+    if unmoved:
+        raise AssertionError(f"train_mamba2: parameters did not move: "
+                             f"{unmoved}")
+    if paths != want_paths or sprev != dict(tensor_core=n_fwd,
+                                            cuda_core=0) or \
+            launches != dict(token_bucket=0, decode_attention=0,
+                             flash_prefill=0, ssd_scan=n_fwd) or \
+            any(plain_calls.values()):
+        raise AssertionError(f"train_mamba2: launches {launches}, paths "
+                             f"{paths}, with S_prev {sprev}, plain calls "
+                             f"{plain_calls}")
+    del run, model, ost
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(res, backward_launches=paths["backward_tensor_core"])
+
 
 def main() -> int:
     import torch
@@ -4161,7 +4476,9 @@ def main() -> int:
     seconds = _build.build_many([
         ("token_bucket", tb_ops._SRC), (da_ops.NAME, da_ops.SOURCE),
         (fp_ops.NAME, fp_ops.SOURCE), (fp_ops.BWD_NAME, fp_ops.BWD_SOURCE),
-        (ssd_ops.NAME, ssd_ops.SOURCE), (ssd_ops.TC_NAME, ssd_ops.TC_SOURCE)])
+        (ssd_ops.NAME, ssd_ops.SOURCE), (ssd_ops.TC_NAME, ssd_ops.TC_SOURCE),
+        (ssd_ops.BWD_NAME, ssd_ops.BWD_SOURCE),
+        (ssd_ops.TC_BWD_NAME, ssd_ops.TC_BWD_SOURCE)])
     emit("build", kernels=list(seconds), seconds=seconds,
          wall_s=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in v.splitlines()
@@ -4175,6 +4492,9 @@ def main() -> int:
     fp = phase_kernel_flash_prefill(dev)
     fbw = phase_flash_backward(dev)
     ssd = phase_kernel_ssd_scan(dev)
+    # before the profiled phases: the profiler's traces drop more kernels
+    # the more windows the process traced before
+    sbw = phase_kernel_ssd_backward(dev)
     phase_interp(dev)
     main = phase_main_path(dev)
     phase_parity(dev)
@@ -4235,6 +4555,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpar = phase_train_parity(dev)
     train = phase_train(dev)
+    mpar = phase_train_mamba2_parity(dev)
+    mtrain = phase_train_mamba2(dev)
     n_main = 2
     t = gt["times"][n_main]
     runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
@@ -4403,6 +4725,40 @@ def main() -> int:
         "launches_by_path": dict(
             train_parity=tpar["kernels_paths"]["backward_tensor_core"],
             train=train["backward_launches"])})
+    # the SSD scan's gradient: kernels of its own (five launches a call; bf16
+    # on the tensor cores, float32 on the CUDA cores), launched on mamba2's
+    # training path
+    m = sbw["main"]
+    rows.insert([r["name"] for r in rows].index("ssd_scan") + 1, {
+        "name": "ssd_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc_bwd.cu",
+        "sources": {
+            "tensor_core": "src/repro_torch/kernels/ssd_scan/csrc/"
+                           "ssd_scan_tc_bwd.cu",
+            "cuda_core": "src/repro_torch/kernels/ssd_scan/csrc/"
+                         "ssd_scan_bwd.cu"},
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:27",
+        "gradient_of": "src/repro/kernels/ssd_scan/ref.py:21-42 (XLA's "
+                       "autodiff of the sequential oracle the reference "
+                       "trains through; the Pallas kernel has no backward)",
+        "launches": mtrain["backward_launches"],
+        "max_abs_err": sbw["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None,
+        "shape": "x/dy [1,4096,48,64], B/C [1,4096,1,128] bf16, a f32, "
+                 "S_prev [1,32,48,64,128] bf16 (mamba2-780m)",
+        "device_ms_per_call": m["device_ms"],
+        "device_ms_by_kernel": m["device_ms_by_kernel"],
+        "device_ms_per_launch": m["device_ms"]
+        / ssd_ops.BACKWARD_LAUNCHES["tensor_core"],
+        "bound_share": m["bound_share"], "bytes": m["bytes"],
+        "flops": m["flops"], "cuda_core_ms": m["cuda_core_ms"],
+        "cuda_core_device_ms": m["cuda_core_device_ms"],
+        "bitwise_repeatable_rows": sbw["bitwise_rows"],
+        "launches_by_path": dict(
+            train_mamba2_parity=mpar["kernels_paths"][
+                "backward_tensor_core"],
+            train_mamba2=mtrain["backward_launches"])})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

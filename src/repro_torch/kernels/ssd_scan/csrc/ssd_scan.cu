@@ -54,6 +54,7 @@
 namespace {
 
 constexpr int LC = 64;          // tokens a chunk
+constexpr int SQ = 128;         // tokens a chunk of the saved states
 constexpr int PB = 16;          // state rows (head columns p) a block
 constexpr int THREADS = 256;    // a 16 x 16 grid of (ty, tx)
 
@@ -86,7 +87,8 @@ template <int SPT, typename TX, typename TB>
 __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
     const TX* __restrict__ x, const float* __restrict__ a,
     const TB* __restrict__ Bm, const TB* __restrict__ Cm, TX* __restrict__ y,
-    float* __restrict__ state, int L, int H, int P, int G, int N) {
+    float* __restrict__ state, float* __restrict__ sprev, int L, int H,
+    int P, int G, int N) {
   extern __shared__ __align__(16) double smem_d[];
   double* ca = smem_d;              // [LC]
   double* wsum = ca + LC;           // [2]
@@ -131,6 +133,18 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 
   for (int t0 = 0; t0 < L; t0 += LC) {
     const int rows = min(LC, L - t0);
+    if (sprev != nullptr && t0 > 0 && t0 % SQ == 0) {
+      // training: the state entering each chunk of SQ tokens (after t0)
+      const int nc = (L + SQ - 1) / SQ;
+      float* o = sprev + ((static_cast<int64_t>(b) * nc + t0 / SQ) * H + h) *
+                             P * N;
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        const int p = p0 + s_row[k];
+        if (s_row[k] >= 0 && p < P)
+          o[static_cast<int64_t>(p) * N + s_col[k]] = s_reg[k];
+      }
+    }
     __syncthreads();   // the previous chunk's tiles are no longer read
 
     // ---- load the chunk (rows past L: the neutral a = 1, x = B = C = 0)
@@ -279,8 +293,8 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 
 template <int SPT, typename TX, typename TB>
 int launch(const void* x, const float* a, const void* B, const void* C,
-           void* y, float* state, int Bsz, int L, int H, int P, int G, int N,
-           cudaStream_t stream) {
+           void* y, float* state, float* sprev, int Bsz, int L, int H, int P,
+           int G, int N, cudaStream_t stream) {
   auto kern = ssd_scan_kernel<SPT, TX, TB>;
   const int bytes = smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
@@ -289,17 +303,20 @@ int launch(const void* x, const float* a, const void* B, const void* C,
   dim3 grid((P + PB - 1) / PB, H, Bsz);
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const TX*>(x), a, static_cast<const TB*>(B),
-      static_cast<const TB*>(C), static_cast<TX*>(y), state, L, H, P, G, N);
+      static_cast<const TB*>(C), static_cast<TX*>(y), state, sprev, L, H, P,
+      G, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TX, typename TB>
 int dispatch_n(const void* x, const float* a, const void* B, const void* C,
-               void* y, float* state, int Bsz, int L, int H, int P, int G,
-               int N, cudaStream_t st) {
+               void* y, float* state, float* sprev, int Bsz, int L, int H,
+               int P, int G, int N, cudaStream_t st) {
   if (N <= 128)
-    return launch<8, TX, TB>(x, a, B, C, y, state, Bsz, L, H, P, G, N, st);
-  return launch<16, TX, TB>(x, a, B, C, y, state, Bsz, L, H, P, G, N, st);
+    return launch<8, TX, TB>(x, a, B, C, y, state, sprev, Bsz, L, H, P, G, N,
+                             st);
+  return launch<16, TX, TB>(x, a, B, C, y, state, sprev, Bsz, L, H, P, G, N,
+                            st);
 }
 
 }  // namespace
@@ -307,29 +324,35 @@ int dispatch_n(const void* x, const float* a, const void* B, const void* C,
 // Plain C entry point (loaded with ctypes).  x [Bsz, L, H, P] (float32 or
 // bf16), a [Bsz, L, H] float32, B / C [Bsz, L, G, N] (float32 or bf16),
 // y [Bsz, L, H, P] in x's dtype, state [Bsz, H, P, N] float32, all
-// contiguous.  Launches on `stream`, does not synchronise, allocates
-// nothing.  Returns cudaGetLastError() of the launch (or of the
-// shared-memory attribute), or cudaErrorInvalidValue for an unsupported
-// shape.
+// contiguous; sprev null, or (training) [Bsz, ceil(L / 128), H, P, N]
+// float32 for the state entering each chunk of 128 tokens (chunk 0's
+// left unwritten), which ssd_scan_bwd.cu reads.  Launches on `stream`,
+// does not synchronise, allocates nothing.  Returns cudaGetLastError() of
+// the launch (or of the shared-memory attribute), or
+// cudaErrorInvalidValue for an unsupported shape.
 extern "C" int ssd_scan_launch(int x_bf16, int bc_bf16, const void* x,
                                const void* a, const void* B, const void* C,
-                               void* y, void* state, int Bsz, int L, int H,
-                               int P, int G, int N, void* stream) {
+                               void* y, void* state, void* sprev, int Bsz,
+                               int L, int H, int P, int G, int N,
+                               void* stream) {
   if (Bsz <= 0 || H <= 0 || P <= 0) return 0;
   if (L < 0 || G <= 0 || H % G != 0 || N <= 0 || N > 256 || N % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   float* sf = static_cast<float*>(state);
+  float* spf = static_cast<float*>(sprev);
+  typedef __nv_bfloat16 bf;
   if (x_bf16) {
     if (bc_bf16)
-      return dispatch_n<__nv_bfloat16, __nv_bfloat16>(x, af, B, C, y, sf, Bsz,
-                                                      L, H, P, G, N, st);
-    return dispatch_n<__nv_bfloat16, float>(x, af, B, C, y, sf, Bsz, L, H, P,
-                                            G, N, st);
+      return dispatch_n<bf, bf>(x, af, B, C, y, sf, spf, Bsz, L, H, P, G, N,
+                                st);
+    return dispatch_n<bf, float>(x, af, B, C, y, sf, spf, Bsz, L, H, P, G, N,
+                                 st);
   }
   if (bc_bf16)
-    return dispatch_n<float, __nv_bfloat16>(x, af, B, C, y, sf, Bsz, L, H, P,
-                                            G, N, st);
-  return dispatch_n<float, float>(x, af, B, C, y, sf, Bsz, L, H, P, G, N, st);
+    return dispatch_n<float, bf>(x, af, B, C, y, sf, spf, Bsz, L, H, P, G, N,
+                                 st);
+  return dispatch_n<float, float>(x, af, B, C, y, sf, spf, Bsz, L, H, P, G, N,
+                                  st);
 }

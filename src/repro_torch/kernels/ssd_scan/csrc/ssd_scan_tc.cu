@@ -812,14 +812,17 @@ extern "C" long long ssd_scan_tc_workspace_bytes(int Bsz, int L, int H, int P,
 // Plain C entry point (loaded with ctypes).  x [Bsz, L, H, P], B / C
 // [Bsz, L, G, N] bf16, a [Bsz, L, H] float32, y [Bsz, L, H, P] bf16, state
 // [Bsz, H, P, N] float32, all contiguous; `work` 256-byte aligned, of
-// ssd_scan_tc_workspace_bytes.  Launches three kernels (two for one
-// chunk) on `stream`, does not synchronise, allocates nothing.  Returns
+// ssd_scan_tc_workspace_bytes; sprev null, or (training) a bf16 [Bsz,
+// ceil(L / 128), H, P, N] buffer that step 2 writes S_prev into instead of
+// the workspace (chunk 0's left unwritten), which the backward kernels
+// read.  Launches three kernels (two for one chunk) on `stream`, does not
+// synchronise, allocates nothing.  Returns
 // cudaGetLastError() of the launches (or of the shared-memory attribute),
 // or cudaErrorInvalidValue for an unsupported shape.
 extern "C" int ssd_scan_tc_launch(const void* x, const void* a, const void* B,
                                   const void* C, void* y, void* state,
-                                  void* work, int Bsz, int L, int H, int P,
-                                  int G, int N, void* stream) {
+                                  void* work, void* sprev, int Bsz, int L,
+                                  int H, int P, int G, int N, void* stream) {
   if (Bsz <= 0 || H <= 0 || P <= 0) return 0;
   if (L < 0 || G <= 0 || H % G != 0 || N <= 0 || N > 256 || N % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -839,7 +842,8 @@ extern "C" int ssd_scan_tc_launch(const void* x, const void* a, const void* B,
   p.ca = reinterpret_cast<float2*>(w + off[1]);
   p.dA = reinterpret_cast<float*>(w + off[2]);
   p.sc = reinterpret_cast<float*>(w + off[3]);
-  p.sp = reinterpret_cast<__nv_bfloat16*>(w + off[4]);
+  p.sp = sprev ? static_cast<__nv_bfloat16*>(sprev)
+              : reinterpret_cast<__nv_bfloat16*>(w + off[4]);
   p.Bsz = Bsz;
   p.L = L;
   p.H = H;

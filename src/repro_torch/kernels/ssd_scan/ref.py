@@ -86,6 +86,14 @@ def ssd_scan_chunked(x, a, B, C, chunk: int = 128):
     rounded, which checks the decomposition alone.  Every product
     accumulates in float32.  Used by the tests and ``chip_smoke.py`` only.
     """
+    y, S, _ = _chunked_forward(x, a, B, C, chunk)
+    return y, S
+
+
+def _chunked_forward(x, a, B, C, chunk: int):
+    """``ssd_scan_chunked``'s (y, final state) and the state entering each
+    chunk, S_prev [Bsz, nc, H, P, N] float32 (rounded to bf16 with bf16
+    operands, as the tensor-core kernel stores it; zero for chunk 0)."""
     Bsz, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     op = torch.bfloat16 if x.dtype == B.dtype == torch.bfloat16 \
@@ -117,7 +125,7 @@ def ssd_scan_chunked(x, a, B, C, chunk: int = 128):
         s_prev.append(S)
         S = dA[:, c, :, None, None] * S + s_c[:, c]
     if not nc:
-        return x.new_zeros(x.shape), S
+        return x.new_zeros(x.shape), S, S.new_zeros((Bsz, 0, H, P, N))
     sp = torch.stack(s_prev, 1).to(op).float()      # [b, c, h, p, n]
     # 3. the outputs
     ii = torch.arange(chunk, device=x.device)
@@ -144,4 +152,119 @@ def ssd_scan_chunked(x, a, B, C, chunk: int = 128):
     y = y_off * torch.exp2(ca_hi.double() + ca_lo.double()).float()[
         ..., None] + y
     y = y.reshape(Bsz, nc * chunk, H, P)[:, :L]
-    return y.to(x.dtype), S
+    return y.to(x.dtype), S, sp
+
+
+def ssd_scan_chunked_backward(x, a, B, C, dy, d_state, chunk: int = 128,
+                              tensor_core: bool = False):
+    """What the backward kernels (``csrc/ssd_scan_bwd.cu``; with
+    ``tensor_core``, ``csrc/ssd_scan_tc_bwd.cu``) compute, in their order,
+    as plain torch on any device: the gradients (dx, da, dB, dC) of
+    (y, final state) = ``ssd_scan_chunked(x, a, B, C)`` from the
+    cotangents dy [Bsz, L, H, P] and d_state [Bsz, H, P, N] (either may be
+    None: zero), each in its input's dtype.
+
+    It reads the state entering each chunk as the forward stores it
+    (``_chunked_forward``: bf16 with bf16 operands) and computes in float32
+    (ca in float64, as the forward).  With dS the gradient at a chunk's
+    end (seeded by d_state), e_i = exp(ca_i), w_j = exp(ca_last - ca_j)
+    and D_ij = exp(ca_i - ca_j) for j <= i (else 0):
+
+    1. the chunk-local state gradient ``sum_i e_i dy_i (outer) C_i``;
+    2. the reverse pass dS[c] = exp(ca_last[c + 1]) dS[c + 1] + (1.)[c + 1];
+    3. per chunk, M = (C B^T) o D:
+       dx = M^T dy + w o (B dS^T);
+       dC = (sum_h (dy x^T) o D) B + sum_h e o (dy S_prev);
+       dB = (sum_h (dy x^T) o D)^T C + sum_h w o (x dS);
+       the head sums in ascending head order;
+    4. d log a_t directly, as the sum of the terms that carry a_t (no
+       pair cancels, so it keeps its relative accuracy where a is small):
+       sum_{i >= t > j} (dy_i . x_j) M_ij + sum_{i >= t} e_i dy_i .
+       (S_prev C_i) + sum_{j < t} w_j x_j . (dS B_j) + exp(ca_last)
+       <dS, S_prev>; da = d log a / a where a >= 1e-37, and 0 below the
+       forward's clamp (the forward is constant in a there).
+
+    With ``tensor_core`` (bf16 operands) the operands computed for the
+    tensor cores are rounded to bf16 where they enter a product, as the
+    tensor-core kernels feed them: e o dy, dS, M (in M^T dy), the head sum
+    of (dy x^T) o D and w o x; every product still accumulates in float32,
+    and d log a's terms take M unrounded.  Without it nothing computed is
+    rounded.  Used by the tests, ``rehearse.py`` and ``chip_smoke.py``
+    only.
+    """
+    Bsz, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = x.device
+    _, _, sp = _chunked_forward(x, a, B, C, chunk)
+    nc = sp.shape[1]
+    if dy is None:
+        dy = torch.zeros((Bsz, L, H, P), dtype=torch.float32, device=dev)
+    if d_state is None:
+        d_state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    if not nc:
+        return (torch.zeros_like(x), torch.zeros_like(a),
+                torch.zeros_like(B), torch.zeros_like(C))
+    pad = nc * chunk - L
+    hg = _head_group(H, G, dev)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if tensor_core else t
+
+    def chunks(t, fill=0.0):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_full((Bsz, pad) + t.shape[2:], fill)], 1)
+        return t.reshape((Bsz, nc, chunk) + t.shape[2:])
+
+    xc, dyc, ac = chunks(x), chunks(dy), chunks(a, 1.0)   # [b, c, i, h, .]
+    Bc, Cc = chunks(B), chunks(C)                         # [b, c, i, g, n]
+    Bh, Ch = Bc[:, :, :, hg], Cc[:, :, :, hg]
+    ca = torch.log(ac.clamp(min=1e-37).double()).cumsum(2)
+    ca_last = ca[:, :, -1]                                # [b, c, h]
+    e = torch.exp(ca).float()
+    w = torch.exp(ca_last[:, :, None] - ca).float()
+    dA = torch.exp(ca_last).float()
+    # 1. chunk-local state gradients; 2. the reverse pass
+    dsc = torch.einsum("bcihp,bcihn->bchpn", rnd(dyc * e[..., None]), Ch)
+    D = d_state.float()
+    ds = [None] * nc
+    for c in reversed(range(nc)):
+        ds[c] = D
+        D = dA[:, c, :, None, None] * D + dsc[:, c]
+    ds = rnd(torch.stack(ds, 1))                          # [b, c, h, p, n]
+    # 3. per chunk
+    ii = torch.arange(chunk, device=dev)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    seg = (ca[:, :, :, None] - ca[:, :, None, :]).masked_fill(~causal, 0.0)
+    Dm = torch.where(causal, torch.exp(seg.float()), 0.0)  # [b, c, i, j, h]
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    M = cb[:, :, hg].permute(0, 1, 3, 4, 2) * Dm
+    bds = torch.einsum("bcjhn,bchpn->bcjhp", Bh, ds)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", rnd(M), dyc) + w[..., None] * bds
+    dyx = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    hsum = (lambda t: t.reshape(t.shape[:-1] + (G, H // G)).sum(-1))
+    dcb = rnd(hsum(dyx * Dm))                             # [b, c, i, j, g]
+    dC = torch.einsum("bcijg,bcjgn->bcign", dcb, Bc) + hsum(torch.einsum(
+        "bcihp,bchpn->bcinh", rnd(dyc * e[..., None]), sp)).transpose(3, 4)
+    dB = torch.einsum("bcijg,bcign->bcjgn", dcb, Cc) + hsum(torch.einsum(
+        "bcjhp,bchpn->bcjnh", rnd(xc * w[..., None]), ds)).transpose(3, 4)
+    # 4. d log a: sum_{i >= t} sum_{j < t} G_ij as an exclusive prefix sum
+    # over j, then a sum over i >= t; the other terms as prefix and suffix
+    # sums
+    Gm = dyx * M
+    pre = torch.cat([torch.zeros_like(Gm[:, :, :, :1]),
+                     Gm.cumsum(3)[:, :, :, :-1]], 3)      # [b, c, i, t, h]
+    R = torch.where(causal, pre, 0.0).sum(2)              # [b, c, t, h]
+    cs = torch.einsum("bcihn,bchpn->bcihp", Ch, sp)
+    u = e * (dyc * cs).sum(-1)
+    v = w * (xc * bds).sum(-1)
+    z = dA * (ds * sp).sum((-1, -2))
+    U = u.flip(2).cumsum(2).flip(2)
+    V = torch.cat([torch.zeros_like(v[:, :, :1]), v.cumsum(2)[:, :, :-1]], 2)
+    dla = R + U + V + z[:, :, None]
+    da = torch.where(ac >= 1e-37, dla / ac, 0.0)
+
+    def unchunk(t, like):
+        return t.reshape((Bsz, nc * chunk) + t.shape[3:])[:, :L].to(like.dtype)
+
+    return (unchunk(dx, x), unchunk(da, a), unchunk(dB, B), unchunk(dC, C))

@@ -8,13 +8,14 @@ Dev mode (default) trains a reduced variant of the selected arch on the
 synthetic pipeline.  ``--production`` trains the full config with
 ``remat``, as the reference's production mode does, on one card: the
 reference's mesh is world size 1 here (meshes are not ported, so
-``--multi-pod`` raises a ``ValueError``).  On CUDA an arch with ``ssd``
-layers is refused before anything is built: the SSD-scan kernel has no
-backward yet.
+``--multi-pod`` raises a ``ValueError``).  An arch with ``ssd`` layers
+trains through the SSD-scan kernel and its backward kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
+        --production --batch 1 --seq 4096 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
         --production --batch 1 --seq 4096 --steps 5
 """
 from __future__ import annotations
@@ -62,9 +63,6 @@ def train(args, *, device=None, on_start=None) -> dict:
     cfg = get_config(args.arch) if args.production \
         else get_reduced_config(args.arch)
     dev = resolve_device(device)
-    if dev.type == "cuda" and "ssd" in cfg.layer_kinds():
-        raise ValueError(f"{cfg.name}: its ssd layers need a backward of the "
-                         "SSD-scan kernel, which the port does not have yet")
     ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=args.steps)
     step = TR.make_train_step(cfg, ocfg, remat=args.production)
     model = T.init_model(0, cfg, device=dev, train=True)

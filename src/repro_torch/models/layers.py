@@ -637,6 +637,13 @@ class Mamba2(nn.Module):
                 ssd_state, x_in[:, 0].float(), a[:, 0], Bc[:, 0].float(),
                 Cc[:, 0].float())
             y = y[:, None]
+        elif ssd_ops.needs_grad(x_in, a, Bc, Cc):
+            # training: the scan with a gradient (on the card the forward
+            # and backward kernels; on the CPU or with ``plain`` the plain
+            # scan's torch ops)
+            y, new_ssd = ssd_ops.ssd_scan_grad(
+                x_in.contiguous(), a.contiguous(), Bc.contiguous(),
+                Cc.contiguous(), plain=plain)
         else:
             scan = ssd_ops.ssd_scan_plain if plain else ssd_ops.ssd_scan
             y, new_ssd = scan(x_in.contiguous(), a.contiguous(),
@@ -654,9 +661,10 @@ class Mamba2(nn.Module):
 
     def forward(self, x, *, plain: bool = False):
         """Whole sequence x [B, S, E] from a zero state, no cache (training).
-        The SSD-scan kernel has no backward yet: on CUDA, with grad
-        enabled, ``ssd_ops.ssd_scan`` refuses (``plain`` trains through the
-        plain scan's torch ops)."""
+        Where autograd needs the output the scan is ``ssd_ops.ssd_scan_grad``:
+        on CUDA the SSD-scan kernel writing each chunk's entering state and
+        the backward kernel (``SSDScan``); on the CPU, or with ``plain``, the
+        plain scan's torch ops."""
         return self._mix(x, None, None, plain=plain)[0]
 
     def prefill(self, x, cache, *, plain: bool = False):

@@ -11,6 +11,16 @@ import torch
 
 from repro.core import accelerator as jacc
 from repro_torch.core import accelerator as tacc
+from _torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 SIZES = np.concatenate([np.arange(1, 2**20 + 1),
                         [2**20 + 1, 2**20 + 4097, 3_000_000, 2**31 - 1]]

@@ -18,7 +18,8 @@ from _engine_cases import (BATCH_ELEMENTS, BATCH_HOLE, BATCH_WINDOW, CASES,
                            DEFAULT_SYSTEM, batch_masks, port_batch,
                            port_batch_registers, stack_stalls)
 from _torch_parity import (assert_bitwise, assert_carry_equal,
-                           assert_results_equal, port_cfg, port_flows)
+                           assert_results_equal, one_torch_thread, port_cfg,
+                           port_flows)
 from test_torch_engine import _port_tb, _scenario
 from repro.core import baselines as jb, engine as je, profiler as jprof
 from repro.core import sim as jsim, token_bucket as jtb
@@ -28,6 +29,14 @@ from repro.core.interconnect import LinkSpec
 from repro_torch.core import accelerator as tacc, baselines as tbl
 from repro_torch.core import engine as te, interconnect as tic
 from repro_torch.core import profiler as tprof, sim as tsim
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _regs2(els):

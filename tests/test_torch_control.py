@@ -16,6 +16,16 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 from _fleet_parity import JAX, PORT, control_state, report_json
+from _torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 PROFILE_TICKS = 200
 WINDOW = 100

@@ -15,8 +15,17 @@ import torch
 
 from _fleet_parity import (JAX, PORT, assert_fleet_runs_equal,
                            control_state, placements, report_json)
-from _torch_parity import assert_results_equal
+from _torch_parity import assert_results_equal, one_torch_thread
 from repro_torch.core import controller as tctl, engine as te
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 PROFILE_TICKS = 200
 WINDOW = 100

@@ -4,9 +4,10 @@ and backward) and SSD-scan kernels against their plain versions, CUDA
 dataplane windows (every engine parity case, and a ragged mixed-mode
 batch) against the same windows on the CPU, the serving engine (gemma3
 and mamba2) through the kernels against the same engine through the plain
-versions, and a training step through the kernels against one through the
-plain versions.  They need an NVIDIA GPU with ``nvcc`` and skip elsewhere;
-on the card run them with
+versions, and a training step through the kernels (flash attention's and
+the SSD scan's gradients) against one through the plain versions.  They
+need an NVIDIA GPU with ``nvcc`` and skip elsewhere; on the card run them
+with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -32,7 +33,8 @@ from repro_torch.core.sim import (SimConfig, gen_arrivals, simulate,
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops, \
     rehearse as fp_rehearse
-from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref, \
+    rehearse as ssd_rehearse
 from repro_torch.kernels.token_bucket import ops, rehearse as tb_rehearse
 
 pytestmark = pytest.mark.cuda
@@ -964,29 +966,54 @@ def test_train_step_kernels_match_plain_on_card(dev, arch):
         assert float((p - q).abs().max()) <= 2.5 * lr, name
 
 
-def test_ssd_training_refused_on_card(dev, monkeypatch):
-    """mamba2's ssd layers have no SSD-scan backward: on the card a graph
-    that needs their gradient raises (never a silently constant output),
-    and the launcher refuses the arch before building a model; serving
-    (no grad) and the plain scan (``plain=True``) still run."""
-    from repro_torch.configs.registry import get_reduced_config
-    from repro_torch.launch import train as LT
-    from repro_torch.models import transformer as T
-    from repro_torch.training import train as TR
-    cfg = get_reduced_config("mamba2-780m")
-    model = T.init_model(0, cfg, device=dev, train=True)
-    batch = _train_batch(cfg, dev)
-    with pytest.raises(RuntimeError, match="SSD-scan kernel has no backward"):
-        TR.loss_fn(model, batch)
-    with torch.no_grad():
-        logits, _ = T.forward(model, batch["tokens"])
-    loss, _ = TR.loss_fn(model, batch, plain=True)
-    loss.backward()
-    assert torch.isfinite(logits).all() and torch.isfinite(loss)
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_kernel_matches_mirror_on_card(dev, case):
+    """The SSD-scan gradient's kernel (``csrc/ssd_scan_bwd.cu``) on each
+    forward case's shape and type, after the forward kernel wrote S_prev:
+    dx, da, dB and dC against ``ref.ssd_scan_chunked_backward`` on the same
+    inputs and cotangents (a nonzero d_state) within
+    ``rehearse.TOL_BWD_MIRROR``, at L <= 512 against autograd of the
+    sequential scan within ``TOL_BWD_PLAIN``, and two calls bitwise equal
+    (``rehearse.check_backward``, which raises past a limit)."""
+    Bz, L, H, P, G, N, dt = case
+    row = ssd_rehearse.check_backward(
+        (Bz, L, H, P, G, N, dt == torch.bfloat16, False), dev, seed=11)
+    assert row["bitwise"] and row["launches_ok"]
 
-    def built(*_, **__):
-        raise AssertionError("a model was built")
-    monkeypatch.setattr(LT.T, "init_model", built)
-    with pytest.raises(ValueError, match="SSD-scan"):
-        LT.train(LT.parser().parse_args(["--arch", "mamba2-780m"]),
-                 device=dev)
+
+def test_ssd_train_step_kernels_match_plain_on_card(dev):
+    """One ``train_step`` of the reduced mamba2 (float32: the CUDA-core
+    forward writing S_prev and the backward kernel) on one 300-token
+    sequence (three chunks, the last ragged) against one through the plain
+    sequential scan from the same weights (``chip_smoke.
+    mamba2_train_parity``, seeded noise on the mixers' zero / one
+    parameters): the loss within 1e-5, each gradient within 1e-4 relative
+    Frobenius error (or 1e-6 absolute), each updated element within 2.5
+    learning rates, as the attention archs' step above; the forward
+    launched twice a layer (remat), the backward once, no plain scan."""
+    from repro_torch.configs.registry import get_reduced_config
+    cfg = get_reduced_config("mamba2-780m")
+    res = chip_smoke.mamba2_train_parity(dev, cfg, 300)
+    assert res["loss"] == pytest.approx(res["loss_plain"], rel=1e-5)
+    assert res["max_grad_rel_err"] <= 1e-4, res["worst_param"]
+    assert res["max_update_err_lr"] <= 2.5
+    assert chip_smoke.mamba2_train_launches_ok(res, "cuda_core"), res
+
+
+def test_launcher_trains_mamba2_on_card(dev):
+    """``launch/train.py --arch mamba2-780m`` in its dev mode (the reduced
+    config, float32) on the card: finite losses, every ssd layer's scan
+    through the CUDA-core forward once a layer and step (dev mode has no
+    remat) and the backward kernel once, no plain scan."""
+    from repro_torch.launch import train as LT
+    before = dict(ssd_ops.LAUNCHES_BY_PATH)
+    plain = dict(ssd_ops.PLAIN_CALLS)
+    run = LT.train(LT.parser().parse_args(
+        ["--arch", "mamba2-780m", "--steps", "3"]), device=dev)
+    n = 3 * run["cfg"].n_layers
+    assert all(map(np.isfinite, run["losses"])) and len(run["losses"]) == 3
+    got = {k: ssd_ops.LAUNCHES_BY_PATH[k] - before[k] for k in before}
+    assert got == dict(tensor_core=0, cuda_core=n, backward_tensor_core=0,
+                       backward_cuda_core=n
+                       * ssd_ops.BACKWARD_LAUNCHES["cuda_core"])
+    assert ssd_ops.PLAIN_CALLS == plain

@@ -12,8 +12,8 @@ import torch
 
 from _engine_cases import (CASES, DEFAULT_SYSTEM, N_TICKS, case_hints,
                            case_link, port_scenario)
-from _torch_parity import (assert_bitwise, assert_carry_equal, port_cfg,
-                           port_flows)
+from _torch_parity import (assert_bitwise, assert_carry_equal,
+                           one_torch_thread, port_cfg, port_flows)
 from repro.core import baselines as jb, engine as je, token_bucket as jtb
 from repro.core.accelerator import CATALOG, AccelTable
 from repro.core.flow import SLO, FlowSet, FlowSpec, Path, TrafficPattern
@@ -23,6 +23,14 @@ from repro.core.sim import SHAPING_SW, SimConfig, gen_arrivals, gen_stall_mask
 from repro_torch.core import accelerator as tacc, engine as te
 from repro_torch.core import interconnect as tic, token_bucket as ttb
 from repro_torch.kernels.token_bucket import ops as tb_ops
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _scenario(shaping, arbiter, n_flows=2, system=None, load=0.9, msg=1500,

@@ -33,8 +33,17 @@ from repro.configs.registry import get_reduced_config
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.models import convert, layers as TL, transformer as TT
-from _torch_parity import (jax_and_port_model, port_arch, run_serving,
-                           serving_mix)
+from _torch_parity import (jax_and_port_model, one_torch_thread, port_arch,
+                           run_serving, serving_mix)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 F32_TOL = dict(rtol=1e-5, atol=5e-5)
 LOGIT_F32_TOL = dict(rtol=1e-5, atol=1e-4)

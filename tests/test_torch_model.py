@@ -28,7 +28,16 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs import registry as t_registry
 from repro_torch.models import convert, layers as TL, transformer as TT
-from _torch_parity import jax_and_port_model, port_arch
+from _torch_parity import jax_and_port_model, one_torch_thread, port_arch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 TOL = {"float32": (dict(rtol=1e-5, atol=1e-4), dict(rtol=1e-5, atol=2e-5)),
        "bfloat16": (dict(rtol=1e-2, atol=0.0625),

@@ -12,6 +12,16 @@ import numpy as np
 import pytest
 
 from _fleet_parity import JAX, PORT, placements
+from _torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 PROFILE_TICKS = 100
 COMPLEMENTS = (["synthetic50"], ["synthetic50", "aes256"], ["aes256"])

@@ -15,10 +15,19 @@ import pytest
 
 from _fleet_parity import JAX, PORT
 from _torch_parity import (assert_bitwise, assert_carry_equal,
-                           assert_results_equal)
+                           assert_results_equal, one_torch_thread)
 from repro.core import shaper as jshaper
 from repro_torch.core import engine as te, shaper as tshaper
 from repro_torch.kernels.token_bucket import ops as tb_ops
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 #: window ticks of the parity runs (the port's CPU tick costs milliseconds)
 N_TICKS = 300

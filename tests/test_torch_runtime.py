@@ -10,13 +10,22 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_results_equal, port_spec
+from _torch_parity import assert_results_equal, one_torch_thread, port_spec
 from repro.core import SLO, FlowSpec, Path, TrafficPattern
 from repro.core.accelerator import CATALOG
 from repro.core.profiler import ProfileTable
 from repro.core.runtime import ArcusRuntime
 from repro_torch.core import accelerator as tacc, profiler as tprof
 from repro_torch.core import engine as te, runtime as trt, sim as tsim
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 PROFILE_TICKS = 600
 TOTAL, WINDOW = 800, 200

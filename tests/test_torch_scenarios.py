@@ -20,6 +20,16 @@ import torch
 
 from _fleet_parity import JAX, PORT, assert_fleet_runs_equal
 from repro_torch.core import profiler as tprof
+from _torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 NAMES = ("mmpp_surge", "heavy_tail", "diurnal_corr", "flash_crowd",
          "adversarial_probe")

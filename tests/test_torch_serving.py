@@ -23,7 +23,16 @@ from repro_torch.serving import costmodel as t_cost
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Tenant as TTenant
 from repro_torch.serving.scheduler import ArcusScheduler as TArcus
-from _torch_parity import V5E, assert_serving_matches, jax_and_port_model
+from _torch_parity import (V5E, assert_serving_matches, jax_and_port_model,
+                           one_torch_thread)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.mark.parametrize("shaped,use_kernel", [(True, True), (False, False)],

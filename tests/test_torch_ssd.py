@@ -25,6 +25,16 @@ import torch
 
 from repro.kernels.ssd_scan import ops as j_ops, ref as j_ref
 from repro_torch.kernels.ssd_scan import ops as t_ops, ref as t_ref
+from _torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: beside the other test processes a pool of
+    threads spin-waits (``_torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
+
 
 SSD_CASES = [
     # Bsz, L, H, P, G, N, chunk, dtype (tests/test_kernels.py:88-94)

@@ -59,7 +59,7 @@ PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 STEP_TOL = dict(rtol=1e-5, atol=1e-4)
 UPDATE_RTOL = 1e-3
 GRAD_ARCHS = ("starcoder2-3b", "mixtral-8x22b", "recurrentgemma-9b",
-              "seamless-m4t-medium")
+              "seamless-m4t-medium", "mamba2-780m")
 B, S = 2, 24
 #: mixtral's capacity factor in these tests: C = int(0.5 T K / X) + 1 = 13
 #: rows an expert for T = 48 tokens, K = 2, X = 4, below the 24 an expert
