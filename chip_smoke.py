@@ -93,8 +93,9 @@ size (30 layers, 3.03 B parameters, one 4096-token sequence a step, remat,
 call, every parameter moved, peak memory, ms a step and a profiled step.
 The SSD scan's gradient: ``kernel_ssd_backward`` (after
 ``kernel_ssd_scan``) holds its kernels (bf16 with N <= 128 on the tensor
-cores, the rest on the CUDA cores; five launches a call, bitwise the same
-run to run) against the chunked mirror of their arithmetic, small shapes
+cores, four launches a call, the heads of each group sliced over the
+CTAs; the rest on the CUDA cores, five; bitwise the same run to run)
+against the chunked mirror of their arithmetic, small shapes
 against autograd of the sequential scan and the tensor-core kernel
 against the CUDA-core one, and times them at mamba2-780m's training
 shape; after ``train``, ``train_mamba2_parity`` runs one train step
@@ -3088,8 +3089,8 @@ KERNEL_KINDS = {
     "ssd_backward": ("bwd_chunk_kernel", "bwd_state_pass_kernel",
                      "bwd_head_kernel", "bwd_dcb_sum_kernel",
                      "bwd_group_kernel", "tcb_chunk_kernel",
-                     "tcb_state_pass_kernel", "tcb_head_kernel",
-                     "tcb_dcb_sum_kernel", "tcb_group_kernel"),
+                     "tcb_state_pass_kernel", "tcb_head_slice_kernel",
+                     "tcb_group_kernel"),
     "decode_attention": ("decode_attention_cluster",),
     "flash_prefill": ("flash_prefill",),
     "ssd_scan": ("ssd_scan", "ssd_chunk_kernel", "ssd_state_pass_kernel",
@@ -4168,16 +4169,20 @@ def phase_train(dev) -> dict:
 
 
 def phase_kernel_ssd_backward(dev) -> dict:
-    """The SSD-scan gradient's kernel (``csrc/ssd_scan_bwd.cu``, float32
-    arithmetic for both operand types) at every ``rehearse.BACKWARD_CASES``
-    row: the forward kernel writing S_prev, then the backward's dx, da, dB
-    and dC against ``ref.ssd_scan_chunked_backward`` on the same inputs and
-    cotangents (a nonzero d_state) within ``rehearse.TOL_BWD_MIRROR``, at
-    L <= 512 against autograd of the sequential scan within
-    ``TOL_BWD_PLAIN``, two calls bitwise equal (``check_backward``); then
-    at mamba2-780m's training shape [1,4096,48,64], G 1, N 128 bf16 its ms
-    a call (CUDA events), device ms by kernel (``torch.profiler``), the
-    plain mirror's ms and the bound (``time_backward``)."""
+    """The SSD-scan gradient's kernels at every ``rehearse.BACKWARD_CASES``
+    row (bf16 with N <= 128: ``csrc/ssd_scan_tc_bwd.cu``, four launches, a
+    group's heads in ``ops.backward_slices`` slices; float32 and the other
+    shapes: ``csrc/ssd_scan_bwd.cu``, five): the forward kernel writing
+    S_prev, then the backward's dx, da, dB and dC against
+    ``ref.ssd_scan_chunked_backward`` (with the kernel's slices) on the same
+    inputs and cotangents (a nonzero d_state) within
+    ``rehearse.TOL_BWD_MIRROR``, at L <= 512 against autograd of the
+    sequential scan within ``TOL_BWD_PLAIN``, two calls bitwise equal, the
+    dy = 0 row's u exactly zero (``check_backward``); then at mamba2-780m's
+    training shape [1,4096,48,64], G 1, N 128 bf16 its ms a call (CUDA
+    events), device ms by kernel (``torch.profiler``), the slice count and
+    workspace bytes, the plain mirror's ms and the bound
+    (``time_backward``)."""
     from repro_torch.kernels.ssd_scan import rehearse
     t0 = time.perf_counter()
     rows = [rehearse.check_backward(case, dev, seed=5)
@@ -4190,6 +4195,7 @@ def phase_kernel_ssd_backward(dev) -> dict:
         "bfloat16": rehearse.TOL_BWD_PLAIN[True]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         bitwise_rows=sum(r["bitwise"] for r in rows),
+        zero_dy_exact_rows=sum(bool(r.get("zero_dy_exact")) for r in rows),
         seconds=time.perf_counter() - t0)
     emit("kernel_ssd_backward", **res)
     return res
@@ -4725,9 +4731,9 @@ def main() -> int:
         "launches_by_path": dict(
             train_parity=tpar["kernels_paths"]["backward_tensor_core"],
             train=train["backward_launches"])})
-    # the SSD scan's gradient: kernels of its own (five launches a call; bf16
-    # on the tensor cores, float32 on the CUDA cores), launched on mamba2's
-    # training path
+    # the SSD scan's gradient: kernels of its own (bf16 on the tensor cores,
+    # four launches a call; float32 on the CUDA cores, five), launched on
+    # mamba2's training path
     m = sbw["main"]
     rows.insert([r["name"] for r in rows].index("ssd_scan") + 1, {
         "name": "ssd_backward", "route": "cuda",
@@ -4752,7 +4758,9 @@ def main() -> int:
         "device_ms_per_launch": m["device_ms"]
         / ssd_ops.BACKWARD_LAUNCHES["tensor_core"],
         "bound_share": m["bound_share"], "bytes": m["bytes"],
-        "flops": m["flops"], "cuda_core_ms": m["cuda_core_ms"],
+        "flops": m["flops"], "slices": m["slices"],
+        "workspace_bytes": m["workspace_bytes"],
+        "cuda_core_ms": m["cuda_core_ms"],
         "cuda_core_device_ms": m["cuda_core_device_ms"],
         "bitwise_repeatable_rows": sbw["bitwise_rows"],
         "launches_by_path": dict(

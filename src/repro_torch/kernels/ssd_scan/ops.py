@@ -32,13 +32,15 @@ output that autograd would take for a constant.  Its forward is the same
 kernel asked for the state entering each chunk too (a nullable output of
 both kernels, so serving's launches write none to the caller;
 ``LAUNCHES_WITH_SPREV`` counts the launches that did), and its backward is
-kernels of their own (``ssd_scan_backward``, five launches a call,
-``BACKWARD_LAUNCHES``, into ``LAUNCHES_BY_PATH["backward_" + path]``),
-chosen by ``backward_path``: bf16 operands with N <= 128 (the models'
-path) on the tensor cores (``csrc/ssd_scan_tc_bwd.cu``: bf16 wgmma,
-float32 sums), anything else in float32 arithmetic on the CUDA cores
-(``csrc/ssd_scan_bwd.cu``).  Both sum each group's heads in a fixed
-order, without atomics: two calls give the same bits.  On a CPU tensor
+kernels of their own (``ssd_scan_backward``, ``BACKWARD_LAUNCHES``
+launches a call, into ``LAUNCHES_BY_PATH["backward_" + path]``), chosen by
+``backward_path``: bf16 operands with N <= 128 (the models' path) on the
+tensor cores (``csrc/ssd_scan_tc_bwd.cu``: TMA and bf16 wgmma, float32
+sums, four launches; its head-slice launch gives each CTA a run of
+``backward_slices`` of a group's heads), anything else in float32
+arithmetic on the CUDA cores (``csrc/ssd_scan_bwd.cu``, five launches).
+Both sum each group's heads in a fixed order, without atomics: two calls
+give the same bits.  On a CPU tensor
 ``ssd_scan_grad`` trains through the sequential plain scan's torch ops,
 which ``plain=True`` runs on a CUDA tensor too (parity checks);
 ``PLAIN_CALLS`` counts those calls on any device.
@@ -50,8 +52,10 @@ import functools
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_prefill.ops import _sms
 from repro_torch.kernels.ssd_scan import ref
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -80,7 +84,10 @@ _WORKSPACE: dict[tuple, int] = {}
 #: reset it to 0)
 LAUNCHES = 0
 #: the backward kernels' launches a call, by ``backward_path``
-BACKWARD_LAUNCHES = {"tensor_core": 5, "cuda_core": 5}
+BACKWARD_LAUNCHES = {"tensor_core": 4, "cuda_core": 5}
+#: a head-slice CTA's fixed cost (the B and C tiles, B C^T, its partial sum
+#: written), in heads (``backward_slices``)
+SLICE_OVERHEAD_HEADS = 1
 #: the same launches by kernel: ``kernel_path``'s names; and the backward
 #: kernels' launches (``BACKWARD_LAUNCHES`` a call) by ``backward_path``
 LAUNCHES_BY_PATH = {"tensor_core": 0, "cuda_core": 0,
@@ -113,9 +120,10 @@ def _launchers():
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         bw.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        tb.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+        tb.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
-        ws.argtypes = bws.argtypes = tbs.argtypes = [ctypes.c_int] * 6
+        ws.argtypes = bws.argtypes = [ctypes.c_int] * 6
+        tbs.argtypes = [ctypes.c_int] * 7
         tc.restype = cc.restype = bw.restype = tb.restype = ctypes.c_int
         ws.restype = bws.restype = tbs.restype = ctypes.c_longlong
         _FNS = (tc, ws, cc, {"cuda_core": (bw, bws),
@@ -164,6 +172,43 @@ def backward_path(x_dtype: torch.dtype, bc_dtype: torch.dtype, P: int,
     if x_dtype == bc_dtype == torch.bfloat16 and N <= MAX_STATE_TC_BWD:
         return "tensor_core"
     return "cuda_core"
+
+
+@functools.lru_cache(maxsize=None)
+def backward_slices(Bsz: int, L: int, H: int, G: int, *, sms: int) -> int:
+    """Slices of each group's H // G heads in the tensor-core backward's
+    head-slice launch on a card of ``sms`` SMs (``csrc/ssd_scan_tc_bwd.cu``,
+    launch 3: a CTA a chunk and slice, its heads in turn): the fewest that
+    minimise the launch's waves times a CTA's heads plus its fixed cost
+    (``SLICE_OVERHEAD_HEADS``), so the CTAs fill the card without a
+    second wave of short ones.  Between 1 and H // G; ``ref.slice_bounds``
+    gives each slice's heads.  Cached: the wrapper asks on every call."""
+    hpg = H // G
+    ctas = Bsz * -(-L // CHUNK) * G
+    best, best_cost = 1, None
+    for s in range(1, hpg + 1):
+        cost = -(-ctas * s // sms) * (-(-hpg // s) + SLICE_OVERHEAD_HEADS)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def tc_backward_slices(Bsz: int, L: int, H: int, G: int, dev) -> int:
+    """``backward_slices`` on the card of ``dev``."""
+    return backward_slices(Bsz, L, H, G, sms=_sms(torch.device(dev)))
+
+
+def _tc_pad(t: torch.Tensor, *last: int) -> torch.Tensor:
+    """``t`` as the tensor-core backward takes it: its last ``len(last)``
+    dims zero-padded to ``last`` (P and N to multiples of 8: TMA's 16-byte
+    rows) and a 16-byte aligned start.  Both hold for the models' tensors,
+    which pass unchanged; the zeros add nothing to any sum."""
+    if tuple(t.shape[-len(last):]) != last:
+        pad = []
+        for size, want in zip(reversed(t.shape[-len(last):]), reversed(last)):
+            pad += [0, want - size]
+        t = F.pad(t, pad)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _workspace(key: tuple, size_fn, dev) -> torch.Tensor:
@@ -265,21 +310,39 @@ def ssd_scan_backward(x, a, B, C, s_prev, dy, d_state):
             else torch.float32,), dev)
     path = backward_path(x.dtype, B.dtype, P, N)
     fn, size = _launchers()[3][path]
-    dx, da, dB, dC = (torch.empty_like(t) for t in (x, a, B, C))
     if L == 0:
-        return dx, da, dB, dC
-    work = _workspace(("backward_" + path, Bsz, L, H, P, G, N), size, dev)
+        return tuple(torch.empty_like(t) for t in (x, a, B, C))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
-            dy.data_ptr(), d_state.data_ptr() if d_state is not None
-            else None, s_prev.data_ptr(), dx.data_ptr(), da.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), work.data_ptr())
     if path == "tensor_core":
-        err = fn(*ptrs, Bsz, L, H, P, G, N, stream)
+        slices = tc_backward_slices(Bsz, L, H, G, dev)
+        P8, N8 = -(-P // 8) * 8, -(-N // 8) * 8
+        x8, dy8 = (_tc_pad(t, P8) for t in (x, dy))
+        B8, C8 = (_tc_pad(t, N8) for t in (B, C))
+        sp8 = _tc_pad(s_prev, P8, N8)
+        ds8 = None if d_state is None else _tc_pad(d_state, P8, N8)
+        dx, dB, dC = (torch.empty_like(t) for t in (x8, B8, C8))
+        da = torch.empty_like(a)
+        work = _workspace(("backward_" + path, Bsz, L, H, P8, G, N8, slices),
+                          size, dev)
+        err = fn(x8.data_ptr(), a.data_ptr(), B8.data_ptr(), C8.data_ptr(),
+                 dy8.data_ptr(), ds8.data_ptr() if ds8 is not None else None,
+                 sp8.data_ptr(), dx.data_ptr(), da.data_ptr(), dB.data_ptr(),
+                 dC.data_ptr(), work.data_ptr(), Bsz, L, H, P8, G, N8, slices,
+                 stream)
+        if P8 != P:
+            dx = dx[..., :P].contiguous()
+        if N8 != N:
+            dB, dC = dB[..., :N].contiguous(), dC[..., :N].contiguous()
     else:
+        dx, da, dB, dC = (torch.empty_like(t) for t in (x, a, B, C))
+        work = _workspace(("backward_" + path, Bsz, L, H, P, G, N), size, dev)
         err = fn(int(x.dtype == torch.bfloat16),
-                 int(B.dtype == torch.bfloat16), int(sp_bf16), *ptrs, Bsz, L,
-                 H, P, G, N, stream)
+                 int(B.dtype == torch.bfloat16), int(sp_bf16), x.data_ptr(),
+                 a.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+                 d_state.data_ptr() if d_state is not None else None,
+                 s_prev.data_ptr(), dx.data_ptr(), da.data_ptr(),
+                 dB.data_ptr(), dC.data_ptr(), work.data_ptr(), Bsz, L, H, P,
+                 G, N, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan backward {path} kernel launch failed: "
                            f"CUDA error {err}")

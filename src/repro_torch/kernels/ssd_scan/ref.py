@@ -155,8 +155,16 @@ def _chunked_forward(x, a, B, C, chunk: int):
     return y.to(x.dtype), S, sp
 
 
+def slice_bounds(hpg: int, slices: int) -> list[tuple[int, int]]:
+    """The heads [h0, h1) of each of ``slices`` slices of a group's ``hpg``
+    heads, in the order the tensor-core backward adds their partial sums
+    (its head-slice kernel's formula)."""
+    return [(s * hpg // slices, (s + 1) * hpg // slices)
+            for s in range(slices)]
+
+
 def ssd_scan_chunked_backward(x, a, B, C, dy, d_state, chunk: int = 128,
-                              tensor_core: bool = False):
+                              tensor_core: bool = False, slices: int = 1):
     """What the backward kernels (``csrc/ssd_scan_bwd.cu``; with
     ``tensor_core``, ``csrc/ssd_scan_tc_bwd.cu``) compute, in their order,
     as plain torch on any device: the gradients (dx, da, dB, dC) of
@@ -176,7 +184,10 @@ def ssd_scan_chunked_backward(x, a, B, C, dy, d_state, chunk: int = 128,
        dx = M^T dy + w o (B dS^T);
        dC = (sum_h (dy x^T) o D) B + sum_h e o (dy S_prev);
        dB = (sum_h (dy x^T) o D)^T C + sum_h w o (x dS);
-       the head sums in ascending head order;
+       the head sums in ascending head order; sum_h (dy x^T) o D as the
+       tensor-core kernel takes it with ``slices`` (``slice_bounds``): a
+       float32 sum over each slice's heads, then the slices added in order
+       (``slices`` = 1: one sum over the group);
     4. d log a_t directly, as the sum of the terms that carry a_t (no
        pair cancels, so it keeps its relative accuracy where a is small):
        sum_{i >= t > j} (dy_i . x_j) M_ij + sum_{i >= t} e_i dy_i .
@@ -243,7 +254,17 @@ def ssd_scan_chunked_backward(x, a, B, C, dy, d_state, chunk: int = 128,
     dx = torch.einsum("bcijh,bcihp->bcjhp", rnd(M), dyc) + w[..., None] * bds
     dyx = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
     hsum = (lambda t: t.reshape(t.shape[:-1] + (G, H // G)).sum(-1))
-    dcb = rnd(hsum(dyx * Dm))                             # [b, c, i, j, g]
+
+    def slice_sum(t):
+        t = t.reshape(t.shape[:-1] + (G, H // G))
+        parts = [t[..., lo:hi].sum(-1)
+                 for lo, hi in slice_bounds(H // G, slices)]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    dcb = rnd(slice_sum(dyx * Dm))                        # [b, c, i, j, g]
     dC = torch.einsum("bcijg,bcjgn->bcign", dcb, Bc) + hsum(torch.einsum(
         "bcihp,bchpn->bcinh", rnd(dyc * e[..., None]), sp)).transpose(3, 4)
     dB = torch.einsum("bcijg,bcign->bcjgn", dcb, Cc) + hsum(torch.einsum(

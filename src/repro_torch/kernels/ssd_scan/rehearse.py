@@ -17,15 +17,17 @@ non-zero on a build failure, a hang or an
 error past a limit.  ``chip_smoke.py`` is the full check; this is the
 rehearsal before it.
 
-``--backward`` does the same for training's kernel (``csrc/ssd_scan_bwd.cu``):
-ptxas's report of its kernels, then every ``BACKWARD_CASES`` row
-(``check_backward``: the forward writing S_prev, then the backward's dx,
-da, dB and dC against ``ref.ssd_scan_chunked_backward`` on the same
-inputs and cotangents, at small L against autograd of the sequential
-scan too, and two calls bitwise; ``chip_smoke.py`` and the card tests call
-it), then the times at mamba2-780m's training shape [1, 4096, 48, 64],
-G = 1, N = 128 (``time_backward``: ms a call by CUDA events, device ms by
-kernel, the plain mirror's ms and the bound).
+``--backward`` does the same for training's kernels
+(``csrc/ssd_scan_tc_bwd.cu`` for bf16 with N <= 128, ``csrc/ssd_scan_bwd.cu``
+otherwise): ptxas's report of their kernels, then every ``BACKWARD_CASES``
+row (``check_backward``: the forward writing S_prev, then the backward's
+dx, da, dB and dC against ``ref.ssd_scan_chunked_backward`` with the
+kernel's head slices on the same inputs and cotangents, at small L against
+autograd of the sequential scan too, and two calls bitwise; ``chip_smoke.py``
+and the card tests call it), then the times at mamba2-780m's training
+shape [1, 4096, 48, 64], G = 1, N = 128 (``time_backward``: ms a call by
+CUDA events, device ms by kernel, the slice count and workspace bytes, the
+plain mirror's ms and the bound).
 """
 from __future__ import annotations
 
@@ -83,6 +85,17 @@ BACKWARD_CASES = [
     (2, 200, 6, 40, 3, 64, True, False),
     (1, 129, 4, 36, 2, 100, True, False),
 ]
+# the head-slice kernel's edges (bf16): 30 heads in 8 slices on 132 SMs
+# (slices that do not divide a group's heads), H = 48 and G = 1 at L = 257
+# (a one-token last chunk) in several slices (24 on 132 SMs), and dy = 0
+# with a nonzero d_state (the ninth field: u's share of d log a must be
+# exactly zero, ``check_backward``)
+SLICE_CASES = [
+    (2, 1024, 30, 64, 1, 128, True, False),
+    (1, 257, 48, 64, 1, 128, True, False),
+    (1, 300, 8, 64, 1, 128, True, False, True),
+]
+BACKWARD_CASES += SLICE_CASES
 #: the training shape of mamba2-780m (Bsz, L, H, P, G, N)
 TRAIN_SHAPE = (1, 4096, 48, 64, 1, 128)
 # the backward kernel against its mirror (max-abs error over the mirror's
@@ -157,7 +170,7 @@ def _profile(fn, calls: int = 20, launches: int = 0,
     for e in events:
         name = next((k for k in ("bwd_chunk", "bwd_state_pass", "bwd_head",
                                  "bwd_dcb_sum", "bwd_group", "tcb_chunk",
-                                 "tcb_state_pass", "tcb_head", "tcb_dcb_sum",
+                                 "tcb_state_pass", "tcb_head_slice",
                                  "tcb_group", "chunk", "state_pass",
                                  "output")
                      if k in e.name), e.name[:40])
@@ -168,9 +181,10 @@ def _profile(fn, calls: int = 20, launches: int = 0,
 
 def backward_inputs(case, dev, seed: int = 0):
     """(x, a, B, C, dy, d_state) of a ``BACKWARD_CASES`` row on ``dev``,
-    from a seeded generator: d_state nonzero."""
+    from a seeded generator: d_state nonzero; dy zero where the row's
+    ninth field says so."""
     import torch
-    Bz, L, H, P, G, N, bf16, strong = case
+    Bz, L, H, P, G, N, bf16, strong = case[:8]
     dt = torch.bfloat16 if bf16 else torch.float32
     g = torch.Generator(device=dev).manual_seed(seed + L + 7 * N)
     x = (0.5 * torch.randn((Bz, L, H, P), generator=g, device=dev)).to(dt)
@@ -181,6 +195,8 @@ def backward_inputs(case, dev, seed: int = 0):
     C = (0.3 * torch.randn((Bz, L, G, N), generator=g, device=dev)).to(dt)
     dy = torch.randn((Bz, L, H, P), generator=g, device=dev).to(dt)
     ds = 0.1 * torch.randn((Bz, H, P, N), generator=g, device=dev)
+    if case[8:9] == (True,):
+        dy = torch.zeros_like(dy)
     return x, a, B, C, dy, ds
 
 
@@ -202,9 +218,12 @@ def check_backward(case, dev, seed: int = 0) -> dict:
     inputs and cotangents (and, at L <= 512, against autograd of the
     sequential scan; on the tensor-core path against the CUDA-core kernel
     on the same bf16 inputs too, within the mirror's limit), and a second
-    call bitwise equal to the first.  Returns the errors (max-abs error
-    over the reference's max-abs, per gradient) and raises past the
-    tolerances."""
+    call bitwise equal to the first.  A row whose ninth field is True has
+    dy = 0: then R and u, d log a's terms that carry dy, are exactly zero,
+    so dx and da equal, bit for bit, a call with C = 0 (which makes C
+    S_prev^T, and so u, zero whatever the kernel reads; nothing else
+    depends on C when dy = 0).  Returns the errors (max-abs error over the
+    reference's max-abs, per gradient) and raises past the tolerances."""
     import torch
     from repro_torch.kernels.ssd_scan import ops, ref
     x, a, B, C, dy, ds = backward_inputs(case, dev, seed)
@@ -216,12 +235,16 @@ def check_backward(case, dev, seed: int = 0) -> dict:
     again = ops.ssd_scan_backward(x, a, B, C, sp, dy, ds)
     path = ops.kernel_path(x.dtype, B.dtype)
     bpath = ops.backward_path(x.dtype, B.dtype, case[3], case[5])
-    want = ref.ssd_scan_chunked_backward(
-        x, a, B, C, dy, ds, tensor_core=bpath == "tensor_core")
+    tc = bpath == "tensor_core"
+    slices = ops.tc_backward_slices(case[0], case[1], case[2], case[4],
+                                    dev) if tc else 1
+    want = ref.ssd_scan_chunked_backward(x, a, B, C, dy, ds, tensor_core=tc,
+                                         slices=slices)
     torch.cuda.synchronize()
     names = ("dx", "da", "dB", "dC")
     launched = {k: ops.LAUNCHES_BY_PATH[k] - before[k] for k in before}
     row = dict(case=list(case), path=path, backward_path=bpath,
+               slices=slices, heads_per_group=case[2] // case[4],
                launches_ok=launched == {
                    **{k: 0 for k in before}, path: 1,
                    "backward_" + bpath: 2 * ops.BACKWARD_LAUNCHES[bpath]},
@@ -231,6 +254,10 @@ def check_backward(case, dev, seed: int = 0) -> dict:
                mirror={n: _rel(u, v) for n, u, v in zip(names, got, want)},
                max_abs_err=max(float((u.float() - v.float()).abs().max())
                                for u, v in zip(got, want)))
+    if case[8:9] == (True,):
+        zc = ops.ssd_scan_backward(x, a, B, torch.zeros_like(C), sp, dy, ds)
+        row["zero_dy_exact"] = torch.equal(got[0], zc[0]) and \
+            torch.equal(got[1], zc[1])
     if case[1] <= 512:
         plain = _sequential_grads(x, a, B, C, dy, ds)
         row["plain"] = {n: _rel(u, v) for n, u, v in zip(names, got, plain)}
@@ -243,7 +270,8 @@ def check_backward(case, dev, seed: int = 0) -> dict:
         finally:
             ops.backward_path = path_of
         row["cuda_core"] = {n: _rel(u, v) for n, u, v in zip(names, got, cc)}
-    bad = [k for k in ("launches_ok", "finite", "bitwise") if not row[k]]
+    bad = [k for k in ("launches_ok", "finite", "bitwise", "zero_dy_exact")
+           if not row.get(k, True)]
     bad += [f"cuda_core {n}" for n, e in row.get("cuda_core", {}).items()
             if not e <= TOL_BWD_MIRROR[bf16]]
     bad += [f"mirror {n}" for n, e in row["mirror"].items()
@@ -286,9 +314,10 @@ def backward_bound(shape, bf16: bool = True) -> dict:
 def time_backward(dev, shape=TRAIN_SHAPE, plain: bool = True) -> dict:
     """The backward at ``shape`` in bf16: ms a call (CUDA events), device
     ms by kernel a call (``torch.profiler``; ``profile_complete`` says
-    whether its trace showed every launch), the same for the CUDA-core
-    backward on the same inputs, the forward writing S_prev, the plain
-    mirror's ms (``plain``), the bound and its share of ``ms``."""
+    whether its trace showed every launch), the head-slice launch's slice
+    count and the workspace bytes, the same for the CUDA-core backward on
+    the same inputs, the forward writing S_prev, the plain mirror's ms
+    (``plain``), the bound and its share of ``ms``."""
     import torch
     from repro_torch.kernels.ssd_scan import ops, ref
     x, a, B, C, dy, ds = backward_inputs(shape + (True, False), dev)
@@ -300,6 +329,10 @@ def time_backward(dev, shape=TRAIN_SHAPE, plain: bool = True) -> dict:
                forward_ms=_time_ms(lambda: ops._kernel_forward(x, a, B, C)))
     out["path"] = path = ops.backward_path(x.dtype, B.dtype, shape[3],
                                            shape[5])
+    Bz, L, H, P, G, N = shape
+    out["slices"] = ops.tc_backward_slices(Bz, L, H, G, dev)
+    out["workspace_bytes"] = ops._WORKSPACE[
+        ("backward_" + path, Bz, L, H, P, G, N, out["slices"])]
     n = ops.BACKWARD_LAUNCHES[path]
     prof = _profile(run, calls=5, launches=n)
     out["device_ms_by_kernel"] = {
@@ -318,8 +351,8 @@ def time_backward(dev, shape=TRAIN_SHAPE, plain: bool = True) -> dict:
         ops.backward_path = path_of
     if plain:
         out["plain_ms"] = _time_ms(lambda: ref.ssd_scan_chunked_backward(
-            x, a, B, C, dy, ds, tensor_core=out["path"] == "tensor_core"),
-            iters=2)
+            x, a, B, C, dy, ds, tensor_core=out["path"] == "tensor_core",
+            slices=out["slices"]), iters=2)
     out.update(backward_bound(shape))
     # back-to-back calls keep the card busy at this size, so the CUDA-event
     # ms a call is device time (a profiler trace may drop kernels)

@@ -968,10 +968,13 @@ def test_train_step_kernels_match_plain_on_card(dev, arch):
 
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_backward_kernel_matches_mirror_on_card(dev, case):
-    """The SSD-scan gradient's kernel (``csrc/ssd_scan_bwd.cu``) on each
-    forward case's shape and type, after the forward kernel wrote S_prev:
-    dx, da, dB and dC against ``ref.ssd_scan_chunked_backward`` on the same
-    inputs and cotangents (a nonzero d_state) within
+    """The SSD-scan gradient's kernels on each forward case's shape and
+    type, after the forward kernel wrote S_prev: bf16 with N <= 128 on the
+    tensor cores (``csrc/ssd_scan_tc_bwd.cu``, a group's heads in
+    ``ops.backward_slices`` slices), the rest on the CUDA cores
+    (``csrc/ssd_scan_bwd.cu``); dx, da, dB and dC against
+    ``ref.ssd_scan_chunked_backward`` (with the kernel's slices) on the
+    same inputs and cotangents (a nonzero d_state) within
     ``rehearse.TOL_BWD_MIRROR``, at L <= 512 against autograd of the
     sequential scan within ``TOL_BWD_PLAIN``, and two calls bitwise equal
     (``rehearse.check_backward``, which raises past a limit)."""
@@ -979,6 +982,26 @@ def test_ssd_backward_kernel_matches_mirror_on_card(dev, case):
     row = ssd_rehearse.check_backward(
         (Bz, L, H, P, G, N, dt == torch.bfloat16, False), dev, seed=11)
     assert row["bitwise"] and row["launches_ok"]
+
+
+@pytest.mark.parametrize("n", range(len(ssd_rehearse.SLICE_CASES)))
+def test_ssd_backward_head_slices_on_card(dev, n):
+    """The tensor-core backward's head-slice edges
+    (``rehearse.SLICE_CASES``): 30 heads in slices that do not divide them,
+    48 heads of one group at L = 257 (a one-token last chunk) in several
+    slices, and dy = 0 with a nonzero d_state, whose d log a must carry no
+    u share (dx and da bitwise equal to a call with C = 0); each against
+    its mirror and bitwise over two calls (``rehearse.check_backward``)."""
+    case = ssd_rehearse.SLICE_CASES[n]
+    row = ssd_rehearse.check_backward(case, dev, seed=13)
+    assert row["backward_path"] == "tensor_core"
+    assert row["bitwise"] and row["launches_ok"]
+    if n == 0:
+        assert row["heads_per_group"] % row["slices"], row["slices"]
+    if n == 1:
+        assert row["slices"] > 1
+    if n == 2:
+        assert row["zero_dy_exact"]
 
 
 def test_ssd_train_step_kernels_match_plain_on_card(dev):
