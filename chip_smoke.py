@@ -35,7 +35,7 @@ drives the port's paths through the kernels:
     mixes through the plain versions;
   * the same serving of mamba2-780m (48 ``ssd`` layers, every prefill
     through the SSD-scan kernel) at full width and depth: the launcher's
-    mix, four 2000-token prompts, and, at 4 layers, both mixes through the
+    mix, four 2000-token prompts, and, at 2 layers, both mixes through the
     kernel against the plain scan (each call's logits against the plain
     versions on a copy of the same cache: a recurrent state carries any
     rounding difference forward, so two independent runs drift apart);
@@ -119,15 +119,40 @@ scenarios, two servers, 12,000 ticks, each under ``StaticHold`` and the
 bi-level adaptive policy), every deterministic field held equal to
 benchmarks/results/scenarios.json.
 
-Cuts against earlier versions of this script, made to fit the fleet and
-training phases in the time limit: ``fig6_batch`` runs 20,000 ticks
-(60,000 before; fig6's quick run is 60,000 and its full run 400,000; its
-digests are the JAX reference's at 20,000), ``profile`` profiles windows
-of 25 ticks (100, then 50 before), ``profile_batch8`` holds its entries at
-1,500 ticks and times 6,000 (6,000 and 30,000, then 3,000 and 12,000
-before), and ``parity`` / ``graph_parity`` run 500 / 250 ticks (2,000 /
-500, then 1,000 / 250 before; ``graph_parity``'s software-shaping window
-completes nothing in 125).  The mamba2 and recurrentgemma
+The distributed layer (``repro_torch.distributed``, ``launch/dryrun.py``):
+``kernel_decode_attention_partial`` (after ``kernel_decode_attention``)
+holds the decode-attention kernel's partial form, which also writes each
+head's merged softmax max and sum (``ml``), against its plain version at
+one rank's half of gemma3-12b's decode_32k global layer and on edge
+lengths (<= 0, past S, a window outside the slice), merges two halves
+into the whole, and times the kernel with and without ``ml``;
+``seq_sharded_decode`` (after the serving phases) runs ``decode_step``
+through the sequence-sharded hooks on two ranks of the one card
+(processes of this script, ``--seq-sharded-rank``; gloo over the card's
+tensors, as NCCL refuses two ranks on one device): gemma3-12b's first
+period at full width, B = 8, a float32 cache of 32,768 rows, each rank
+holding half of every layer's rows, one partial launch a layer, held
+against the unsharded kernel step on the same cache; ``dryrun`` (last,
+host only) plans gemma3-12b x decode_32k on the pod mesh and
+llama4-maverick-400b-a17b x train_4k on the two-pod mesh and prints each
+device's GiB.  Every phase line carries its own seconds (``phase_s``).
+
+Cuts against earlier versions of this script, made to fit the fleet,
+training and distributed phases in the time limit: ``fig6_batch`` runs
+20,000 ticks (60,000 before; fig6's quick run is 60,000 and its full run
+400,000; its digests are the JAX reference's at 20,000), ``profile``
+profiles windows of 25 ticks (100, then 50 before) through the graphs
+only (the eager body's profiled window went), ``profile_batch8``
+holds its entries at 1,000 ticks and times 4,000 (6,000 and 30,000, then
+3,000 and 12,000, then 1,500 and 6,000 before), ``parity`` /
+``graph_parity`` run 250 / 250 ticks (2,000 / 500, then 1,000 / 250, then
+500 / 250 before; ``graph_parity``'s software-shaping window completes
+nothing in 125), ``main_path``'s eager window 150 ticks (EAGER_TICKS,
+300 before), ``batch_parity`` windows of 200 ticks
+(300 before), ``resource_parity`` windows of 250 (400 before), ``interp``
+every size to 2^17 and every 61st to 2^20 (every size to 2^20 before),
+``serve_mamba2_parity`` 2 layers (4 before), and ``auto_time_ms`` times
+about 0.1 s of calls (0.2 before).  The mamba2 and recurrentgemma
 paths run more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so
 that their mixes reach 3 s of virtual time; mixtral's runs 6 s (its full
 config's cost model clocks a 33 ms decode step on one H100), and its depth
@@ -161,11 +186,11 @@ SRC = os.path.join(ROOT, "src")
 PROFILE_TICKS = 2_000
 TOTAL_TICKS = 6_000
 WINDOW_TICKS = 2_000
-PARITY_TICKS = 500
+PARITY_TICKS = 250
 PROFILE_WINDOW = 25
 # eager windows beside the graph's (``engine._run_window_eager``, about
 # 9 ms a tick): the main path's comparison window and graph_parity's
-EAGER_TICKS = 300
+EAGER_TICKS = 150
 GRAPH_PARITY_TICKS = 250
 # graph_parity's serving decode: steps after three prompts
 DECODE_PARITY_STEPS = 8
@@ -189,7 +214,7 @@ PARITY_LAYERS = 6          # one period: 5 local layers and 1 global
 # chunk is ragged
 MAMBA_ARCH = "mamba2-780m"
 MAMBA_LONG_PROMPT = 2000
-MAMBA_PARITY_LAYERS = 4
+MAMBA_PARITY_LAYERS = 2
 # the launcher runs 3 s of virtual time in at most 2000 rounds; an idle round
 # advances 0.1 ms and a mamba2 step far less than a gemma3 one, so its mixes
 # take about 29,000 rounds to reach 3 s (every request done by then)
@@ -260,13 +285,16 @@ MAMBA_TRAIN_PARITY_LAYERS, MAMBA_TRAIN_PARITY_SEQ = 4, 1024
 
 
 T0 = time.perf_counter()
+_LAST = [T0]
 
 
 def emit(phase: str, **kw) -> None:
-    """One JSON line for ``phase``, with the seconds since the start."""
-    print(json.dumps({"phase": phase, **kw,
-                      "at_s": round(time.perf_counter() - T0, 1)}),
-          flush=True)
+    """One JSON line for ``phase``, with the seconds since the start and
+    the phase's own (``phase_s``: since the line before it)."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, **kw, "at_s": round(now - T0, 1),
+                      "phase_s": round(now - _LAST[0], 1)}), flush=True)
+    _LAST[0] = now
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -315,7 +343,7 @@ def device_ms_per_launch(fn, kind: str, calls: int = 50,
     return sum(best) / len(best) / 1e3
 
 
-def auto_time_ms(fn, budget_s: float = 0.2, max_iters: int = 200) -> float:
+def auto_time_ms(fn, budget_s: float = 0.1, max_iters: int = 200) -> float:
     """``cuda_time_ms`` with as many calls as fit in about ``budget_s``."""
     once = cuda_time_ms(fn, 3)
     return cuda_time_ms(fn, max(3, min(max_iters,
@@ -556,6 +584,143 @@ def phase_kernel_decode_attention(dev) -> dict:
                 long=[rows[i] for i in DA_LONG],
                 new={a: [rows[i] for i in ix] for a, ix in DA_NEW.items()},
                 max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+# the sequence-sharded decode (``seq_sharded_decode``): gemma3-12b at full
+# width and one period (5 local layers, 1 global), B = 8, a float32 cache
+# of decode_32k's 32,768 rows (K and V of the global layer: 4.3 GB, half on
+# each rank) split over SEQ_RANKS ranks on the one card; the sequences'
+# lengths (positions before the new token) put the first one's rows all in
+# rank 0's half and the others across the boundary (16,383 and 16,384:
+# the new token's row the last of the first half, the first of the second)
+SEQ_LAYERS = PARITY_LAYERS
+SEQ_B = 8
+SEQ_ROWS = 32_768
+SEQ_RANKS = 2
+SEQ_LENGTHS = (1000, 16383, 16384, 20000, 24000, 28000, 31000, 32766)
+SEQ_STEPS = 5               # timed steps, hooked and whole
+SEQ_SEED = 31
+
+# decode_attention_partial (the kernel writing each head's merged (m, l)):
+# B, H, KvH, D, S, window, cache dtype, lengths (as the wrapper gets them:
+# shifted by the slice's first row).  First gemma3-12b's global layer as
+# rank 1 of ``seq_sharded_decode`` holds it (S = 16,384 rows, lengths
+# SEQ_LENGTHS + 1 - 16,384, the first -15,383: no row); then the edge
+# lengths: <= 0, on and past S, a window that ends before the slice
+# (577 - 64, 600 - 64 > S) or starts before it
+DAP_CASES = [
+    (8, 16, 8, 256, SEQ_ROWS // 2, 0, "float32",
+     tuple(n + 1 - SEQ_ROWS // 2 for n in SEQ_LENGTHS)),
+    (8, 16, 8, 256, 512, 0, "float32", (-5, 0, 1, 255, 256, 257, 512, 900)),
+    (8, 16, 8, 256, 512, 64, "float32", (-5, 0, 30, 64, 100, 512, 600, 577)),
+    (8, 16, 8, 256, 512, 0, "bfloat16", (-5, 0, 1, 255, 256, 257, 512, 900)),
+    (2, 12, 2, 80, 777, 128, "bfloat16", (700, 40)),
+]
+
+
+def phase_kernel_decode_attention_partial(dev) -> dict:
+    """The decode-attention kernel's partial form
+    (``ops.decode_attention_partial``: out float32 and each head's merged
+    (m, l)) against its plain version on ``DAP_CASES``: out within 2e-5,
+    m within 2e-5 of max(1, |m|), l within 1e-4 relative, and a head with
+    no row exactly (out 0, m -1e30, l 0).  At the first case, the two
+    halves of a 32,768-row cache, each through the kernel, merged as the
+    sequence-sharded decode merges ranks, against the plain attention over
+    the whole; and the kernel's times with and without the ``ml`` output
+    (``decode_attention`` on the same float32 q), the plain version's,
+    SDPA's (the output alone) and the bound."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    rows = []
+    for i, (B, H, KvH, D, S, w, cn, lens) in enumerate(DAP_CASES):
+        cdt = getattr(torch, cn)
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        k = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
+        v = torch.randn((B, S, KvH, D), generator=g, device=dev).to(cdt)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, ml = ops.decode_attention_partial(q, k, v, ln, window=w)
+        p_out, p_ml = ref.decode_attention_partial(q, k, v, ln, window=w)
+        torch.cuda.synchronize()
+        empty = p_ml[..., 1] == 0
+        m, pm = ml[..., 0], p_ml[..., 0]
+        row = dict(shape=[B, H, KvH, D, S], window=w, cache=cn,
+                   lengths=list(lens), out_err=_max_err(out, p_out),
+                   m_err=float(((m - pm).abs() / pm.abs().clamp_min(1))
+                               [~empty].max()) if (~empty).any() else 0.0,
+                   l_rel_err=float(((ml[..., 1] - p_ml[..., 1]).abs()
+                                    / p_ml[..., 1].clamp_min(1e-30))
+                                   [~empty].max()) if (~empty).any()
+                   else 0.0, empty_heads=int(empty.sum()))
+        exact_empty = bool((m[empty] == -1e30).all()
+                           and (ml[..., 1][empty] == 0).all()
+                           and (out[empty] == 0).all())
+        if not (row["out_err"] < 2e-5 and row["m_err"] < 2e-5
+                and row["l_rel_err"] < 1e-4 and exact_empty):
+            emit("kernel_decode_attention_partial", failed=row)
+            raise AssertionError(f"decode_attention_partial != plain: {row}")
+        if i == 0:
+            row.update(_partial_timing(dev, q, k, v, ln))
+        rows.append(row)
+    emit("kernel_decode_attention_partial", cases=rows,
+         max_out_err=max(r["out_err"] for r in rows))
+    return dict(rows=rows, main=rows[0],
+                max_abs_err=max(r["out_err"] for r in rows))
+
+
+def _partial_timing(dev, q, k, v, ln) -> dict:
+    """The first DAP case (one rank's half of the global layer): its other
+    half through the kernel and the two merged against the plain attention
+    over the whole cache; times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    B, S, KvH, D = k.shape
+    H = q.shape[1]
+    g = torch.Generator(device=dev).manual_seed(299)
+    k0 = torch.randn(k.shape, generator=g, device=dev)
+    v0 = torch.randn(v.shape, generator=g, device=dev)
+    whole_ln = ln + S
+    parts = [ops.decode_attention_partial(q, kk, vv, ll)
+             for kk, vv, ll in ((k0, v0, whole_ln), (k, v, ln))]
+    mx = torch.maximum(parts[0][1][..., 0], parts[1][1][..., 0])
+    acc = sum(o * (ml[..., 1] * torch.exp(ml[..., 0] - mx))[..., None]
+              for o, ml in parts)
+    den = sum(ml[..., 1] * torch.exp(ml[..., 0] - mx) for _, ml in parts)
+    merged = acc / den.clamp_min(1e-30)[..., None]
+    whole = ref.decode_attention(q, torch.cat([k0, k], 1),
+                                 torch.cat([v0, v], 1), whole_ln)
+    merge_err = _max_err(merged, whole)
+    if not merge_err < 2e-5:
+        raise AssertionError(f"two merged halves != whole: {merge_err}")
+    del k0, v0, whole
+    valid = int((torch.clamp(ln, 0, S)).sum())
+    n_bytes = (2 * valid * KvH * D * k.element_size() + 2 * q.numel() * 4
+               + B * H * 2 * 4 + 4 * B)
+    bound_ms, bound_by = attn_bound(n_bytes, 4 * valid * H * D, "float32")
+    idx = torch.arange(S, device=dev)
+    mask = (idx[None, :] < ln[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return ops.decode_attention_partial(q, k, v, ln)
+    ms = auto_time_ms(call)
+    device_ms = device_ms_per_launch(call, "decode_attention")
+    return dict(
+        merged_halves_err=merge_err, ms=ms, device_ms=device_ms,
+        ms_without_ml=auto_time_ms(lambda: ops.decode_attention(q, k, v,
+                                                                ln)),
+        device_ms_without_ml=device_ms_per_launch(
+            lambda: ops.decode_attention(q, k, v, ln), "decode_attention"),
+        plain_ms=auto_time_ms(
+            lambda: ref.decode_attention_partial(q, k, v, ln)),
+        library_ms=auto_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)),
+        library="F.scaled_dot_product_attention, masked (the output "
+                "alone: no m, l)",
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / device_ms, valid_rows=valid,
+        plan=ops.launch_plan(B, KvH, H // KvH, S, D * k.element_size()))
 
 
 # B, S, H, KvH, D, window, chunk, dtype: the cases of
@@ -834,11 +999,14 @@ def phase_kernel_ssd_scan(dev) -> dict:
 
 
 def phase_interp(dev) -> None:
-    """interp_grid on CUDA vs CPU over every size 1..2^20 (and above)."""
+    """interp_grid on CUDA vs CPU over every size 1..INTERP_EVERY, every
+    INTERP_STRIDE-th size from there to 2^20, and above."""
     import torch
     from repro_torch.core import accelerator as acc
-    m = torch.cat([torch.arange(1, 2**20 + 1, dtype=torch.float32),
-                   torch.tensor([2**20 + 1, 3e6, 2**31 - 1],
+    m = torch.cat([torch.arange(1, INTERP_EVERY + 1, dtype=torch.float32),
+                   torch.arange(INTERP_EVERY + 1, 2**20 + 1, INTERP_STRIDE,
+                                dtype=torch.float32),
+                   torch.tensor([2**20, 2**20 + 1, 3e6, 2**31 - 1],
                                 dtype=torch.float32)])
     tab = acc.AccelTable.build(list(acc.CATALOG.values()))
     bad = int((acc.log2(m.to(dev)).cpu().view(torch.int32)
@@ -853,6 +1021,12 @@ def phase_interp(dev) -> None:
     if bad:
         raise AssertionError(f"interp_grid CUDA != CPU at {bad} points")
     emit("interp", sizes=int(m.numel()), accelerators=tab.n, bitwise=True)
+
+
+# interp's sizes: every one to 2^17, then every 61st to 2^20 (every size to
+# 2^20 took 20.5 s of a whole run)
+INTERP_EVERY = 2**17
+INTERP_STRIDE = 61
 
 
 def quickstart_specs():
@@ -1191,14 +1365,13 @@ def _eager_windows():
         engine.run_window = run
 
 
-def _profile_window(dev, n_ticks: int, eager: bool = False) -> dict:
+def _profile_window(dev, n_ticks: int) -> dict:
     """torch.profiler over one simulate window of ``n_ticks`` ticks of the
-    two admitted tenants (through the entry's graph, or with ``eager`` the
-    eager body; an unprofiled window first captures the graph): host wall
-    time, device busy time, device kernels, the token-bucket kernel's
-    launches and device time, host waits by name, and the host time of the
-    costliest ops.  A trace that misses a grant-tick launch is taken again,
-    up to three times."""
+    two admitted tenants through the entry's graph (an unprofiled window
+    first captures it): host wall time, device busy time, device kernels,
+    the token-bucket kernel's launches and device time, host waits by
+    name, and the host time of the costliest ops.  A trace that misses a
+    grant-tick launch is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import token_bucket as tb
@@ -1211,31 +1384,29 @@ def _profile_window(dev, n_ticks: int, eager: bool = False) -> dict:
     arr = gen_arrivals(flows, cfg, load_ref_gbps={0: 32.0, 1: 32.0})
     tbs = tb.pack([tb.params_for_gbps(10.0), tb.params_for_gbps(20.0)])
     atab = AccelTable.build([CATALOG["ipsec32"]])
-    with _eager_windows() if eager else contextlib.nullcontext():
-        simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
-        for _ in range(3):      # a trace that misses a grant tick: again
+    simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
+    for _ in range(3):      # a trace that misses a grant tick: again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate(flows, atab, LinkSpec(), cfg, tbs, *arr, device=dev)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                simulate(flows, atab, LinkSpec(), cfg, tbs, *arr,
-                         device=dev)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            dev_us = kernels = tb_us = tb_n = 0
-            waits: dict[str, int] = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    dev_us += e.time_range.elapsed_us()  # one stream
-                    kernels += 1
-                    if any(pat in e.name
-                           for pat in KERNEL_KINDS["token_bucket"]):
-                        tb_us += e.time_range.elapsed_us()
-                        tb_n += 1
-                elif _is_host_wait(e.name):
-                    waits[e.name] = waits.get(e.name, 0) + 1
-            if tb_n == n_ticks:
-                break
+            wall = time.perf_counter() - t0
+        dev_us = kernels = tb_us = tb_n = 0
+        waits: dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev_us += e.time_range.elapsed_us()  # one stream
+                kernels += 1
+                if any(pat in e.name
+                       for pat in KERNEL_KINDS["token_bucket"]):
+                    tb_us += e.time_range.elapsed_us()
+                    tb_n += 1
+            elif _is_host_wait(e.name):
+                waits[e.name] = waits.get(e.name, 0) + 1
+        if tb_n == n_ticks:
+            break
     top = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: -e.cpu_time_total)[:6]
@@ -1257,8 +1428,9 @@ def _window_row(p: dict, n: int) -> dict:
 
 
 def phase_profile(dev) -> dict:
-    """Where one window's time goes, through the entry's graph and through
-    the eager body, and through the batch entry's graph at fig6's
+    """Where one window's time goes, through the entry's graph (the eager
+    body's profile was cut: ``main_path`` times the eager body), and
+    through the batch entry's graph at fig6's
     configuration with B = 1 and BATCH_PROFILE_SIZES elements (kernels and
     device µs a tick as B grows; one grant-tick launch a tick each), and a
     check that the tick never makes the host wait:
@@ -1271,7 +1443,6 @@ def phase_profile(dev) -> dict:
     from repro_torch.core import engine
     n = PROFILE_WINDOW
     p1, p2 = _profile_window(dev, n), _profile_window(dev, 2 * n)
-    pe = _profile_window(dev, n, eager=True)
     one = torch.zeros(1, device=dev)
     floor_ms = device_ms_per_launch(lambda: one.add_(1), "elementwise", 200)
     grown = {k: (p1["waits"].get(k, 0), v) for k, v in p2["waits"].items()
@@ -1279,7 +1450,7 @@ def phase_profile(dev) -> dict:
     batched = [_profile_batch_window(dev, B, n)
                for B in (1, *BATCH_PROFILE_SIZES)]
     emit("profile", ticks=n, **_window_row(p1, n),
-         eager=_window_row(pe, n), launch_floor_ms=floor_ms,
+         launch_floor_ms=floor_ms,
          host_waits_per_window={str(n): p1["waits"], str(2 * n): p2["waits"]},
          batched_fig6_config=batched, cache_info=engine.cache_info())
     for row in batched:
@@ -1328,9 +1499,9 @@ FIG6_DIGESTS = [
 # contexts, entries held against serial profile_context calls at 1,500
 # ticks, the batched call timed alone at 6,000 (its quick and full
 # settings are 6,000 and 30,000)
-PROFILE8_TICKS = (1_500, 6_000)
+PROFILE8_TICKS = (1_000, 4_000)
 # batch_parity: windows of the ragged B = 4 batch
-BATCH_PARITY_TICKS = 300
+BATCH_PARITY_TICKS = 200
 # the profile phase's batched rows (fig6's configuration)
 BATCH_PROFILE_SIZES = (6, 64)
 
@@ -1767,7 +1938,7 @@ def _trace_window(window, n_ticks: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # resource_parity: ticks of its windows
-RESOURCE_TICKS = 400
+RESOURCE_TICKS = 250
 # benchmarks/contention.py:52-77, uncut: eight synthetic50 servers, 24
 # interleaved 5 Gbps tenants (odd ones with a 0.05 memory-bandwidth hint),
 # mem_bw(24) and host_dma(48), 6,000 profiling ticks, the dataplane at its
@@ -3356,8 +3527,9 @@ def phase_serve_mamba2_long(dev, model) -> dict:
 
 
 def phase_serve_mamba2_parity(dev, model) -> None:
-    """At full width and 4 layers, both mamba2 mixes through the SSD-scan
-    kernel and through the plain scan (``_kernels_vs_plain``), the logits
+    """At full width and MAMBA_PARITY_LAYERS (2) layers, both mamba2 mixes
+    through the SSD-scan kernel and through the plain scan
+    (``_kernels_vs_plain``), the logits
     of each call held against the plain versions on the same cache; first
     the decode graph against its eager body (``_decode_graph_parity``)."""
     _decode_graph_parity(MAMBA_ARCH, model, dev, MAMBA_PARITY_LAYERS)
@@ -4454,8 +4626,208 @@ def phase_train_mamba2(dev) -> dict:
     return dict(res, backward_launches=paths["backward_tensor_core"])
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: the sequence-sharded decode on two ranks of the one
+# card, and the dry run
+# ---------------------------------------------------------------------------
+
+
+def _seq_sharded_rank(rank: int, port: int, out: str) -> None:
+    """One rank of ``seq_sharded_decode`` (``python3 chip_smoke.py
+    --seq-sharded-rank RANK PORT OUT``): joins a gloo group of SEQ_RANKS
+    ranks on the card's tensors, builds the model and a random float32
+    cache from the same seeds as every rank, runs the unsharded kernel
+    step on the whole cache and the hooked step on its slice of every
+    layer's rows, and writes its numbers (OUT/rank{RANK}.json) and hooked
+    logits (OUT/rank{RANK}.pt)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch.distributed.collectives import (
+        make_seq_sharded_cache_update, make_seq_sharded_decode_attn)
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=SEQ_RANKS, rank=rank)
+    mesh = make_dev_mesh(SEQ_RANKS, 1, device="cuda")
+    model, _, _ = _full_model(SERVE_ARCH, dev, SEQ_LAYERS)
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(SEQ_SEED)
+    cache = T.init_cache(cfg, SEQ_B, SEQ_ROWS, torch.float32, device=dev)
+    for layer in cache:
+        for t in layer:
+            t.normal_(generator=g)
+    tokens = torch.randint(0, cfg.vocab, (SEQ_B, 1), generator=g,
+                           device=dev)
+    lengths = torch.tensor(SEQ_LENGTHS, dtype=torch.int32, device=dev)
+
+    def mine(t):
+        n = t.shape[1] // SEQ_RANKS
+        return t[:, rank * n:(rank + 1) * n]
+    local = [tuple(mine(t).clone() for t in layer) for layer in cache]
+    hooks = dict(decode_attn_fn=make_seq_sharded_decode_attn(mesh, "data"),
+                 decode_update_fn=make_seq_sharded_cache_update(mesh,
+                                                                "data"))
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SEQ_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SEQ_STEPS * 1e3
+    whole = T.decode_step(model, tokens, lengths, cache)
+    dist.barrier()
+    _reset_launch_counts()
+    hooked = T.decode_step(model, tokens, lengths, local, **hooks)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    diff = (hooked.float() - whole.float()).abs()
+    bad = int((diff > LOGIT_ATOL + LOGIT_RTOL * whole.float().abs()).sum())
+    # every row the hooked step did not write equals the whole cache's
+    rows_equal, slot_err = True, 0.0
+    for layer, mine_l in zip(cache, local):
+        for t, loc in zip(layer, mine_l):
+            W = t.shape[1]
+            slot = lengths.long() % W - rank * (W // SEQ_RANKS)
+            ref_t = mine(t)
+            keep = torch.ones(loc.shape[:2], dtype=torch.bool, device=dev)
+            own = (slot >= 0) & (slot < loc.shape[1])
+            b = torch.arange(SEQ_B, device=dev)[own]
+            keep[b, slot[own]] = False
+            rows_equal &= bool(torch.equal(loc[keep], ref_t[keep]))
+            slot_err = max(slot_err, float((loc[b, slot[own]]
+                                            - ref_t[b, slot[own]]).abs()
+                                           .max()) if len(b) else 0.0)
+    res = dict(rank=rank, launches=launches,
+               max_logit_diff=float(diff.max()), logits_outside_tol=bad,
+               finite=bool(torch.isfinite(hooked).all()),
+               rows_bitwise=rows_equal, written_row_err=slot_err,
+               global_slots=(lengths.long() % SEQ_ROWS).tolist(),
+               local_cache_gb=sum(t.numel() * t.element_size()
+                                  for lay in local for t in lay) / 1e9,
+               mesh=str(mesh))
+    dist.barrier()
+    res["ms_hooked"] = timed(lambda: T.decode_step(model, tokens, lengths,
+                                                   local, **hooks))
+    dist.barrier()
+    # the unsharded step timed on rank 0 alone (the other rank waits)
+    res["ms_whole"] = timed(lambda: T.decode_step(
+        model, tokens, lengths, cache)) if rank == 0 else None
+    torch.save(hooked.cpu(), os.path.join(out, f"rank{rank}.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_seq_sharded_decode(dev) -> dict:
+    """decode_step through the sequence-sharded hooks
+    (``repro_torch.distributed.collectives``) on SEQ_RANKS ranks of the one
+    card: each rank a process holding gemma3-12b's first period at full
+    width and its half of every layer's cache rows, its partial through the
+    decode-attention kernel's ``ml`` form (one launch a layer), the
+    partials merged by gloo all-reduces over the card's tensors (NCCL
+    refuses two ranks on one device).  Held against the unsharded kernel
+    step on the same cache: logits within LOGIT_RTOL / LOGIT_ATOL, the same
+    logits on every rank, every cache row but the written one bitwise.  A
+    step's ms is gloo's on one card (host copies), not a multi-card
+    number."""
+    import socket
+    import torch
+    out = os.path.join(ROOT, "build", "seq_sharded")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seq-sharded-rank",
+         str(r), str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(SEQ_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError("seq_sharded_decode: a rank failed:\n"
+                             + "\n".join(x[-3000:] for x in logs))
+    ranks = []
+    for r in range(SEQ_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    logits = [torch.load(os.path.join(out, f"rank{r}.pt"))
+              for r in range(SEQ_RANKS)]
+    same = all(torch.equal(logits[0], x) for x in logits[1:])
+    per_rank = [r["launches"] for r in ranks]
+    ok = (same and all(r["finite"] and r["rows_bitwise"]
+                       and not r["logits_outside_tol"] for r in ranks)
+          and all(c == dict(token_bucket=0, decode_attention=SEQ_LAYERS,
+                            flash_prefill=0, ssd_scan=0) for c in per_rank))
+    emit("seq_sharded_decode", arch=SERVE_ARCH, layers=SEQ_LAYERS,
+         batch=SEQ_B, cache_rows=SEQ_ROWS, ranks=SEQ_RANKS,
+         lengths=list(SEQ_LENGTHS),
+         transport="gloo on one card: two ranks share cuda:0 (NCCL refuses "
+                   "two ranks on one device); a step's ms is not a "
+                   "multi-card number",
+         launches_by_rank=per_rank, logits_equal_across_ranks=same,
+         logit_rtol=LOGIT_RTOL, logit_atol=LOGIT_ATOL,
+         **{k: [r[k] for r in ranks] for k in (
+             "max_logit_diff", "rows_bitwise", "written_row_err",
+             "ms_hooked", "ms_whole", "local_cache_gb", "global_slots",
+             "mesh")})
+    if not ok:
+        raise AssertionError(f"seq_sharded_decode: {ranks}, logits equal "
+                             f"across ranks: {same}")
+    return dict(launches=sum(c["decode_attention"] for c in per_rank),
+                ms_hooked=max(r["ms_hooked"] for r in ranks),
+                ms_whole=ranks[0]["ms_whole"])
+
+
+#: the dry run's plans the smoke makes (host only)
+DRYRUN_PLANS = (("gemma3-12b", "decode_32k", "pod"),
+                ("llama4-maverick-400b-a17b", "train_4k", "multipod"))
+
+
+def phase_dryrun() -> dict:
+    """``repro_torch.launch.dryrun.plan`` of DRYRUN_PLANS on the host (no
+    card, nothing allocated): per-device GiB of the arguments by part, the
+    step's FLOPs, and the fields left null with their reasons."""
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch, shape, mesh in DRYRUN_PLANS:
+        t0 = time.perf_counter()
+        rec = dryrun.plan(arch, shape, mesh)
+        parts = rec.get("argument_bytes", {})
+        if not (rec["status"] == "ok" and rec["flops"] > 0
+                and rec["argument_size_in_bytes"] == sum(parts.values())
+                and parts.get("params", 0) > 0
+                and all(rec[k] is None for k in dryrun.NULL_FIELDS)):
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec}")
+        rows.append(dict(
+            arch=arch, shape=shape, mesh=mesh, n_devices=rec["n_devices"],
+            per_device_gib=rec["argument_size_in_bytes"] / 2**30,
+            per_device_gib_by_part={k: v / 2**30 for k, v in parts.items()},
+            flops_per_device=rec["flops"], flops_total=rec["flops_total"],
+            flops_approx=rec["unrolled"]["approx"],
+            null_fields=sorted(rec["null_fields"]),
+            seconds=time.perf_counter() - t0))
+    emit("dryrun", plans=rows)
+    return dict(plans=rows)
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 5 and sys.argv[1] == "--seq-sharded-rank":
+        _seq_sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4495,6 +4867,7 @@ def main() -> int:
     gtb = phase_kernel_grant_tick_batch(dev)
     res = phase_resource_parity(dev)
     da = phase_kernel_decode_attention(dev)
+    dap = phase_kernel_decode_attention_partial(dev)
     fp = phase_kernel_flash_prefill(dev)
     fbw = phase_flash_backward(dev)
     ssd = phase_kernel_ssd_scan(dev)
@@ -4559,10 +4932,12 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    seq = phase_seq_sharded_decode(dev)
     tpar = phase_train_parity(dev)
     train = phase_train(dev)
     mpar = phase_train_mamba2_parity(dev)
     mtrain = phase_train_mamba2(dev)
+    phase_dryrun()
     n_main = 2
     t = gt["times"][n_main]
     runs = dict(serve=serve, serve_long=long, serve_mamba2=mserve,
@@ -4767,6 +5142,28 @@ def main() -> int:
             train_mamba2_parity=mpar["kernels_paths"][
                 "backward_tensor_core"],
             train_mamba2=mtrain["backward_launches"])})
+    # the same decode-attention kernel writing each head's merged (m, l):
+    # the sequence-sharded decode's partial, launched on seq_sharded_decode
+    m = dap["main"]
+    rows.insert([r["name"] for r in rows].index("decode_attention") + 1, {
+        "name": "decode_attention/partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:30",
+        "partial_of": "src/repro/distributed/collectives.py:40-70 "
+                      "(local_fn's float32 partial softmax, which the "
+                      "reference computes with einsum)",
+        "launches": seq["launches"], "max_abs_err": dap["max_abs_err"],
+        **{k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "library", "bound_share",
+                             "ms_without_ml", "device_ms_without_ml",
+                             "merged_halves_err", "plan")},
+        "device_ms_per_launch": m["device_ms"],
+        "shape": "q [8,16,256] f32, k/v [8,16384,8,256] f32 (one rank's "
+                 "half of gemma3-12b's decode_32k global layer)",
+        "seq_sharded_ms_per_step": seq["ms_hooked"],
+        "unsharded_ms_per_step": seq["ms_whole"],
+        "launches_by_path": {"seq_sharded_decode": seq["launches"]}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

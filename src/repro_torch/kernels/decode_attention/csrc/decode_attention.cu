@@ -33,6 +33,13 @@
 //     q's dtype.  A CTA with no rows pushes (NEG, 0, 0) and takes part in
 //     the barrier; after it no CTA touches a peer's shared memory, so each
 //     may exit alone.  No global scratch, no second launch.
+//   Optionally (a non-null `ml`, float32 [B, H, 2]) the cluster's CTA 0
+//     also writes each of its heads' merged (m, l): the running max of the
+//     scaled scores and the sum of exp(score - m) over the valid rows,
+//     (NEG, 0) for a head with no valid row.  With (out, m, l) a caller
+//     combines partials over slices of a sequence (the sequence-sharded
+//     decode: repro_torch/distributed/collectives.py).  A null `ml` skips
+//     the store and leaves the kernel as it was.
 //
 // Types: q float32 or bf16, cache float32 or bf16 (independently: the
 // serving engine keeps a float32 cache under bf16 activations), float32
@@ -75,6 +82,7 @@ struct Params {
   const void* v;
   const int* lengths;
   void* out;
+  float* ml;                // [B, H, 2] merged (m, l), or null
   int H, KvH, S, D, window, tile_rows;
   float scale;
 };
@@ -389,6 +397,13 @@ __global__ void __launch_bounds__(THREADS, min_blocks(GC))
       lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
     if (lane < nsrc) coef[g * nsrc + lane] = c;
     if (lane == 0) denom[g] = fmaxf(lsum, 1e-30f);
+    // the head's merged (m, l), written once: by the cluster's CTA 0
+    if (p.ml != nullptr && rank == 0 && lane == 0 && g0 + g < G) {
+      float* dst =
+          p.ml + (static_cast<int64_t>(b) * p.H + kvh * G + g0 + g) * 2;
+      dst[0] = mx;
+      dst[1] = lsum;
+    }
   }
   __syncthreads();
   const int d_lo = rank * W;
@@ -483,19 +498,19 @@ int dispatch_g(int gc, const Params& p, int B, int C, cudaStream_t stream) {
 
 // Plain C entry point (loaded with ctypes).  q [B, H, D], k / v
 // [B, S, KvH, D], lengths [B] int32, out [B, H, D] (q's dtype), all
-// contiguous, k and v 16-byte aligned.  One launch on `stream` of a grid of
-// clusters of `cluster` CTAs (1..8); `gc` (1, 2, 4 or 8) query heads a
-// CTA; `tile_rows` cache rows a ring tile.  Does not synchronise and
-// allocates nothing.  Returns cudaGetLastError() of the launch (or the
-// error of the launch or of the shared-memory attribute), or
-// cudaErrorInvalidValue for an unsupported shape.
+// contiguous, k and v 16-byte aligned; ml [B, H, 2] float32 or null.  One
+// launch on `stream` of a grid of clusters of `cluster` CTAs (1..8); `gc`
+// (1, 2, 4 or 8) query heads a CTA; `tile_rows` cache rows a ring tile.
+// Does not synchronise and allocates nothing.  Returns cudaGetLastError()
+// of the launch (or the error of the launch or of the shared-memory
+// attribute), or cudaErrorInvalidValue for an unsupported shape.
 extern "C" int decode_attention_launch(int q_bf16, int kv_bf16, int gc,
                                        int cluster, int tile_rows,
                                        const void* q, const void* k,
                                        const void* v, const int* lengths,
-                                       void* out, int B, int H, int KvH,
-                                       int S, int D, int window, float scale,
-                                       void* stream) {
+                                       void* out, float* ml, int B, int H,
+                                       int KvH, int S, int D, int window,
+                                       float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const int elt = kv_bf16 ? 2 : 4;
   if (KvH <= 0 || H % KvH != 0 || D <= 0 || D > DPL * 32 || S <= 0 ||
@@ -503,8 +518,8 @@ extern "C" int decode_attention_launch(int q_bf16, int kv_bf16, int gc,
       tile_rows < 1 || reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, lengths, out, H, KvH, S, D, window, tile_rows,
-                 scale};
+  const Params p{q, k, v, lengths, out, ml, H, KvH, S, D, window,
+                 tile_rows, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16) {
     if (kv_bf16)

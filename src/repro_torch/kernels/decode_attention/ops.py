@@ -6,8 +6,12 @@ query token per sequence to its KV cache: on a CUDA tensor it launches
 ``csrc/decode_attention.cu`` (built at first use) or raises; on a CPU
 tensor it runs ``decode_attention_plain`` (``ref.py``).  One launch a call
 (a grid of thread-block clusters); the wrapper allocates only the output
-and never reads ``lengths`` back.  ``LAUNCHES`` counts kernel launches and
-nothing else.
+and never reads ``lengths`` back.  ``decode_attention_partial`` is the same
+kernel writing, besides the float32 output, each head's merged softmax
+max and sum (``ml``): a slice of a sequence's partial, which the
+sequence-sharded decode (``repro_torch.distributed.collectives``) combines
+across ranks; its plain version is ``ref.decode_attention_partial``.
+``LAUNCHES`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import \
-    decode_attention as decode_attention_plain
+    decode_attention as decode_attention_plain, \
+    decode_attention_partial as decode_attention_partial_plain
 
 NAME = "decode_attention"
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
@@ -52,7 +57,7 @@ def _launcher():
     global _FN
     if _FN is None:
         fn = _build.build(NAME, SOURCE).decode_attention_launch
-        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -106,21 +111,9 @@ def _refuse(q, k, v, lengths, why: str):
         f"{v.dtype}, lengths {list(lengths.shape)} {lengths.dtype})")
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *, window: int = 0
-                     ) -> torch.Tensor:
-    """q [B, H, D]; k, v [B, S, KvH, D]; lengths [B] int32 -> [B, H, D] in
-    q's dtype.  Position s of sequence b is attended iff s < lengths[b] and,
-    when ``window > 0``, s >= lengths[b] - window.  q and the cache may
-    differ in dtype (float32 or bf16 each).  On the card a cache row (D
-    elements) must fill whole 16-byte units and k, v start 16-byte
-    aligned: the kernel copies rows in those units."""
+def _check(q, k, v, lengths) -> int:
+    """Refuse what the kernel cannot take; the row bytes of the cache."""
     dev = q.device
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {dev}")
-    global LAUNCHES
     if q.ndim != 3 or k.ndim != 4:
         _refuse(q, k, v, lengths, "q must be [B, H, D] and k, v "
                 "[B, S, KvH, D]")
@@ -145,24 +138,79 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if row_bytes % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         _refuse(q, k, v, lengths, "a cache row must be a multiple of 16 "
                 "bytes and k, v 16-byte aligned")
+    return row_bytes
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, window: int = 0
+                     ) -> torch.Tensor:
+    """q [B, H, D]; k, v [B, S, KvH, D]; lengths [B] int32 -> [B, H, D] in
+    q's dtype.  Position s of sequence b is attended iff s < lengths[b] and,
+    when ``window > 0``, s >= lengths[b] - window.  q and the cache may
+    differ in dtype (float32 or bf16 each).  On the card a cache row (D
+    elements) must fill whole 16-byte units and k, v start 16-byte
+    aligned: the kernel copies rows in those units."""
+    dev = q.device
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {dev}")
+    global LAUNCHES
+    row_bytes = _check(q, k, v, lengths)
+    B, H, _ = q.shape
+    S, KvH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    _launch(q, k, v, lengths, out, window,
+    _launch(q, k, v, lengths, out, None, window,
             launch_plan(B, KvH, H // KvH, S, row_bytes))
     LAUNCHES += 1
     return out
 
 
-def _launch(q, k, v, lengths, out, window: int, plan) -> None:
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor, *,
+                             window: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention of q [B, H, D] (cast to float32) over the rows of
+    k, v [B, S, KvH, D] that ``lengths`` [B] int32 and ``window`` select,
+    as ``decode_attention`` selects them, with the softmax's statistics:
+    (out [B, H, D] float32 normalised over those rows, ml [B, H, 2]
+    float32: the max m of the scaled scores and the sum l of exp(score -
+    m)).  A head with no row gives out 0, m = -1e30, l = 0.  A length may
+    be <= 0 or > S (a slice of a longer sequence: ``lengths - offset``).
+    One launch of the kernel on a CUDA tensor; the plain version on a CPU
+    one."""
+    dev = q.device
+    if dev.type == "cpu":
+        return decode_attention_partial_plain(q, k, v, lengths,
+                                              window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_partial: unsupported device "
+                         f"{dev}")
+    global LAUNCHES
+    q = q.float().contiguous()
+    row_bytes = _check(q, k, v, lengths)
+    B, H, _ = q.shape
+    S, KvH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=dev)
+    _launch(q, k, v, lengths, out, ml, window,
+            launch_plan(B, KvH, H // KvH, S, row_bytes))
+    LAUNCHES += 1
+    return out, ml
+
+
+def _launch(q, k, v, lengths, out, ml, window: int, plan) -> None:
     """One launch of the kernel on checked tensors under ``plan``, on the
     current stream (read raw: a ``torch.cuda.Stream`` object costs
     microseconds of host time, and a decode step calls this once a
-    layer)."""
+    layer); ``ml`` None passes a null pointer."""
     B, H, D = q.shape
     _, S, KvH, _ = k.shape
     err = _launcher()(
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
         *plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, KvH, S, D, int(window), D ** -0.5,
+        out.data_ptr(), None if ml is None else ml.data_ptr(), B, H, KvH, S,
+        D, int(window), D ** -0.5,
         torch._C._cuda_getCurrentRawStream(q.device.index))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

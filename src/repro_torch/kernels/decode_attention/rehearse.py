@@ -136,8 +136,9 @@ def _plans(ops, q, k, v, ln, w, gc) -> list:
     for cluster in (2, 3, 4, 5, 6, 8):
         for tile_rows in (4, 8, 16):
             plan = (gc, cluster, tile_rows)
-            ms = device_ms(lambda: ops._launch(q, k, v, ln, out, w, plan),
-                           "decode_attention_cluster")
+            ms = device_ms(
+                lambda: ops._launch(q, k, v, ln, out, None, w, plan),
+                "decode_attention_cluster")
             err = float((out.float() - want.float()).abs().max())
             rows.append((plan, round(ms * 1e3, 2),
                          ops.occupancy(q.dtype, k.dtype, plan, q.shape[2]),

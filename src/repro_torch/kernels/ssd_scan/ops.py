@@ -141,8 +141,13 @@ def build() -> float:
 
 def ssd_scan_plain(x, a, B, C):
     """The sequential recurrence (``ref.ssd_scan``), counted in
-    ``PLAIN_CALLS``; autograd differentiates its torch ops."""
+    ``PLAIN_CALLS``; autograd differentiates its torch ops.  On meta
+    tensors (shapes alone: the dry run's FLOP count) the chunked form
+    ``ref.ssd_scan_chunked``, the kernel's arithmetic, whose loop runs a
+    chunk a step where the recurrence's runs a token a step."""
     PLAIN_CALLS["scan"] += 1
+    if x.device.type == "meta":
+        return ref.ssd_scan_chunked(x, a, B, C)
     return ref.ssd_scan(x, a, B, C)
 
 

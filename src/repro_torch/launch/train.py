@@ -6,10 +6,14 @@ backward kernel are built at first use).
 
 Dev mode (default) trains a reduced variant of the selected arch on the
 synthetic pipeline.  ``--production`` trains the full config with
-``remat``, as the reference's production mode does, on one card: the
-reference's mesh is world size 1 here (meshes are not ported, so
-``--multi-pod`` raises a ``ValueError``).  An arch with ``ssd`` layers
-trains through the SSD-scan kernel and its backward kernel.
+``remat``, as the reference's production mode does, on one card under the
+1x1 dev mesh.  ``--multi-pod`` builds the reference's 2x16x16 production
+mesh (``launch/mesh.py``), which raises a ``ValueError`` unless the
+process group holds its 512 ranks; a world of more than one rank raises
+too, as the train step sharded across ranks is not ported yet (ROADMAP.md
+section 1, "The train step sharded across more than one rank").  An arch
+with ``ssd`` layers trains through the SSD-scan kernel and its backward
+kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --steps 50
@@ -24,16 +28,19 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import (ARCH_IDS, get_config,
                                           get_reduced_config)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, frontend_stub
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import module as nn, transformer as T
 from repro_torch.training import checkpoint as ckpt, optimizer as opt, \
     train as TR
 
-#: the reference's dev mesh, (1, 1): one card, nothing sharded
+#: the reference's dev mesh, (1, 1): one card, nothing sharded (the
+#: launcher builds no process group for it)
 MESH = {"data": 1, "model": 1}
 
 
@@ -57,12 +64,19 @@ def train(args, *, device=None, on_start=None) -> dict:
     with ``--ckpt``.  ``on_start(model)``, when given, runs before the
     first step.  Returns {"cfg", "model", "opt_state", "losses" (float, one
     a step), "step_s" (synchronised wall seconds a step)}."""
+    dev = resolve_device(device)
     if args.multi_pod:
-        raise ValueError("--multi-pod: the port has no meshes; it trains "
-                         "on one card")
+        # raises unless the world holds the mesh's 512 ranks
+        make_production_mesh(multi_pod=True, device=dev)
+    if args.multi_pod or (dist.is_initialized()
+                          and dist.get_world_size() > 1):
+        raise ValueError(
+            "--multi-pod / a world of more than one rank: the train step "
+            "sharded across more than one rank is not ported yet "
+            "(ROADMAP.md section 1, \"The train step sharded across more "
+            "than one rank\"); the launcher trains on one card")
     cfg = get_config(args.arch) if args.production \
         else get_reduced_config(args.arch)
-    dev = resolve_device(device)
     ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=args.steps)
     step = TR.make_train_step(cfg, ocfg, remat=args.production)
     model = T.init_model(0, cfg, device=dev, train=True)

@@ -37,8 +37,9 @@ the MoE dispatch have no kernel in the reference either (an
 ``associative_scan`` in jnp and XLA's ``ragged_dot``): the port mirrors
 them in torch ops.  ``MoE.capacity`` is the reference's training dispatch
 (``dropless=False``: capacity-bounded, overflow dropped) and
-``moe_aux_loss`` its load-balance loss.  The reference's ``actsharding``
-hooks are the identity on one device and have no counterpart here.
+``moe_aux_loss`` its load-balance loss.  ``MLP`` calls the activation-
+sharding hooks where the reference's ``mlp_block`` does
+(``repro_torch.distributed.actsharding``: the identity unless enabled).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import actsharding
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.models import module as init
@@ -63,42 +65,59 @@ def torch_dtype(name: str) -> torch.dtype:
 class Maker:
     """Makes parameters: drawn from ``gen`` in the reference's order and
     distributions, or left uninitialised (``gen=None``) for weights that
-    are loaded afterwards (``repro_torch.models.convert``).  ``train``
-    makes every parameter float32 and requiring grad (the training
-    storage, module docstring)."""
+    are loaded afterwards (``repro_torch.models.convert``) or for shapes
+    alone (``device="meta"``: nothing is allocated).  ``train`` makes every
+    parameter float32 and requiring grad (the training storage, module
+    docstring).  Each parameter comes with its logical axes, one name a
+    dimension (``"embed"``, ``"heads"``, ``"mlp"``, ...), as the
+    reference's ``nn.ParamCollector`` records them; ``axes`` maps each
+    parameter's ``id`` to its tuple (``repro_torch.distributed.sharding``
+    resolves them to mesh axes)."""
 
     def __init__(self, gen: torch.Generator | None, device, *,
                  train: bool = False):
         self.gen = gen
         self.device = device
         self.train = train
+        self.axes: dict[int, tuple] = {}
 
-    def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=self.train)
+    def _param(self, t: torch.Tensor, axes: tuple) -> nn.Parameter:
+        if len(axes) != t.ndim:
+            raise ValueError(f"axes {axes} do not name the {t.ndim} "
+                             f"dimensions of {list(t.shape)}")
+        p = nn.Parameter(t, requires_grad=self.train)
+        self.axes[id(p)] = tuple(axes)
+        return p
 
-    def dense(self, in_dim, out_dims, *, dtype, scale=None) -> nn.Parameter:
+    def dense(self, in_dim, out_dims, axes: tuple, *, dtype,
+              scale=None) -> nn.Parameter:
         if self.train:
             dtype = torch.float32
         if self.gen is None:
             out = (out_dims,) if isinstance(out_dims, int) else out_dims
             return self._param(torch.empty((in_dim, *out), dtype=dtype,
-                                           device=self.device))
+                                           device=self.device), axes)
         return self._param(init.dense(self.gen, in_dim, out_dims, dtype=dtype,
-                                      scale=scale, device=self.device))
+                                      scale=scale, device=self.device), axes)
 
     def embed(self, vocab, dim) -> nn.Parameter:
+        axes = ("vocab", "embed")
         if self.gen is None:
             return self._param(torch.empty((vocab, dim), dtype=torch.float32,
-                                           device=self.device))
+                                           device=self.device), axes)
         return self._param(init.embed(self.gen, vocab, dim,
-                                      device=self.device))
+                                      device=self.device), axes)
 
-    def zeros(self, shape, *, dtype=torch.float32) -> nn.Parameter:
+    def zeros(self, shape, axes: tuple, *,
+              dtype=torch.float32) -> nn.Parameter:
         dtype = torch.float32 if self.train else dtype
-        return self._param(init.zeros(shape, dtype=dtype, device=self.device))
+        return self._param(init.zeros(shape, dtype=dtype, device=self.device),
+                           axes)
 
-    def ones(self, shape, *, dtype=torch.float32) -> nn.Parameter:
-        return self._param(init.ones(shape, dtype=dtype, device=self.device))
+    def ones(self, shape, axes: tuple, *,
+             dtype=torch.float32) -> nn.Parameter:
+        return self._param(init.ones(shape, dtype=dtype, device=self.device),
+                           axes)
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +131,9 @@ class Norm(nn.Module):
     def __init__(self, cfg: ArchConfig, mk: Maker):
         super().__init__()
         self.kind = cfg.norm
-        self.scale = mk.ones((cfg.d_model,))
+        self.scale = mk.ones((cfg.d_model,), ("embed",))
         if cfg.norm == "layernorm":
-            self.bias = mk.zeros((cfg.d_model,))
+            self.bias = mk.zeros((cfg.d_model,), ("embed",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -178,15 +197,19 @@ class Attention(nn.Module):
             cfg.head_dim_
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.wq = mk.dense(E, (H, Dh), dtype=dt)
-        self.wk = mk.dense(E, (KvH, Dh), dtype=dt)
-        self.wv = mk.dense(E, (KvH, Dh), dtype=dt)
-        self.wo = mk.dense(H * Dh, E, dtype=dt, scale=1.0 / math.sqrt(H * Dh))
+        self.wq = mk.dense(E, (H, Dh), ("embed", "heads", "head_dim"),
+                           dtype=dt)
+        self.wk = mk.dense(E, (KvH, Dh), ("embed", "kv_heads", "head_dim"),
+                           dtype=dt)
+        self.wv = mk.dense(E, (KvH, Dh), ("embed", "kv_heads", "head_dim"),
+                           dtype=dt)
+        self.wo = mk.dense(H * Dh, E, ("heads_flat", "embed"), dtype=dt,
+                           scale=1.0 / math.sqrt(H * Dh))
         self.has_bias = cfg.qkv_bias
         if cfg.qkv_bias:
-            self.bq = mk.zeros((H, Dh), dtype=dt)
-            self.bk = mk.zeros((KvH, Dh), dtype=dt)
-            self.bv = mk.zeros((KvH, Dh), dtype=dt)
+            self.bq = mk.zeros((H, Dh), ("heads", "head_dim"), dtype=dt)
+            self.bk = mk.zeros((KvH, Dh), ("kv_heads", "head_dim"), dtype=dt)
+            self.bv = mk.zeros((KvH, Dh), ("kv_heads", "head_dim"), dtype=dt)
 
     def q(self, x: torch.Tensor) -> torch.Tensor:
         """Project x [B, S, E] to q [B, S, H, D] alone (a cross or
@@ -267,18 +290,25 @@ class MLP(nn.Module):
         E, Fd = cfg.d_model, cfg.d_ff
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.wi = mk.dense(E, (2 if cfg.gated_mlp else 1, Fd), dtype=dt)
-        self.wo = mk.dense(Fd, E, dtype=dt)
+        self.wi = mk.dense(E, (2 if cfg.gated_mlp else 1, Fd),
+                           ("embed", "gate", "mlp"), dtype=dt)
+        self.wo = mk.dense(Fd, E, ("mlp", "embed"), dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's ``mlp_block``, with its activation-sharding
+        hooks (``repro_torch.distributed.actsharding``: the identity unless
+        enabled) at the same places."""
         E, g, Fd = self.wi.shape
         dt = x.dtype
-        h = (x @ self.wi.to(dt).view(E, g * Fd)).view(*x.shape[:-1], g, Fd)
+        wi = actsharding.gathered_weight(self.wi.to(dt), model_dim=-1)
+        wo = actsharding.gathered_weight(self.wo.to(dt), model_dim=0)
+        h = (x @ wi.reshape(E, g * Fd)).view(*x.shape[:-1], g, Fd)
+        h = actsharding.constrain_hidden(h)
         if self.cfg.gated_mlp:
             h = act(h[..., 0, :], self.cfg.act) * h[..., 1, :]
         else:
             h = act(h[..., 0, :], self.cfg.act)
-        return h @ self.wo.to(dt)
+        return h @ wo
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +341,12 @@ class MoE(nn.Module):
         E, Fd, X = cfg.d_model, cfg.d_ff, cfg.n_experts
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.router = mk.dense(E, X, dtype=torch.float32)
-        self.wi = mk.dense(X, (E, 2, Fd), dtype=dt)
-        self.wo = mk.dense(X, (Fd, E), dtype=dt)
+        self.router = mk.dense(E, X, ("embed", "experts"), dtype=torch.float32)
+        self.wi = mk.dense(X, (E, 2, Fd),
+                           ("experts", "embed", "gate", "expert_mlp"),
+                           dtype=dt)
+        self.wo = mk.dense(X, (Fd, E), ("experts", "expert_mlp", "embed"),
+                           dtype=dt)
 
     def route(self, xt: torch.Tensor, idx: torch.Tensor | None = None):
         """Gates [T, K] float32 (normalised to sum 1) and expert indices
@@ -529,16 +562,16 @@ class RGLRU(nn.Module):
         E = cfg.d_model
         W = cfg.lru_width or E
         dt = torch_dtype(cfg.dtype)
-        self.wx = mk.dense(E, W, dtype=dt)
-        self.wy = mk.dense(E, W, dtype=dt)
-        self.conv_w = mk.zeros((self.CONV, W))
-        self.conv_b = mk.zeros((W,))
-        self.wa = mk.dense(W, W, dtype=torch.float32)
-        self.ba = mk.zeros((W,))
-        self.wi = mk.dense(W, W, dtype=torch.float32)
-        self.bi = mk.zeros((W,))
-        self.lam = mk.ones((W,))
-        self.wo = mk.dense(W, E, dtype=dt)
+        self.wx = mk.dense(E, W, ("embed", "mlp"), dtype=dt)
+        self.wy = mk.dense(E, W, ("embed", "mlp"), dtype=dt)
+        self.conv_w = mk.zeros((self.CONV, W), ("conv", "mlp"))
+        self.conv_b = mk.zeros((W,), ("mlp",))
+        self.wa = mk.dense(W, W, ("mlp", "mlp2"), dtype=torch.float32)
+        self.ba = mk.zeros((W,), ("mlp",))
+        self.wi = mk.dense(W, W, ("mlp", "mlp2"), dtype=torch.float32)
+        self.bi = mk.zeros((W,), ("mlp",))
+        self.lam = mk.ones((W,), ("mlp",))
+        self.wo = mk.dense(W, E, ("mlp", "embed"), dtype=dt)
 
     def _mix(self, x, conv_state, h0):
         """The block on x [B, S, E] from (conv_state, h0), or from zeros
@@ -603,14 +636,16 @@ class Mamba2(nn.Module):
         Din, H, G, N = mamba2_split(cfg)
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.in_proj = mk.dense(E, 2 * Din + 2 * G * N + H, dtype=dt)
-        self.conv_w = mk.zeros((cfg.conv_kernel, Din + 2 * G * N))
-        self.conv_b = mk.zeros((Din + 2 * G * N,))
-        self.a_log = mk.zeros((H,))
-        self.dt_bias = mk.zeros((H,))
-        self.d_skip = mk.ones((H,))
-        self.norm_scale = mk.ones((Din,))
-        self.out_proj = mk.dense(Din, E, dtype=dt)
+        self.in_proj = mk.dense(E, 2 * Din + 2 * G * N + H, ("embed", "mlp"),
+                                dtype=dt)
+        self.conv_w = mk.zeros((cfg.conv_kernel, Din + 2 * G * N),
+                               ("conv", "mlp"))
+        self.conv_b = mk.zeros((Din + 2 * G * N,), ("mlp",))
+        self.a_log = mk.zeros((H,), ("heads",))
+        self.dt_bias = mk.zeros((H,), ("heads",))
+        self.d_skip = mk.ones((H,), ("heads",))
+        self.norm_scale = mk.ones((Din,), ("mlp",))
+        self.out_proj = mk.dense(Din, E, ("mlp", "embed"), dtype=dt)
 
     def _mix(self, x, conv_state, ssd_state, *, plain: bool = False):
         """The block on x [B, S, E]; the decode form when S == 1 and a state

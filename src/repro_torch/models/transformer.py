@@ -98,7 +98,7 @@ class Block(nn.Module):
         self.mixer = MIXERS.get(kind, L.Attention)(cfg, mk)
         if kind == "cross":
             # float32 scalar, zero at init: the layer starts silent
-            self.xgate = mk.zeros(())
+            self.xgate = mk.zeros((), ())
         self.has_xattn = has_xattn(cfg, kind)
         if self.has_xattn:
             self.xattn = L.Attention(cfg, mk)
@@ -171,12 +171,15 @@ class Block(nn.Module):
         return x + y, L.moe_aux_loss(probs)
 
     def decode(self, x, tables, cache_kv, slot, valid, mem_valid, *,
-               plain: bool = False):
+               plain: bool = False, decode_attn_fn=None,
+               decode_update_fn=None):
         """One token per sequence: writes its K/V at ``slot`` [B] (int64)
         and attends the first ``valid`` [B] (int32) cache rows; a recurrent
         layer steps its (conv, state) instead; a ``cross`` layer and an
         ``xattn`` attend the memory's first ``mem_valid`` [B] rows (all F)
-        with an unrotated q and write nothing."""
+        with an unrotated q and write nothing.  ``decode_update_fn(ck, cv,
+        k, v, slot)`` and ``decode_attn_fn(q, ck, cv, valid, window=0)``
+        replace the self-attention's write and attention (``decode_step``)."""
         if self.kind in RECURRENT_KINDS:
             x = x + self.mixer.decode(self.ln1(x), cache_kv)
         elif self.kind == "cross":
@@ -187,14 +190,17 @@ class Block(nn.Module):
             q = L.apply_rope(q, tables)
             k = L.apply_rope(k, tables)
             ck, cv = cache_kv[:2]
-            B, W, KvH, Dh = ck.shape
-            idx = slot.view(B, 1, 1).expand(B, 1, KvH * Dh)
-            ck.view(B, W, KvH * Dh).scatter_(
-                1, idx, k.reshape(B, 1, KvH * Dh).to(ck.dtype))
-            cv.view(B, W, KvH * Dh).scatter_(
-                1, idx, v.reshape(B, 1, KvH * Dh).to(cv.dtype))
-            attn = da_ops.decode_attention_plain if plain \
-                else da_ops.decode_attention
+            if decode_update_fn is not None:
+                decode_update_fn(ck, cv, k[:, 0], v[:, 0], slot)
+            else:
+                B, W, KvH, Dh = ck.shape
+                idx = slot.view(B, 1, 1).expand(B, 1, KvH * Dh)
+                ck.view(B, W, KvH * Dh).scatter_(
+                    1, idx, k.reshape(B, 1, KvH * Dh).to(ck.dtype))
+                cv.view(B, W, KvH * Dh).scatter_(
+                    1, idx, v.reshape(B, 1, KvH * Dh).to(cv.dtype))
+            attn = decode_attn_fn or (da_ops.decode_attention_plain if plain
+                                      else da_ops.decode_attention)
             o = attn(q[:, 0], ck, cv, valid, window=0)
             x = x + self.mixer.out(o[:, None])
         if self.has_xattn:
@@ -270,8 +276,10 @@ class Transformer(nn.Module):
     blocks and ``enc_norm``), final norm and (un)tied head.
 
     ``gen=None`` leaves the weights uninitialised, to be loaded (see
-    ``repro_torch.models.convert``); then call ``tie()``.  ``train`` builds
-    the training storage (``layers`` module docstring)."""
+    ``repro_torch.models.convert``); then call ``tie()``.  With
+    ``device="meta"`` (and no ``gen``) it holds shapes and dtypes alone and
+    allocates nothing, as the dry run plans a model of any size.  ``train``
+    builds the training storage (``layers`` module docstring)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  gen: torch.Generator | None = None, train: bool = False):
@@ -287,6 +295,7 @@ class Transformer(nn.Module):
         if cfg.frontend:
             # the reference computes with it in float32 (``_frontend_kv``)
             self.frontend_proj = mk.dense(cfg.frontend_dim, cfg.d_model,
+                                          ("frontend", "embed"),
                                           dtype=torch.float32)
         kinds = cfg.layer_kinds()
         period, reps = cfg.period, cfg.n_layers // cfg.period
@@ -305,8 +314,11 @@ class Transformer(nn.Module):
             self.enc_norm = L.Norm(cfg, mk)
         self.final_norm = L.Norm(cfg, mk)
         if not cfg.tie_embeddings:
-            self.lm_head = mk.dense(cfg.d_model, cfg.vocab,
+            self.lm_head = mk.dense(cfg.d_model, cfg.vocab, ("embed", "vocab"),
                                     dtype=L.torch_dtype(cfg.dtype))
+        #: {parameter name: the reference's logical axes} (``param_axes``)
+        self.logical_axes = {name: mk.axes[id(p)]
+                             for name, p in self.named_parameters()}
         self.unembed_w = None
         self.tie()
 
@@ -391,6 +403,15 @@ class Transformer(nn.Module):
         return L.rope_tables(positions, self.cfg.head_dim_,
                              theta=self.cfg.rope_theta,
                              fraction=self.cfg.rope_fraction)
+
+
+def param_axes(model: Transformer) -> dict[str, tuple]:
+    """{parameter name: logical axes tuple}: the reference's axes of the
+    leaf the parameter comes from (``init_model_axes``), without the
+    leading ``"layers"`` axis of a stacked ``blocks/pos{j}`` or
+    ``encoder`` leaf (the port keeps one tensor a layer)."""
+    return {name: model.logical_axes[name]
+            for name, _ in model.named_parameters()}
 
 
 def init_model(seed: int, cfg: ArchConfig, *, device=None,
@@ -531,7 +552,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache,
 @torch.no_grad()
 def decode_step(model: Transformer, tokens: torch.Tensor,
                 lengths: torch.Tensor, cache: Cache, *,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, decode_attn_fn=None,
+                decode_update_fn=None) -> torch.Tensor:
     """One decode step: tokens [B, 1]; lengths [B] int32 = current cache
     length.  Writes each layer's new K/V into ``cache`` in place and returns
     logits [B, V].  The valid rows a self-attention layer attends are
@@ -539,7 +561,16 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     ``lengths % window + 1`` (chunk), always with window 0, as the
     reference's ``_decode_self_attention``; a ``cross`` layer and an
     ``xattn`` attend all F memory rows.  A recurrent layer steps its
-    recurrence (``layers.RGLRU.decode``, ``layers.Mamba2.decode``)."""
+    recurrence (``layers.RGLRU.decode``, ``layers.Mamba2.decode``).
+
+    The reference's hooks: ``decode_update_fn(ck, cv, k, v, slot)`` writes
+    a self-attention layer's new K/V (k, v [B, KvH, Dh]) into its cache in
+    place, and ``decode_attn_fn(q, ck, cv, valid, window=0)`` attends it;
+    with neither the step is unchanged.  A hook carrying ``seq_shards``
+    (``repro_torch.distributed.collectives``) takes this rank's slice of a
+    cache whose rows are split over that many ranks: a layer's slot and
+    valid rows are computed from its global rows, the local rows times
+    ``seq_shards``."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     tables = model._tables(lengths[:, None])
@@ -548,9 +579,10 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     if cfg.frontend:
         mem_valid = torch.full(lengths.shape, cfg.frontend_len,
                                dtype=torch.int32, device=lengths.device)
+    shards = getattr(decode_update_fn or decode_attn_fn, "seq_shards", 1)
     where: dict = {}     # (kind, W) -> (slot, valid) of an attention layer
     for blk, kv in zip(model.blocks, cache):
-        key = (blk.kind, kv[0].shape[1])
+        key = (blk.kind, kv[0].shape[1] * shards)
         if blk.kind in ATTN_KINDS and key not in where:
             W = key[1]
             if blk.kind == "chunk":
@@ -561,5 +593,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                 n = ln + 1
             where[key] = (ln % W, n.to(torch.int32))
         slot, valid = where.get(key, (None, None))
-        x = blk.decode(x, tables, kv, slot, valid, mem_valid, plain=plain)
+        x = blk.decode(x, tables, kv, slot, valid, mem_valid, plain=plain,
+                       decode_attn_fn=decode_attn_fn,
+                       decode_update_fn=decode_update_fn)
     return model.unembed(x)[:, 0]
