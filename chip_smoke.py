@@ -13,7 +13,7 @@ drives the port's paths through the kernels:
     version at B = 1, 6 and 64; a ragged mixed-mode batch of four
     (``batch_parity``) CUDA against CPU, graph against eager body, and each
     element against its serial run; Fig. 6 / Table 3's six elements
-    (three systems, two load points) as one ``run_system_batch`` of 20,000
+    (three systems, two load points) as one ``run_system_batch`` of 5,000
     ticks held against a digest of the JAX reference's run
     (``fig6_batch``); sim_perf's eight heterogeneous profiler contexts
     against eight serial ``profile_context`` calls (``profile_batch8``);
@@ -89,7 +89,7 @@ key) and times it against SDPA's backward; ``train_parity`` runs one train
 step of starcoder2-3b's first 2 layers at full width through the kernels
 and one through the plain versions; ``train`` trains starcoder2-3b at full
 size (30 layers, 3.03 B parameters, one 4096-token sequence a step, remat,
-5 steps) through the launcher, with exact launch counts, no plain-version
+4 steps) through the launcher, with exact launch counts, no plain-version
 call, every parameter moved, peak memory, ms a step and a profiled step.
 The SSD scan's gradient: ``kernel_ssd_backward`` (after
 ``kernel_ssd_scan``) holds its kernels (bf16 with N <= 128 on the tensor
@@ -102,7 +102,7 @@ shape; after ``train``, ``train_mamba2_parity`` runs one train step
 of mamba2-780m's first 4 layers at full width through the kernels and one
 through the plain sequential scan; ``train_mamba2`` trains mamba2-780m at
 full size (48 ssd layers, 0.78 B parameters, one 4096-token sequence a
-step, remat, 5 steps) through the launcher, as ``train`` does.
+step, remat, 4 steps) through the launcher, as ``train`` does.
 
 The fleet control plane runs the contention, churn and adaptive
 benchmarks' configurations uncut on the card (``resource_parity``,
@@ -132,15 +132,24 @@ through the sequence-sharded hooks on two ranks of the one card
 tensors, as NCCL refuses two ranks on one device): gemma3-12b's first
 period at full width, B = 8, a float32 cache of 32,768 rows, each rank
 holding half of every layer's rows, one partial launch a layer, held
-against the unsharded kernel step on the same cache; ``dryrun`` (last,
+against the unsharded kernel step on the same cache; ``train_sharded``
+(after the training phases) trains through ``launch.train.train(...,
+mesh=...)`` on a ("data", "model") = (2, 2) mesh of four processes of this
+script on the card (``--train-sharded-rank``; gloo): starcoder2-3b's first
+2 layers at full width, parameters and AdamW moments as ``DTensor``
+blocks laid out by the reference's rules, each block's weights gathered
+inside its remat region, one 2048-token sequence a "data" coordinate, 2
+steps, held against the unsharded launcher on the same seed and batches,
+each rank's bytes against the dry run's; ``dryrun`` (last,
 host only) plans gemma3-12b x decode_32k on the pod mesh and
 llama4-maverick-400b-a17b x train_4k on the two-pod mesh and prints each
 device's GiB.  Every phase line carries its own seconds (``phase_s``).
 
 Cuts against earlier versions of this script, made to fit the fleet,
 training and distributed phases in the time limit: ``fig6_batch`` runs
-20,000 ticks (60,000 before; fig6's quick run is 60,000 and its full run
-400,000; its digests are the JAX reference's at 20,000), ``profile``
+5,000 ticks (60,000, then 20,000, then 10,000 before; fig6's quick run is
+60,000 and its full run 400,000; its digests are the JAX reference's at
+5,000), ``profile``
 profiles windows of 25 ticks (100, then 50 before) through the graphs
 only (the eager body's profiled window went), ``profile_batch8``
 holds its entries at 1,000 ticks and times 4,000 (6,000 and 30,000, then
@@ -149,10 +158,14 @@ holds its entries at 1,000 ticks and times 4,000 (6,000 and 30,000, then
 500 / 250 before; ``graph_parity``'s software-shaping window completes
 nothing in 125), ``main_path``'s eager window 150 ticks (EAGER_TICKS,
 300 before), ``batch_parity`` windows of 200 ticks
-(300 before), ``resource_parity`` windows of 250 (400 before), ``interp``
+(300 before; at 120 an element's serial run completes nothing),
+``resource_parity`` windows of 150 (400, then 250 before), ``workload_parity``'s batch 500 ticks (1,000 before), ``interp``
 every size to 2^17 and every 61st to 2^20 (every size to 2^20 before),
-``serve_mamba2_parity`` 2 layers (4 before), and ``auto_time_ms`` times
-about 0.1 s of calls (0.2 before).  The mamba2 and recurrentgemma
+``serve_mamba2_parity`` 2 layers (4 before), the ``serve*_parity``
+phases' serve mix PARITY_SERVE_S = 1.5 s of virtual time (3 s before;
+mixtral's stays 6), ``train`` and ``train_mamba2`` 4 steps (5 before), and
+``auto_time_ms`` times about 0.1 s of calls (0.2 before).  The mamba2 and
+recurrentgemma
 paths run more scheduler rounds than the launcher's 2000 (MAMBA_ROUNDS) so
 that their mixes reach 3 s of virtual time; mixtral's runs 6 s (its full
 config's cost model clocks a 33 ms decode step on one H100), and its depth
@@ -236,6 +249,10 @@ MX_ARCH = "mixtral-8x22b"
 MX_LAYERS = 8
 MX_LONG_PROMPT = 1536
 MX_SERVE_S = 6.0
+# the serve mix's virtual seconds in the ``serve*_parity`` phases (kernels
+# against plain versions on a few layers; mixtral's stays MX_SERVE_S: at
+# 3 s only 44 of its 56 requests finish)
+PARITY_SERVE_S = 1.5
 MX_PARITY_LAYERS = 2
 # serving with frontends: llama-3.2-vision-11b at full width and depth (40
 # layers, global x 4 then cross: 32 / 8 heads of 128, d_model 4096, vocab
@@ -256,12 +273,12 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-2, 0.0625
 # training (``train``): starcoder2-3b at full width and depth (30 local
 # layers, d_model 3072, 24 / 2 heads of 128, window 4096, tied embeddings;
 # 3.03 B float32 parameters and AdamW moments, 48.5 GB), one 4096-token
-# sequence a step (train_4k's length), remat, 5 launcher steps from seed 0;
+# sequence a step (train_4k's length), remat, 4 launcher steps from seed 0;
 # ``train_parity``: its first 2 layers at full width, one 1024-token
 # sequence, kernels against plain versions
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--production", "--batch", "1",
-              "--seq", "4096", "--steps", "5"]
+              "--seq", "4096", "--steps", "4"]
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 1024
 # kernels vs plain versions over one train step at full width in bf16:
 # the loss within 1e-2 (about 1e-3 of it; the attention output differs by
@@ -275,13 +292,31 @@ BWD_TIMED = (0, 1)
 # training mamba2-780m (``train_mamba2``): full width and depth (48 ssd
 # layers, d_model 1536, 48 heads of 64, N 128, vocab 50280; 0.78 B float32
 # parameters and AdamW moments), one 4096-token sequence a step (its batch
-# of 256 cut to 1), remat, 5 launcher steps; ``train_mamba2_parity``: its
+# of 256 cut to 1), remat, 4 launcher steps; ``train_mamba2_parity``: its
 # first 4 layers at full width, one 1024-token sequence, the SSD-scan
 # kernels against the plain sequential scan (seeded ``LIVEN_SSD`` noise on
 # the conv taps, decay, skip and norm parameters), at TRAIN_* tolerances
 MAMBA_TRAIN_ARGV = ["--arch", MAMBA_ARCH, "--production", "--batch", "1",
-                    "--seq", "4096", "--steps", "5"]
+                    "--seq", "4096", "--steps", "4"]
 MAMBA_TRAIN_PARITY_LAYERS, MAMBA_TRAIN_PARITY_SEQ = 4, 1024
+# the train step sharded across ranks (``train_sharded``): starcoder2-3b's
+# first 2 layers at full width (0.34 B float32 parameters), remat, a global
+# batch of 2 x 2048 tokens (one sequence a "data" coordinate), 2 launcher
+# steps on a ("data", "model") = (2, 2) mesh: four processes of this
+# script on the one card (gloo: NCCL refuses several ranks on one device),
+# held against the unsharded launcher on the same seed and batches
+SHARDED_LAYERS, SHARDED_MESH = 2, (2, 2)
+SHARDED_ARGV = ["--arch", TRAIN_ARCH, "--production", "--batch", "2",
+                "--seq", "2048", "--steps", "2"]
+# sharded against unsharded, in bf16: each rank's GEMMs run over its own
+# sequence and the weight gradients are summed across ranks, in another
+# order (measured on an H100 80GB HBM3 at 700 W: loss 1.5e-5 and grad_norm
+# 5.3e-6 relative, elements 0.85 of the summed learning rates); each
+# step's loss within 2e-4 and grad_norm within 1e-4 relative, each
+# parameter element within 2.5 times the two steps' summed learning rates
+# (AdamW moves an element by about lr a step, 2 lr where rounding flips a
+# gradient's sign: TRAIN_UPDATE_LR's reasoning)
+SHARDED_LOSS_RTOL, SHARDED_NORM_RTOL, SHARDED_PARAM_LR = 2e-4, 1e-4, 2.5
 
 
 T0 = time.perf_counter()
@@ -1476,8 +1511,8 @@ def phase_profile(dev) -> dict:
 # the port: two 4096 B Poisson users at SLOs of 300K / 200K IOPS on
 # nvme_raid0, Arcus and the two software shapers at load points 1.5 and
 # 0.9 (B = 6), LinkSpec(credits=256), seed 3, the benchmark's overrides;
-# cut to 20,000 ticks (its quick setting is 60,000, quick=False 400,000)
-FIG6_TICKS = 20_000
+# cut to 5,000 ticks (its quick setting is 60,000, quick=False 400,000)
+FIG6_TICKS = 5_000
 FIG6_SERIAL_TICKS = 2_000
 FIG6_B = 6
 FIG6_SYSTEMS = ("Arcus", "Host_TS_reflex", "Host_TS_firecracker")
@@ -1488,12 +1523,12 @@ FIG6_OVERRIDES = dict(tick_cycles=64, comp_cap=1 << 17, k_grant=8, k_srv=8,
 # result_digest of each element of the JAX reference's run of this batch on
 # the CPU at FIG6_TICKS (tests/_torch_parity.fig6_batch_digests)
 FIG6_DIGESTS = [
-    "d372fcfc11dc68db5db64c803029eedc594bfebe61a0ec8716e76644f0ce77e9",
-    "ae0041921c60cc1803c48b5eef4db2b73c6c738aa75f64e440b0d9ac6aacf27b",
-    "3825f790be94c871c412c7713360a47f881359278f33e8db7ed6e19c04348dd0",
-    "aa57e6f6c515d32ab3e07c62f9f4c8e58e727196370c6c5493d11a1445d61f6e",
-    "9e9400a558e1a6b659c77cee1f7ab3232397731f12409b47b57828dd212fc51a",
-    "a5cd4ea804ef7d7794267862c95b242ccbbe521f7e24b2912fb93d7be8ff8830",
+    "97f93ef2142a9bb525a773b58395b1a8e8f121069279bc48b4d0e584f534be96",
+    "287d98f049915cdc39afaf925a8aca406c11de086519433c86048910b5be3051",
+    "e7a9f40157378a22df20735f5968909de016736c0b457e71fdea85e318dfead7",
+    "669b1b03a0df3303761ce257369ab94e5ad9277aa3fc3afd80e85b7badb3b892",
+    "9f2eaf5c4766afa08b55d16ff69a55d9e800bcde587158d0ce0788219847cc03",
+    "5ee0b443a9eb1022cc94c9c45bb064384d28c4ed482a43809c314b17b239ee1a",
 ]
 # benchmarks/sim_perf.py:180-211: the profiler's eight heterogeneous
 # contexts, entries held against serial profile_context calls at 1,500
@@ -1938,7 +1973,7 @@ def _trace_window(window, n_ticks: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # resource_parity: ticks of its windows
-RESOURCE_TICKS = 250
+RESOURCE_TICKS = 150
 # benchmarks/contention.py:52-77, uncut: eight synthetic50 servers, 24
 # interleaved 5 Gbps tenants (odd ones with a 0.05 memory-bandwidth hint),
 # mem_bw(24) and host_dma(48), 6,000 profiling ticks, the dataplane at its
@@ -2556,7 +2591,7 @@ WORKLOAD_DIGESTS = {
     7: ((7, 1208), "8dee228bcdd48e4da05bf65add80d9a7"
                    "b9b1923cbf36aa8066d58550248fd4a6")}
 # workload_parity's batch: one element a pattern, beside a poisson tenant
-WORKLOAD_BATCH_TICKS = 1_000
+WORKLOAD_BATCH_TICKS = 500
 # benchmarks/scenarios.py, uncut: five scenarios on two servers, eight
 # windows of 1,500 ticks, one ProfileTable of 8,000 ticks a context shared
 # by every build
@@ -3408,7 +3443,8 @@ def phase_serve_long(dev, model) -> dict:
 
 
 def _kernels_vs_plain(name, cut, dev, arch, long_prompt, max_rounds=2000,
-                      same_inputs=False, long_len=2048, serve_s=3.0,
+                      same_inputs=False, long_len=2048,
+                      serve_s=PARITY_SERVE_S,
                       pin_routing=False) -> dict:
     """Both mixes through the kernels and through their plain versions on
     ``cut``: the same tokens, equal stats and virtual time, and logits
@@ -4222,7 +4258,7 @@ def train_model_flops(cfg, seq: int, batch: int) -> float:
 
 def phase_train(dev) -> dict:
     """``repro_torch.launch.train`` with TRAIN_ARGV (starcoder2-3b at full
-    size on the synthetic pipeline, remat, 5 steps) with every launch count
+    size on the synthetic pipeline, remat, 4 steps) with every launch count
     set to 0 and the peak memory reset just before its first step
     (``on_start``): every loss finite, every parameter moved (a strided
     sample of each against its value before the first step), flash prefill
@@ -4507,7 +4543,7 @@ def mamba2_model_flops(cfg, seq: int, batch: int) -> float:
 
 def phase_train_mamba2(dev) -> dict:
     """``repro_torch.launch.train`` with MAMBA_TRAIN_ARGV (mamba2-780m at
-    full size, remat, 5 steps), every launch count set to 0 and the peak
+    full size, remat, 4 steps), every launch count set to 0 and the peak
     memory reset just before its first step: every loss finite, every
     parameter moved, the SSD-scan forward launched steps x 48 x 2 times,
     all on the tensor cores with S_prev (remat recomputes it), its
@@ -4791,6 +4827,210 @@ def phase_seq_sharded_decode(dev) -> dict:
                 ms_whole=ranks[0]["ms_whole"])
 
 
+def _sharded_rank(rank: int, port: int, out: str) -> None:
+    """One rank of ``train_sharded`` (``python3 chip_smoke.py
+    --train-sharded-rank RANK PORT OUT``): joins a gloo group of the
+    mesh's ranks on the card's tensors, trains through
+    ``launch.train.train(..., mesh=...)`` with every launch count set to 0
+    just before the first step, and writes its numbers
+    (OUT/rank{RANK}.json); rank 0 also the gathered parameters
+    (OUT/params.pt)."""
+    import io
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_dev_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    n_ranks = math.prod(SHARDED_MESH)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=n_ranks, rank=rank)
+    mesh = make_dev_mesh(*SHARDED_MESH, device="cuda")
+    samples, at = {}, {"joined": time.perf_counter() - T0}
+
+    def on_start(model):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                flat = p.to_local().reshape(-1)
+                samples[n] = flat[::max(1, flat.numel() // 4096)].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        at["first_step"] = time.perf_counter() - T0
+        _reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = LT.train(LT.parser().parse_args(SHARDED_ARGV), device=dev,
+                       mesh=mesh, on_start=on_start,
+                       cfg=_train_config(SHARDED_LAYERS))
+    torch.cuda.synchronize()
+    res = dict(rank=rank, coords=[mesh.get_local_rank(a)
+                                  for a in ("data", "model")],
+               launches=_launch_counts(), paths=dict(fp.LAUNCHES_BY_PATH),
+               with_lse=dict(fp.LAUNCHES_WITH_LSE),
+               plain_calls=dict(fp.PLAIN_CALLS), metrics=run["metrics"],
+               step_ms=[t * 1e3 for t in run["step_s"]],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               lines=buf.getvalue().splitlines())
+    model, ost = run["model"], run["opt_state"]
+    res["bytes"] = ost.step.numel() * ost.step.element_size()
+    unmoved = []
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            for t in (p, ost.m[n], ost.v[n]):
+                res["bytes"] += t.to_local().numel() * \
+                    t.to_local().element_size()
+            flat = p.to_local().reshape(-1)
+            if torch.equal(flat[::max(1, flat.numel() // 4096)],
+                           samples[n]):
+                unmoved.append(n)
+    res["unmoved"] = unmoved
+    at["trained"] = time.perf_counter() - T0
+    full = SH.full_values(model)
+    if rank == 0:
+        torch.save(full, os.path.join(out, "params.pt"))
+    at["saved"] = time.perf_counter() - T0
+    res["seconds_since_start"] = at
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_train_sharded(dev) -> dict:
+    """The train step sharded across ranks: ``launch.train.train`` with
+    SHARDED_ARGV on a ("data", "model") = SHARDED_MESH ``DeviceMesh`` of
+    four processes of this script on the one card (``--train-sharded-rank``;
+    gloo over the card's tensors), starcoder2-3b's first SHARDED_LAYERS
+    layers at full width, held against the unsharded launcher run here
+    first on the same seed and batches.  Every rank: the same metrics,
+    each step's loss and grad_norm within SHARDED_LOSS_RTOL /
+    SHARDED_NORM_RTOL of the unsharded step's and its lr equal; exactly
+    the dry run's per-device parameter and optimizer bytes
+    (``dryrun.argument_bytes``); the forward kernel (with its LSE)
+    steps x layers x 2 times and the backward steps x layers times, all on
+    the tensor cores, no plain-version call and no other kernel; every
+    parameter moved.  The gathered parameters against the unsharded step's
+    within SHARDED_PARAM_LR summed learning rates an element.  A step's ms
+    is gloo's on one card (host copies), not a multi-card number."""
+    import socket
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.launch import dryrun, train as LT
+    cfg = _train_config(SHARDED_LAYERS)
+    args = LT.parser().parse_args(SHARDED_ARGV)
+    out = os.path.join(ROOT, "build", "train_sharded")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    n_ranks = math.prod(SHARDED_MESH)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-sharded-rank",
+         str(r), str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n_ranks)]
+    logs = []
+    try:
+        # the unsharded run while the ranks start (their first step waits
+        # for all four to join, well after it ends)
+        with contextlib.redirect_stdout(sys.stderr):
+            whole = LT.train(args, device=dev, cfg=cfg)
+        want = {n: p.detach()
+                for n, p in whole["model"].named_parameters()}
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError("train_sharded: a rank failed:\n"
+                             + "\n".join(x[-3000:] for x in logs))
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = torch.load(os.path.join(out, "params.pt"), map_location=dev)
+    lrs = sum(m["lr"] for m in whole["metrics"])
+    param_err = {}
+    with torch.no_grad():
+        for n, w in want.items():
+            param_err[n] = float((got[n] - w).abs().max()) / lrs
+    worst = max(param_err, key=param_err.get)
+    plan = dryrun.argument_bytes(
+        cfg, "train", args.batch, args.seq,
+        SH.MeshShape(dict(zip(("data", "model"), SHARDED_MESH))))
+    steps, L = args.steps, cfg.n_layers
+    per_rank = dict(launches=dict(token_bucket=0, decode_attention=0,
+                                  flash_prefill=steps * L * 2, ssd_scan=0),
+                    paths=dict(tensor_core=steps * L * 2, cuda_core=0,
+                               backward_tensor_core=steps * L
+                               * fp.BACKWARD_LAUNCHES["tensor_core"],
+                               backward_cuda_core=0),
+                    with_lse=dict(tensor_core=steps * L * 2, cuda_core=0))
+    ref = whole["metrics"]
+    res = dict(
+        arch=TRAIN_ARCH, layers=L, d_model=cfg.d_model, argv=SHARDED_ARGV,
+        mesh=dict(zip(("data", "model"), SHARDED_MESH)), ranks=n_ranks,
+        transport="gloo on one card: four ranks share cuda:0 (NCCL refuses "
+                  "several ranks on one device); a step's ms is not a "
+                  "multi-card number",
+        metrics_unsharded=ref, metrics_by_rank=[r["metrics"] for r in ranks],
+        loss_rel_err=[max(abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                          for m, w in zip(r["metrics"], ref))
+                      for r in ranks],
+        grad_norm_rel_err=[max(abs(m["grad_norm"] - w["grad_norm"])
+                               / w["grad_norm"]
+                               for m, w in zip(r["metrics"], ref))
+                           for r in ranks],
+        max_param_err_lr=param_err[worst], worst_param=worst,
+        ms_per_step_by_rank=[r["step_ms"] for r in ranks],
+        unsharded_ms_per_step=[t * 1e3 for t in whole["step_s"]],
+        bytes_by_rank=[r["bytes"] for r in ranks],
+        dryrun_bytes=plan["port_params"] + plan["optimizer"],
+        dryrun_parts={k: plan[k] for k in ("port_params", "optimizer")},
+        peak_mem_gib_by_rank=[r["peak_mem_gib"] for r in ranks],
+        rank_seconds=[r["seconds_since_start"] for r in ranks],
+        launches_by_rank=[r["launches"] for r in ranks],
+        paths_by_rank=[r["paths"] for r in ranks],
+        plain_calls_by_rank=[r["plain_calls"] for r in ranks],
+        unmoved_by_rank=[r["unmoved"] for r in ranks],
+        rank0_lines=ranks[0]["lines"],
+        other_ranks_printed=[len(r["lines"]) for r in ranks[1:]],
+        tol=dict(loss_rel=SHARDED_LOSS_RTOL, grad_norm_rel=SHARDED_NORM_RTOL,
+                 param_lr=SHARDED_PARAM_LR))
+    emit("train_sharded", **res)
+    mesh_line = f"mesh={res['mesh']}"
+    ok = (all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+          and all(e <= SHARDED_LOSS_RTOL for e in res["loss_rel_err"])
+          and all(e <= SHARDED_NORM_RTOL for e in res["grad_norm_rel_err"])
+          and all(m["lr"] == w["lr"] for r in ranks
+                  for m, w in zip(r["metrics"], ref))
+          and res["max_param_err_lr"] <= SHARDED_PARAM_LR
+          and all(b == res["dryrun_bytes"] for b in res["bytes_by_rank"])
+          and all(r[k] == v for r in ranks for k, v in per_rank.items())
+          and not any(any(r["plain_calls"].values()) for r in ranks)
+          and not any(r["unmoved"] for r in ranks)
+          and ranks[0]["lines"][0].endswith(mesh_line)
+          and len(ranks[0]["lines"]) == 1 + steps
+          and not any(res["other_ranks_printed"]))
+    if not ok:
+        raise AssertionError(f"train_sharded: {res}")
+    del whole, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=sum(r["launches"]["flash_prefill"] for r in ranks),
+                backward_launches=sum(r["paths"]["backward_tensor_core"]
+                                      for r in ranks),
+                ms_per_step=[sum(r["step_ms"][1:]) / (steps - 1)
+                             for r in ranks])
+
+
 #: the dry run's plans the smoke makes (host only)
 DRYRUN_PLANS = (("gemma3-12b", "decode_32k", "pod"),
                 ("llama4-maverick-400b-a17b", "train_4k", "multipod"))
@@ -4827,6 +5067,9 @@ def main() -> int:
     import torch
     if len(sys.argv) == 5 and sys.argv[1] == "--seq-sharded-rank":
         _seq_sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--train-sharded-rank":
+        _sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4937,6 +5180,7 @@ def main() -> int:
     train = phase_train(dev)
     mpar = phase_train_mamba2_parity(dev)
     mtrain = phase_train_mamba2(dev)
+    sharded = phase_train_sharded(dev)
     phase_dryrun()
     n_main = 2
     t = gt["times"][n_main]
@@ -5059,7 +5303,8 @@ def main() -> int:
             # training's forward launches, each also writing the LSE
             rows[-1]["training_launches_with_lse"] = dict(
                 train_parity=tpar["kernels_with_lse"]["tensor_core"],
-                train=train["flash_prefill_with_lse"]["tensor_core"])
+                train=train["flash_prefill_with_lse"]["tensor_core"],
+                train_sharded=sharded["launches"])
             rows[-1]["new_shapes"] = {
                 arch: [{k: r.get(k) for k in keys} for r in rs]
                 for arch, rs in res["new"].items()}
@@ -5105,7 +5350,8 @@ def main() -> int:
             bool(r.get("deterministic")) for r in fbw["rows"]),
         "launches_by_path": dict(
             train_parity=tpar["kernels_paths"]["backward_tensor_core"],
-            train=train["backward_launches"])})
+            train=train["backward_launches"],
+            train_sharded=sharded["backward_launches"])})
     # the SSD scan's gradient: kernels of its own (bf16 on the tensor cores,
     # four launches a call; float32 on the CUDA cores, five), launched on
     # mamba2's training path

@@ -17,6 +17,14 @@ with no processes: the dry run lays out 256 or 512 devices), or a real
 ``torch.distributed.DeviceMesh`` with named dimensions.  ``placements``
 turns a spec into ``DTensor`` placements on a ``DeviceMesh``.
 
+``shard_model`` lays a model's parameters out on a ``DeviceMesh`` by these
+rules (each a ``DTensor`` holding this rank's block), ``full_values`` and
+``load_full`` gather and scatter them (checkpoints, tests), ``shard_of``
+takes a rank's block of any array under a spec (the batch's rows under
+``data_spec``) and ``batch_split`` says which mesh axes a batch's rows are
+split over (``distributed.fsdp``: the train step computes on gathered
+weights).
+
 Default placement (single-pod mesh ("data", "model")):
   * "embed" (d_model dims of weights)          -> "data"   (FSDP-style)
   * "vocab" / "heads" / "mlp" / "head_dim"     -> "model"  (megatron TP)
@@ -37,6 +45,11 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import torch
+from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import fsdp
 from repro_torch.models import convert, transformer as T
 from repro_torch.models.config import ArchConfig
 
@@ -241,3 +254,67 @@ def placements(spec: Spec, mesh) -> list:
             raise ValueError(f"spec {spec}: {tuple(names)} is not in the "
                              f"mesh's order {tuple(sizes)}")
     return [Shard(owner[a]) if a in owner else Replicate() for a in sizes]
+
+
+def shard_of(x, spec: Spec, mesh):
+    """This rank's block of ``x`` (a tensor or numpy array) under ``spec``
+    on a ``DeviceMesh`` (``fsdp.local_block``)."""
+    return fsdp.local_block(x, mesh, placements(spec, mesh))
+
+
+def batch_split(mesh, batch: int) -> fsdp.Split:
+    """The mesh axes a global batch of ``batch`` rows is split over:
+    ``data_spec``'s batch axes, none where it replicates the batch."""
+    ax = data_spec(mesh, 1, batch=batch)[0]
+    return fsdp.Split(mesh, () if ax is None else
+                      tuple(ax) if isinstance(ax, tuple) else (ax,))
+
+
+@torch.no_grad()
+def shard_model(model: T.Transformer, mesh) -> T.Transformer:
+    """Lay ``model``'s parameters out on ``mesh`` in place, as the
+    reference's launcher does (``rules_for_config``): each becomes a
+    ``DTensor`` parameter (``placements(spec_for(...))``) holding this
+    rank's block of the full value the model holds, which every rank must
+    build the same (the same seed, or the same loaded weights); no
+    collective runs.  Sets ``model.mesh``.  Returns the model."""
+    specs = param_shardings(model, mesh, rules_for_config(model.cfg))
+    for name, p in list(model.named_parameters()):
+        owner, attr = _owner(model, name)
+        pl = placements(specs[name], mesh)
+        local = fsdp.local_block(p.detach(), mesh, pl).clone()
+        owner._parameters[attr] = nn.Parameter(
+            DTensor.from_local(local, mesh, pl, run_check=False,
+                               shape=p.shape, stride=p.stride()),
+            requires_grad=p.requires_grad)
+    model.mesh = mesh
+    return model
+
+
+def _owner(model, name: str):
+    path, _, attr = name.rpartition(".")
+    return (model.get_submodule(path) if path else model), attr
+
+
+def full_values(model: T.Transformer, values: dict | None = None) -> dict:
+    """{parameter name: full tensor} of a sharded model's parameters, or of
+    ``values`` laid out as them (its AdamW moments); every rank of the mesh
+    must call this (it gathers).  Plain tensors pass as they are."""
+    values = values if values is not None else dict(
+        model.named_parameters())
+    return {name: fsdp.full_value(values[name]).detach()
+            for name, _ in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_full(tensors: dict, values: dict) -> None:
+    """Copy into each of ``tensors`` ({name: parameter or moment}) its block
+    of the full value ``values[name]`` (an array or tensor), cast to its
+    dtype: a ``DTensor`` takes this rank's block, a plain tensor all."""
+    for name, t in tensors.items():
+        v = torch.as_tensor(values[name])
+        if isinstance(t, DTensor):
+            t.to_local().copy_(fsdp.local_block(v, t.device_mesh,
+                                                t.placements))
+        else:
+            t.copy_(v)

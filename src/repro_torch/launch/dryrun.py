@@ -255,7 +255,8 @@ class DroplessCount(nn.Module):
     def all_experts(self, x):
         return self._routed(x)
 
-    def capacity(self, x):
+    def capacity(self, x, split=None):
+        # split is None: a plan runs on no mesh
         probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                               @ self.moe.router, -1)
         return self._routed(x), probs

@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed import actsharding
+from repro_torch.distributed import actsharding, fsdp
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.models import module as init
@@ -392,7 +392,7 @@ class MoE(nn.Module):
             start += n
         return y.to(x.dtype).view(B, S, E)
 
-    def capacity(self, x: torch.Tensor):
+    def capacity(self, x: torch.Tensor, split=None):
         """x [B, S, E] through the reference's training dispatch
         (``moe_block(dropless=False)``): capacity C = int(capacity_factor
         T K / X) + 1 rows an expert; the routed (token, expert) pairs sorted
@@ -401,7 +401,16 @@ class MoE(nn.Module):
         [C, E] buffer (the gated form always, as the reference); each
         token's kept outputs times its gates summed in float32 in expert
         order (``segment_sum``) and cast once.  Returns (y [B, S, E],
-        probs [T, X] float32, the router's softmax for ``moe_aux_loss``)."""
+        probs [T, X] float32, the router's softmax for ``moe_aux_loss``).
+
+        With the batch's rows split over ranks (``split``, a
+        ``distributed.fsdp.Split`` of more than one rank) the dispatch is
+        the global batch's, as the reference's: x's rows of every rank are
+        gathered (differentiably), T, C, the drops and probs are the
+        global ones, and y is this rank's rows."""
+        if split is not None and split.n > 1:
+            y, probs = self.capacity(fsdp.gather_rows(x, split))
+            return fsdp.own_rows(y, split), probs
         B, S, E = x.shape
         X, K = self.cfg.n_experts, self.cfg.top_k
         T = B * S

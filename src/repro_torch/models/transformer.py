@@ -52,6 +52,16 @@ them), attention through ``flash_attention`` when grad is enabled (the
 flash-prefill kernel and its backward kernel).  Training needs the
 training storage (``init_model(..., train=True)``: float32 parameters that
 require grad, cast at each use, the tied head too).
+
+A model laid out on a mesh (``distributed.sharding.shard_model``: its
+parameters ``DTensor`` blocks, ``model.mesh`` set) runs ``forward`` on
+gathered weights (``distributed.fsdp``): the embedding, frontend
+projection, norms and head once for the pass, each decoder and encoder
+block's own inside its call, so that under ``remat`` a block's gathered
+weights are freed after it and gathered again in the recompute.  ``split``
+names the mesh axes the batch's rows are split over: the gradients are
+summed over those axes alone, and a MoE layer dispatches the global batch
+(``layers.MoE.capacity``).
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -160,14 +171,16 @@ class Block(nn.Module):
         return self._ffn(self._mixers(x, tables, cache_kv, memory, plain),
                          False)
 
-    def forward(self, x, tables, *, memory=None, plain: bool = False):
+    def forward(self, x, tables, *, memory=None, plain: bool = False,
+                split: fsdp.Split | None = None):
         """Full sequence at positions 0..S-1 with no cache (training): (x,
         aux), aux the MoE load-balance loss of a MoE layer (its training
-        dispatch, ``layers.MoE.capacity``) and None otherwise."""
+        dispatch, ``layers.MoE.capacity``, over the global batch of
+        ``split``'s rows) and None otherwise."""
         x = self._mixers(x, tables, None, memory, plain)
         if not self.moe:
             return self._ffn(x, False), None
-        y, probs = self.ffn.capacity(self.ln2(x))
+        y, probs = self.ffn.capacity(self.ln2(x), split)
         return x + y, L.moe_aux_loss(probs)
 
     def decode(self, x, tables, cache_kv, slot, valid, mem_valid, *,
@@ -319,6 +332,9 @@ class Transformer(nn.Module):
         #: {parameter name: the reference's logical axes} (``param_axes``)
         self.logical_axes = {name: mk.axes[id(p)]
                              for name, p in self.named_parameters()}
+        #: the ``DeviceMesh`` the parameters are laid out on
+        #: (``distributed.sharding.shard_model``); None: plain tensors
+        self.mesh = None
         self.unembed_w = None
         self.tie()
 
@@ -374,17 +390,19 @@ class Transformer(nn.Module):
         return (emb.float() @ self.frontend_proj).to(
             L.torch_dtype(cfg.dtype))
 
-    def encode(self, x: torch.Tensor, *, plain: bool = False
-               ) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, *, plain: bool = False,
+               split: fsdp.Split | None = None) -> torch.Tensor:
         """The bidirectional encoder over the projected frontend x
         [B, F, d_model] (RoPE at positions 0..F-1, no mask), then
-        ``enc_norm``, as the reference's ``_encode``."""
+        ``enc_norm``, as the reference's ``_encode``; each block on its
+        gathered weights under ``split`` (a sharded model)."""
         tables = L.rope_tables(
             torch.arange(x.shape[1], device=x.device)[None, :],
             self.cfg.head_dim_, theta=self.cfg.rope_theta,
             fraction=self.cfg.rope_fraction)
         for blk in self.encoder:
-            x = blk(x, tables, plain=plain)
+            with fsdp.gathered(blk.modules(), split):
+                x = blk(x, tables, plain=plain)
         return self.enc_norm(x)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -424,7 +442,8 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None,
     return Transformer(cfg, device=dev, gen=gen, train=train)
 
 
-def _memory(model: Transformer, frontend_emb, plain: bool):
+def _memory(model: Transformer, frontend_emb, plain: bool,
+            split: fsdp.Split | None = None):
     """The memory the ``cross`` and ``xattn`` layers attend: the projected
     frontend embeddings, through the encoder where the config has one; None
     without a frontend.  A config with a frontend needs the embeddings, one
@@ -439,13 +458,20 @@ def _memory(model: Transformer, frontend_emb, plain: bool):
         return None
     memory = model.frontend_kv(frontend_emb)
     if cfg.encoder_layers:
-        memory = model.encode(memory, plain=plain)
+        memory = model.encode(memory, plain=plain, split=split)
     return memory
+
+
+def _outer_modules(model: Transformer) -> list:
+    """The model's modules outside its blocks: the embedding (and tied
+    head), frontend projection, ``enc_norm``, ``final_norm``, the head."""
+    return [m for name, m in model.named_modules()
+            if not name.startswith(("blocks", "encoder"))]
 
 
 def forward(model: Transformer, tokens: torch.Tensor,
             frontend_emb: torch.Tensor | None = None, *, remat: bool = False,
-            plain: bool = False):
+            plain: bool = False, split: fsdp.Split | None = None):
     """Full-sequence forward of tokens [B, S] with no cache -> (logits
     [B, S, V], aux), aux the float32 sum of the MoE layers' load-balance
     losses (0 without MoE layers): the reference's ``forward``.  A config
@@ -457,10 +483,12 @@ def forward(model: Transformer, tokens: torch.Tensor,
     not, as there.  The reference's ``kv_chunk`` (its jnp attention's KV
     chunk) and ``unroll`` change no value beyond summation order and have
     no counterpart.  ``plain`` runs the plain versions on a CUDA tensor too
-    (parity checks only)."""
+    (parity checks only).  A sharded model (``model.mesh``) computes on
+    gathered weights (module docstring), its batch's rows split over
+    ``split``'s axes (default: replicated, split over none)."""
     cfg = model.cfg
-    memory = _memory(model, frontend_emb, plain)
-    x = model.embed_tokens(tokens)
+    if model.mesh is not None and split is None:
+        split = fsdp.Split(model.mesh)
     tables = model._tables(torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :])
     period, reps = cfg.period, cfg.n_layers // cfg.period
@@ -468,20 +496,25 @@ def forward(model: Transformer, tokens: torch.Tensor,
 
     def body(x, aux, blks):
         for blk in blks:
-            x, a = blk(x, tables, memory=memory, plain=plain)
+            with fsdp.gathered(blk.modules(), split):
+                x, a = blk(x, tables, memory=memory, plain=plain,
+                           split=split)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for r in range(reps):
-        blks = blocks[r * period:(r + 1) * period]
-        if remat:
-            x, aux = checkpoint(body, x, aux, blks, use_reentrant=False)
-        else:
-            x, aux = body(x, aux, blks)
-    x, aux = body(x, aux, blocks[reps * period:])
-    return model.unembed(x), aux
+    with fsdp.gathered(_outer_modules(model), split):
+        memory = _memory(model, frontend_emb, plain, split)
+        x = model.embed_tokens(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for r in range(reps):
+            blks = blocks[r * period:(r + 1) * period]
+            if remat:
+                x, aux = checkpoint(body, x, aux, blks, use_reentrant=False)
+            else:
+                x, aux = body(x, aux, blks)
+        x, aux = body(x, aux, blocks[reps * period:])
+        return model.unembed(x), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

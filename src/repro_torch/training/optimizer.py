@@ -18,6 +18,13 @@ training state).  ``global_norm`` sums the squares leaf by leaf in the
 reference's leaf order (``jax.tree.leaves``: sorted keys, a stacked leaf as
 one), given as ``groups`` (``repro_torch.models.convert.leaf_groups``), so
 the clip scale is the reference's up to float32 summation order.
+
+A sharded model's parameters, gradients and moments are ``DTensor``s laid
+out alike (``distributed.sharding.shard_model``; ``init`` lays the moments
+out as the parameters): the update runs on each rank's local blocks, and
+``global_norm`` is the global gradient's, each parameter's squares summed
+over its local block and then over the mesh axes that shard it alone
+(``fsdp.sum_over_shards``), so every rank clips by the same scale.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import fsdp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +58,8 @@ class OptState(NamedTuple):
 
 
 def init(params: dict) -> OptState:
-    """Zero moments (float32) for every parameter, step 0."""
+    """Zero moments (float32) for every parameter, laid out as it (a
+    ``DTensor`` parameter's are ``DTensor``s of its placements), step 0."""
     dev = next(iter(params.values())).device
     zeros = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()}
@@ -66,24 +77,34 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local block (the tensor itself under no_grad);
+    a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(grads: dict, groups: list | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (float32), summed per
     leaf of ``groups`` (lists of names; default one leaf per name, in the
-    dict's order), then over the leaves."""
+    dict's order), then over the leaves; a ``DTensor`` gradient's squares
+    summed over the ranks that hold its blocks."""
     groups = groups if groups is not None else [[n] for n in grads]
+    sq = {n: torch.sum(torch.square(_local(g).float()))
+          for n, g in grads.items()}
+    fsdp.sum_over_shards(sq, grads)
     leaves = []
     for names in groups:
-        sq = [torch.sum(torch.square(grads[n].float())) for n in names]
-        leaves.append(sq[0] if len(sq) == 1 else torch.stack(sq).sum())
+        s = [sq[n] for n in names]
+        leaves.append(s[0] if len(s) == 1 else torch.stack(s).sum())
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, params: dict, grads: dict, state: OptState, *,
           groups: list | None = None):
-    """One AdamW step, in place: returns (params, new state, metrics
-    ``{"grad_norm", "lr"}``).  A parameter without a gradient (None) takes
-    a zero one."""
+    """One AdamW step, in place (a ``DTensor`` on its local block):
+    returns (params, new state, metrics ``{"grad_norm", "lr"}``).  A
+    parameter without a gradient (None) takes a zero one."""
     gn = global_norm({n: g if g is not None else torch.zeros_like(params[n])
                       for n, g in grads.items()}, groups)
     # a true division (``float / tensor`` is a reciprocal times the float)
@@ -95,10 +116,10 @@ def apply(cfg: AdamWConfig, params: dict, grads: dict, state: OptState, *,
     b1c = 1 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
     b2c = 1 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
     for n, p in params.items():
-        g = grads[n]
+        p, g = _local(p), grads[n]
         g = torch.zeros_like(p, dtype=torch.float32) if g is None \
-            else g.float() * scale
-        m, v = state.m[n], state.v[n]
+            else _local(g).float() * scale
+        m, v = _local(state.m[n]), _local(state.v[n])
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         pf = p.float()

@@ -137,7 +137,8 @@ def main(rank: int, world: int, port: int, out: str) -> None:
             res[f"cache_plain_{li}_{j}"] = \
                 w[b, part(w.shape[1], 2, at["data"])].numpy()
             res[f"cache_hooked_{li}_{j}"] = loc.numpy()
-    # the production mesh and the launcher refuse this world of 4 ranks
+    # the production mesh refuses this world of 4 ranks, and the launcher
+    # given no mesh
     from repro_torch.launch import mesh as M, train as t_train
     for key, fn in (
             ("mesh_error", lambda: M.make_production_mesh(device="cpu")),

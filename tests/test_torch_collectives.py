@@ -328,7 +328,8 @@ def test_cache_update_and_decode_step_across_ranks(ranks):
             np.testing.assert_array_equal(h[:, keep], a[:, keep])
             np.testing.assert_allclose(h, a, rtol=2e-4, atol=2e-4)
     assert written == B                  # one slot a sequence, once
-    for res in ranks:    # a world of 4: no production mesh, no training
+    for res in ranks:    # a world of 4: no production mesh, and the
+        # launcher trains on it only on a given mesh
         assert "needs a process group of 256 ranks" in str(res["mesh_error"])
-        assert "sharded across more than one rank" in str(
+        assert "a world of 4 ranks needs a mesh to train on" in str(
             res["launcher_error"])

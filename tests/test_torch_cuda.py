@@ -1023,6 +1023,39 @@ def test_ssd_train_step_kernels_match_plain_on_card(dev):
     assert chip_smoke.mamba2_train_launches_ok(res, "cuda_core"), res
 
 
+def test_sharded_launcher_on_one_rank_mesh_matches_unsharded_on_card(dev):
+    """``launch/train.py --arch starcoder2-3b`` (the reduced float32 config)
+    on a one-rank 1x1 mesh on the card (``launch.mesh.make_dev_mesh``
+    starts a one-rank process group; the parameters and AdamW moments are
+    ``DTensor`` blocks, and no collective runs): two steps bitwise equal to
+    the unsharded launcher's (metrics, parameters and moments), both
+    through the same flash kernels, no plain call."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_dev_mesh
+    args = LT.parser().parse_args(["--arch", "starcoder2-3b", "--steps",
+                                   "2"])
+    runs, paths = [], []
+    plain = dict(fp_ops.PLAIN_CALLS)
+    for mesh in (None, make_dev_mesh(1, 1, device=dev)):
+        before = dict(fp_ops.LAUNCHES_BY_PATH)
+        runs.append(LT.train(args, device=dev, mesh=mesh))
+        paths.append({k: fp_ops.LAUNCHES_BY_PATH[k] - before[k]
+                      for k in before})
+    whole, sharded = runs
+    n = 2 * whole["cfg"].n_layers
+    assert paths[0] == paths[1] == dict(
+        tensor_core=0, cuda_core=n, backward_tensor_core=0,
+        backward_cuda_core=n * fp_ops.BACKWARD_LAUNCHES["cuda_core"])
+    assert fp_ops.PLAIN_CALLS == plain
+    assert sharded["metrics"] == whole["metrics"]
+    full = SH.full_values(sharded["model"])
+    m = SH.full_values(sharded["model"], sharded["opt_state"].m)
+    for name, p in whole["model"].named_parameters():
+        assert torch.equal(full[name], p.detach()), name
+        assert torch.equal(m[name], whole["opt_state"].m[name]), name
+
+
 def test_launcher_trains_mamba2_on_card(dev):
     """``launch/train.py --arch mamba2-780m`` in its dev mode (the reduced
     config, float32) on the card: finite losses, every ssd layer's scan

@@ -306,6 +306,19 @@ def _dense_gemm_flops(cfg, mode: str, B: int, S: int) -> int:
     return 2 * (cfg.n_layers * per_layer + head)
 
 
+def test_dryrun_counts_moe_training_flops():
+    """The training step of a MoE arch (reduced mixtral: every layer MoE,
+    its training dispatch ``MoE.capacity`` counted as the dropless one)
+    traces on meta tensors: more FLOPs than its prefill of the same
+    tokens, and the "x reps" count equals the every-layer count."""
+    cfg = port_arch(get_reduced_config("mixtral-8x22b", n_layers=4))
+    train = DR.count_flops(cfg, "train", 2, 32)
+    assert train["flops_total"] > DR.count_flops(cfg, "prefill", 2,
+                                                 32)["flops_total"] > 0
+    assert train["flops_total"] == DR.count_flops(
+        cfg, "train", 2, 32, unrolled=True)["flops_total"]
+
+
 def test_dryrun_flops_of_reduced_dense_arch():
     """FLOPs counted over the plain versions on meta tensors equal 2 x the
     GEMMs' multiply-adds for the reduced qwen2.5 (dense, global attention)
